@@ -1,0 +1,108 @@
+"""Single-Source Shortest Paths, workfront Bellman-Ford (paper Fig. 9).
+
+Counterpart of ``repro.apps.sssp``: ``SSSP_APP`` is the min-merged
+relaxation scatter with an improved-distance frontier; ``sssp`` is a numpy
+copy of the reference's host oracle.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.iru import IRUConfig
+from repro_torch.core.pipeline import (CapacityPolicy, FrontierApp,
+                                       FrontierPipeline)
+from repro_torch.graphs.csr import CSRGraph
+
+INF = np.float32(np.inf)
+
+
+def _expand_offsets(row_ptr: np.ndarray, frontier: np.ndarray) -> np.ndarray:
+    starts = row_ptr[frontier]
+    counts = row_ptr[frontier + 1] - starts
+    total = int(counts.sum())
+    if total == 0:
+        return np.empty(0, np.int64)
+    return np.repeat(starts, counts) + (
+        np.arange(total) - np.repeat(np.cumsum(counts) - counts, counts))
+
+
+def sssp(graph: CSRGraph, source: int = 0, *,
+         max_rounds: int = 10_000) -> np.ndarray:
+    """Host (numpy) workfront Bellman-Ford; float32 distances."""
+    row_ptr = graph.row_ptr.cpu().numpy()
+    col_idx = graph.col_idx.cpu().numpy()
+    weights = graph.weights.cpu().numpy().astype(np.float32)
+    dist = np.full(graph.n_nodes, INF, np.float32)
+    dist[source] = 0.0
+    frontier = np.array([source], np.int32)
+    rounds = 0
+    while frontier.size and rounds < max_rounds:
+        rounds += 1
+        offs = _expand_offsets(row_ptr, frontier)
+        if offs.size == 0:
+            break
+        counts = row_ptr[frontier + 1] - row_ptr[frontier]
+        srcs = np.repeat(frontier, counts)
+        dsts = col_idx[offs]
+        cand = dist[srcs] + weights[offs]
+        old = dist.copy()
+        np.minimum.at(dist, dsts, cand)
+        frontier = np.unique(dsts[dist[dsts] < old[dsts]]).astype(np.int32)
+    return dist
+
+
+def _sssp_init(graph: CSRGraph, source: int):
+    n, dev = graph.n_nodes, graph.device
+    dist = torch.full((n,), float("inf"), dtype=torch.float32, device=dev)
+    dist[source] = 0.0
+    mask = torch.zeros(n, dtype=torch.bool, device=dev)
+    mask[source] = True
+    return {"dist": dist}, mask
+
+
+def _sssp_candidate(state, graph: CSRGraph, ef):
+    # relaxation candidate dist[src] + w; padding srcs (== n) are clamped in
+    # range, as the reference's gather clamps them, and their lanes are
+    # overwritten with +inf by the pipeline
+    srcs = ef.srcs.clamp(max=graph.n_nodes - 1)
+    return state["dist"][srcs] + ef.weights
+
+
+def _sssp_update(state, new_dist, graph: CSRGraph):
+    mask = new_dist < state["dist"]
+    return {"dist": new_dist}, mask
+
+
+SSSP_APP = FrontierApp(
+    name="sssp",
+    filter_op="min",          # the merged atomicMin datapath
+    target="dist",
+    init=_sssp_init,
+    candidate=_sssp_candidate,
+    update=_sssp_update,
+    cond=lambda state, mask: mask.any(),
+    result=lambda state: state["dist"],
+    needs_weights=True,
+)
+
+
+def sssp_pipeline(
+    graph: CSRGraph,
+    source: int = 0,
+    *,
+    mode: str = "baseline",
+    iru_config: Optional[IRUConfig] = None,
+    capacity_policy: Optional[CapacityPolicy] = None,
+    max_rounds: int = 10_000,
+    device: str | torch.device | None = None,
+    **pipeline_kw,
+) -> torch.Tensor:
+    """Workfront Bellman-Ford through ``FrontierPipeline``."""
+    pipe = FrontierPipeline(graph, SSSP_APP, mode=mode, iru_config=iru_config,
+                            capacity_policy=capacity_policy,
+                            max_iters=max_rounds, device=device,
+                            **pipeline_kw)
+    return pipe.run(source)

@@ -1,0 +1,102 @@
+"""The port stands alone: it imports neither ``jax`` nor ``repro``, and its
+entry points run on the card unless the caller asks for the CPU.
+
+Each check runs in a fresh interpreter, so what it blocks or hides (``jax``
+and ``repro`` in ``sys.modules``, the card through ``CUDA_VISIBLE_DEVICES``)
+never touches this process.
+"""
+from __future__ import annotations
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+
+
+def _run(code: str, **env_extra) -> subprocess.CompletedProcess:
+    env = dict(os.environ, PYTHONPATH=str(SRC), **env_extra)
+    return subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_every_module_imports_without_jax_or_repro():
+    code = """
+import pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                "repro_torch.")]
+for name in names:
+    __import__(name)
+leaked = sorted(k for k in sys.modules
+                if k.split(".")[0] in ("jax", "jaxlib", "repro")
+                and sys.modules[k] is not None)
+assert not leaked, leaked
+print(len(names))
+"""
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.strip()) >= 20
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked():
+    code = """
+import torch
+from repro_torch.apps import bfs_pipeline, pagerank_pipeline, sssp_pipeline
+from repro_torch.core import FrontierPipeline
+from repro_torch.apps.bfs import BFS_APP
+from repro_torch.graphs.generators import kron
+assert not torch.cuda.is_available()
+g = kron(scale=6, device="cpu")
+calls = [lambda: FrontierPipeline(g, BFS_APP), lambda: bfs_pipeline(g),
+         lambda: sssp_pipeline(g), lambda: pagerank_pipeline(g, iters=2),
+         lambda: kron(scale=4)]
+for call in calls:
+    try:
+        call()
+    except RuntimeError as e:
+        assert "device='cpu'" in str(e), e
+    else:
+        raise AssertionError("ran without CUDA and without device='cpu'")
+label = bfs_pipeline(g, device="cpu")
+assert label.device.type == "cpu" and int(label[0]) == 0
+print("ok")
+"""
+    r = _run(code, CUDA_VISIBLE_DEVICES="")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+def test_chip_smoke_imports_only_the_port_torch_and_numpy():
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            roots.add(node.module.split(".")[0])
+    assert not roots & {"jax", "jaxlib", "repro"}, roots
+    assert {"repro_torch", "torch", "numpy"} <= roots
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_fails_without_cuda_or_without_the_repo(where, tmp_path):
+    script = ROOT / "chip_smoke.py"
+    if where == "alone":  # a directory holding chip_smoke.py and nothing else
+        (tmp_path / "chip_smoke.py").write_text(script.read_text())
+        script, cwd = tmp_path / "chip_smoke.py", tmp_path
+    else:
+        cwd = ROOT
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    r = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout

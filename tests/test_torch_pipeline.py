@@ -1,0 +1,223 @@
+"""Port parity: the whole slice (``FrontierPipeline`` with BFS, SSSP and
+PageRank) against ``repro.core.pipeline`` with ``gather="xla"``.
+
+BFS labels and SSSP distances are bit-identical (min merges are order free,
+and SSSP's per-edge sums are the same f32 adds).  PageRank is held to rtol
+1e-5 (+ atol 1e-9 for ranks near zero): its contributions are summed in
+another order.  The bucket hops (``n_hops``) must match too: the port's host
+loop re-implements the reference's per-rung ``while_loop`` rule.  Every
+graph crosses to the port through ``repro_torch.convert``.
+"""
+from __future__ import annotations
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import pipeline as jpipe
+from repro.graphs import csr as jcsr
+from repro_torch.convert import state_from_numpy
+from repro_torch.core import pipeline as tpipe
+from repro_torch.graphs import generators
+from torch_parity import jax_graph_to_torch, n, t
+
+# the app modules (``repro.apps`` re-exports functions under the same names)
+jbfs, jsssp, jpr, tbfs, tsssp, tpr = (
+    importlib.import_module(f"{pkg}.apps.{app}")
+    for pkg in ("repro", "repro_torch") for app in ("bfs", "sssp", "pagerank"))
+
+
+def _weighted(edges, seed):
+    src, dst, nn = edges
+    w = np.random.default_rng(seed).uniform(1.0, 64.0, src.shape[0]).astype(
+        np.float32)
+    return jcsr.from_edges(src, dst, nn, w, symmetrize=True)
+
+
+GRAPHS = {
+    "kron8": lambda: _weighted(generators.kron_edges(scale=8), 1),
+    "delaunay16": lambda: _weighted(generators.delaunay_edges(scale=16), 2),
+}
+POLICIES = {
+    1: (jpipe.CapacityPolicy(), tpipe.CapacityPolicy()),
+    3: (jpipe.CapacityPolicy(n_buckets=3, min_capacity=64, growth=4),
+        tpipe.CapacityPolicy(n_buckets=3, min_capacity=64, growth=4)),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(GRAPHS))
+def graphs(request):
+    jg = GRAPHS[request.param]()
+    return jg, jax_graph_to_torch(jg)
+
+
+def _apps(name):
+    if name == "bfs":
+        return jbfs.BFS_APP, tbfs.BFS_APP, None
+    if name == "sssp":
+        return jsssp.SSSP_APP, tsssp.SSSP_APP, None
+    return jpr.pagerank_app(iters=12), tpr.pagerank_app(iters=12), 12
+
+
+@pytest.mark.parametrize("app", ["bfs", "sssp", "pagerank"])
+@pytest.mark.parametrize("mode", ["baseline", "sort"])
+@pytest.mark.parametrize("buckets", [1, 3])
+def test_pipeline_matches_reference(graphs, app, mode, buckets):
+    jg, tg = graphs
+    japp, tapp, iters = _apps(app)
+    jpol, tpol = POLICIES[buckets]
+    jp = jpipe.FrontierPipeline(jg, japp, mode=mode, capacity_policy=jpol,
+                                max_iters=iters, gather="xla")
+    tp = tpipe.FrontierPipeline(tg, tapp, mode=mode, capacity_policy=tpol,
+                                max_iters=iters, device="cpu")
+    want, got = np.asarray(jp.run(3)), n(tp.run(3))
+    assert want.dtype == got.dtype
+    if app == "pagerank":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-9)
+    else:
+        assert np.array_equal(got, want)
+    assert tp.n_hops == jp.n_hops
+
+
+@pytest.mark.parametrize("kernels", [pytest.param(True, id="kernel"),
+                                     pytest.param(False, id="torch")])
+def test_wrappers_and_oracles_match_reference(graphs, kernels):
+    jg, tg = graphs
+    kw = dict(mode="sort", device="cpu", kernels=kernels,
+              capacity_policy=POLICIES[3][1])
+    want_bfs = jbfs.bfs(jg, 5)
+    assert np.array_equal(tbfs.bfs(tg, 5), want_bfs)
+    assert np.array_equal(n(tbfs.bfs_pipeline(tg, 5, **kw)), want_bfs)
+    want_sssp = jsssp.sssp(jg, 5)
+    assert np.array_equal(tsssp.sssp(tg, 5), want_sssp)
+    assert np.array_equal(n(tsssp.sssp_pipeline(tg, 5, **kw)), want_sssp)
+    want_pr = jpr.pagerank(jg, iters=10)
+    assert np.array_equal(tpr.pagerank(tg, iters=10), want_pr)
+    np.testing.assert_allclose(n(tpr.pagerank_pipeline(tg, iters=10, **kw)),
+                               want_pr, rtol=1e-5, atol=1e-9)
+
+
+def test_step_from_converted_state_matches_reference(graphs):
+    """Carry a mid-traversal reference state across and step both."""
+    jg, tg = graphs
+    pol_j = jpipe.CapacityPolicy(n_buckets=3, min_capacity=64, growth=4)
+    jp = jpipe.FrontierPipeline(jg, jsssp.SSSP_APP, mode="sort",
+                                capacity_policy=pol_j)
+    tp = tpipe.FrontierPipeline(tg, tsssp.SSSP_APP, mode="sort",
+                                capacity_policy=POLICIES[3][1], device="cpu")
+    state, mask = jp.init(0)
+    for _ in range(2):
+        r = jp.step(state, mask)
+        state, mask = r.state, r.mask
+    want = jp.step(state, mask)
+    got = tp.step(state_from_numpy(state, "cpu"), t(np.asarray(mask)))
+    assert got.bucket == want.bucket and got.overflow == want.overflow
+    assert np.array_equal(n(got.state["dist"]), np.asarray(want.state["dist"]))
+    for field in ("mask", "idx", "act", "real", "n_edges"):
+        assert np.array_equal(n(getattr(got, field)),
+                              np.asarray(getattr(want, field))), field
+
+
+def test_frontier_step_direct_matches_reference(graphs):
+    jg, tg = graphs
+    state, mask = jbfs.BFS_APP.init(jg, 1)
+    jout = jpipe.frontier_step(jg, jbfs.BFS_APP, state, mask, e_cap=jg.n_edges,
+                               f_cap=jg.n_nodes, iru_config=None)
+    tout = tpipe.frontier_step(tg, tbfs.BFS_APP, state_from_numpy(state, "cpu"),
+                               t(np.asarray(mask)), e_cap=tg.n_edges,
+                               f_cap=tg.n_nodes, iru_config=None)
+    assert np.array_equal(n(tout[0]["label"]), np.asarray(jout[0]["label"]))
+    for a, b in zip(jout[1:], tout[1:]):
+        assert np.array_equal(np.asarray(a), n(b))
+
+
+def test_shrunk_capacity_overflow(graphs):
+    jg, tg = graphs
+    hub = int(tg.degrees().argmax())  # degree >= 2 overflows one lane
+    tp = tpipe.FrontierPipeline(tg, tbfs.BFS_APP, mode="sort",
+                                edge_capacity=1, device="cpu")
+    with pytest.raises(RuntimeError, match="edge_capacity"):
+        tp.run(hub)
+    state, mask = tp.init(hub)
+    r = tp.step(state, mask, raise_on_overflow=False)
+    assert r.overflow and r.state is state and r.mask is mask
+    with pytest.raises(RuntimeError, match="top bucket"):
+        tp.step(state, mask)
+
+
+def test_capacity_ladder_matches_reference():
+    for kw in (dict(), dict(n_buckets=3, min_capacity=64, growth=4),
+               dict(n_buckets=5, min_capacity=10, growth=2)):
+        for cap, nodes in ((5000, 300), (64, 10), (1, 1)):
+            assert (tpipe.CapacityPolicy(**kw).ladder(cap, nodes)
+                    == jpipe.CapacityPolicy(**kw).ladder(cap, nodes))
+    for bad in (dict(n_buckets=0), dict(min_capacity=0), dict(growth=1),
+                dict(hysteresis=0.5)):
+        with pytest.raises(ValueError):
+            tpipe.CapacityPolicy(**bad)
+
+
+def test_pipeline_rejects_hash_mode_and_unknown_options(graphs):
+    _, tg = graphs
+    with pytest.raises(NotImplementedError, match="next slice"):
+        tpipe.FrontierPipeline(tg, tbfs.BFS_APP, mode="hash", device="cpu")
+    with pytest.raises(ValueError):
+        tpipe.FrontierPipeline(tg, tbfs.BFS_APP, mode="bogus", device="cpu")
+    with pytest.raises(TypeError):  # one kernels switch, no per-stage names
+        tpipe.FrontierPipeline(tg, tbfs.BFS_APP, gather="xla", device="cpu")
+
+
+def test_scatter_drop_matches_reference():
+    rng = np.random.default_rng(0)
+    target = rng.uniform(0, 5, 30).astype(np.float32)
+    idx = rng.integers(0, 31, 90).astype(np.int32)  # 30 = sentinel lanes
+    val = rng.uniform(0, 5, 90).astype(np.float32)
+    act = rng.random(90) < 0.7
+    for op in ("add", "min", "max"):
+        want = jpipe._scatter(jnp.asarray(target), jnp.asarray(idx),
+                              jnp.asarray(val), jnp.asarray(act), op)
+        got = tpipe._scatter(t(target), t(idx), t(val), t(act), op)
+        np.testing.assert_allclose(n(got), np.asarray(want), rtol=1e-6)
+    with pytest.raises(ValueError):
+        tpipe._scatter(t(target), t(idx), t(val), t(act), "mul")
+    assert torch.equal(tpipe._scatter(t(target), t(idx), t(val),
+                                      t(np.zeros(90, bool)), "min"),
+                       t(target))
+
+
+@pytest.mark.parametrize("app", ["bfs", "sssp", "pagerank"])
+def test_pipeline_matches_reference_kron10(app):
+    jg = _weighted(generators.kron_edges(scale=10), 3)
+    japp, tapp, iters = _apps(app)
+    jpol, tpol = POLICIES[3]
+    jp = jpipe.FrontierPipeline(jg, japp, mode="sort", capacity_policy=jpol,
+                                max_iters=iters)
+    tp = tpipe.FrontierPipeline(jax_graph_to_torch(jg), tapp, mode="sort",
+                                capacity_policy=tpol, max_iters=iters,
+                                device="cpu")
+    want, got = np.asarray(jp.run(0)), n(tp.run(0))
+    if app == "pagerank":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-9)
+    else:
+        assert np.array_equal(got, want)
+    assert tp.n_hops == jp.n_hops
+
+
+@pytest.mark.parametrize("app", ["bfs", "pagerank"])
+def test_padded_execution_matches_reference(graphs, app):
+    """``ragged=False``: the sort engine sees the whole padded bucket."""
+    jg, tg = graphs
+    japp, tapp, iters = _apps(app)
+    jpol, tpol = POLICIES[3]
+    jp = jpipe.FrontierPipeline(jg, japp, mode="sort", capacity_policy=jpol,
+                                max_iters=iters, ragged=False)
+    tp = tpipe.FrontierPipeline(tg, tapp, mode="sort", capacity_policy=tpol,
+                                max_iters=iters, ragged=False, device="cpu")
+    want, got = np.asarray(jp.run(2)), n(tp.run(2))
+    if app == "pagerank":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-9)
+    else:
+        assert np.array_equal(got, want)
