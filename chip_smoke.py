@@ -13,23 +13,31 @@ Phases, in order (any failure exits non-zero and prints no result line):
                stream, at (group, window) = (8, 128) and (256, 256), exactly;
                B2 (segment merge) on kron-20's sorted destination stream with
                an active prefix, for add (f32, rtol 1e-5), min (f32, int32)
-               and max, survivors and min/max exactly;
+               and max, survivors and min/max exactly; B3 (IRU hash) on
+               kron-20's PageRank destination stream (add, f32), a half-graph
+               expansion stream with its live prefix (min on int32 and f32,
+               and no merge) and a stream that hammers eight sets (max, many
+               rounds): indices, positions, active and min/max exactly, add
+               within rtol 1e-5;
   3. apps    -- BFS and SSSP from node 0 on kron-20 and delaunay-1024, and
-               PageRank (20 iterations) on kron-20, through the kernels
-               (kernels=True, mode="sort", 3-bucket CapacityPolicy).  Each
-               run is held against the same run through the plain path
-               (kernels=False: plain gather and merge) -- exactly for BFS/SSSP, rtol
-               1e-5 for PageRank -- and against the port's numpy host oracle
-               (PageRank at rtol 1e-4: the oracle sums each hub's ~1e5
-               contributions sequentially in f32).  The launch counts of each
-               run are zeroed before it and read after it; a kernel of the
-               path with no launch fails the run;
+               PageRank on kron-20, through the kernels (kernels=True,
+               3-bucket CapacityPolicy), once with mode="sort" (B1, B2) and
+               once with mode="hash" (B1, B3).  Each run is held against the
+               same run through the plain path (kernels=False) -- exactly for
+               BFS/SSSP, rtol 1e-5 for PageRank -- and against the port's
+               numpy host oracle (PageRank at rtol 1e-4: the oracle sums each
+               hub's ~1e5 contributions sequentially in f32).  PageRank runs
+               20 iterations.  The launch counts of each run are zeroed before
+               it and read after it; a kernel of the path with no launch
+               fails the run;
   4. timings -- CUDA-event times after a warm-up for each kernel, its plain
-               version and one library call computing the same function, the
-               bound (bytes over the card's 3.35 TB/s), and host-clock times
-               of each app run;
-  5. profile -- device time by kernel and the device's busy share over a
-               short window of PageRank on kron-20 and SSSP on delaunay-1024.
+               version and one library call computing the same function (B3
+               has none), the bound (bytes over the card's 3.35 TB/s), and
+               host-clock times of each app run;
+  5. profile -- device time by kernel and the device's busy share over short
+               windows of PageRank on kron-20 (sort and hash) and SSSP on
+               delaunay-1024, and B3's kernels in one call at PageRank's
+               shape.
 
 It prints the card's name and power limit, one JSON line naming the kernels
 with their numbers, and last {"ok": true, "device": {...}}.  It needs one
@@ -180,7 +188,60 @@ def phase_kernels(g):
             print(f"B2 {op} {str(vals.dtype):13s} active="
                   f"{'all' if act is None else '70% prefix'}: {n} lanes, "
                   f"{int(got_s.sum())} survivors, matches plain")
-    return dsts, contrib, {"coalesced_gather": gerr, "segment_merge": merr}
+    herr = phase_hash_kernel(g, ef, gen)
+    return dsts, contrib, {"coalesced_gather": gerr, "segment_merge": merr,
+                           "iru_reorder": herr}
+
+
+def pagerank_stream(g):
+    """PageRank's reorder input on ``g``: every edge's destination in CSR
+    order, carrying ``rank[src] / deg[src]`` at the uniform start rank."""
+    deg = g.degrees().clamp(min=1).float()
+    return g.col_idx, (1.0 / g.n_nodes / deg)[g.edge_sources().long()]
+
+
+def phase_hash_kernel(g, ef, gen):
+    """B3 against its plain version (``kernels=False``) at full size."""
+    from repro_torch.kernels.iru_reorder import ops as hash_ops
+
+    dev = g.device
+    pr_idx, pr_vals = pagerank_stream(g)
+    lanes = ef.dsts.numel()
+    depth = torch.randint(0, 64, (lanes,), generator=gen, device=dev,
+                          dtype=torch.int32)               # BFS-like payload
+    relax = torch.rand(lanes, generator=gen, device=dev) * 64  # SSSP-like
+    hot = 1 << 20  # eight 32-index blocks: at most eight busy sets
+    hot_idx = (torch.randint(0, 8, (hot,), generator=gen, device=dev)
+               * 4096 + torch.randint(0, 32, (hot,), generator=gen,
+                                      device=dev)).to(torch.int32)
+    hot_vals = torch.rand(hot, generator=gen, device=dev)
+    cases = [("pagerank add", pr_idx, pr_vals, "add", None),
+             ("expansion min int32", ef.dsts, depth, "min", ef.n_valid),
+             ("expansion min f32", ef.dsts, relax, "min", ef.n_valid),
+             ("expansion no merge", ef.dsts, relax, None, ef.n_valid),
+             ("eight hot sets max", hot_idx, hot_vals, "max", None)]
+    herr = 0.0
+    for label, idx, vals, op, n_live in cases:
+        got = hash_ops.hash_reorder(idx, vals, filter_op=op, n_live=n_live)
+        want = hash_ops.hash_reorder(idx, vals, filter_op=op, n_live=n_live,
+                                     kernels=False)
+        torch.cuda.synchronize()
+        for field in ("indices", "positions", "active"):
+            check(torch.equal(getattr(got, field), getattr(want, field)),
+                  f"B3 {label}: {field} equal to plain")
+        if op == "add":
+            check(torch.allclose(got.secondary, want.secondary, rtol=1e-5,
+                                 atol=0.0), f"B3 {label} within rtol 1e-5")
+        else:
+            check(torch.equal(got.secondary, want.secondary),
+                  f"B3 {label} exact")
+        err = (got.secondary.double() - want.secondary.double()).abs().max()
+        herr = max(herr, err.item())
+        live = idx.numel() if n_live is None else int(n_live)
+        print(f"B3 {label:20s}: {idx.numel()} lanes ({live} live), "
+              f"{int(got.active.sum())} survivors, max abs err "
+              f"{err.item():.3g}, matches plain")
+    return herr
 
 
 def phase_apps(graphs):
@@ -192,46 +253,63 @@ def phase_apps(graphs):
     from repro_torch.kernels import launch_counts, reset_launch_counts
 
     policy = CapacityPolicy(n_buckets=3)
-    runs = [("bfs", "kron20", BFS_APP, bfs), ("sssp", "kron20", SSSP_APP, sssp),
-            ("bfs", "delaunay1024", BFS_APP, bfs),
-            ("sssp", "delaunay1024", SSSP_APP, sssp),
-            ("pagerank", "kron20", pagerank_app(20), pagerank)]
+    path = {"sort": ("coalesced_gather", "segment_merge"),
+            "hash": ("coalesced_gather", "iru_reorder")}
+    runs = [(mode, name, gname, app, oracle)
+            for mode in ("sort", "hash")
+            for name, gname, app, oracle in (
+                ("bfs", "kron20", BFS_APP, bfs),
+                ("sssp", "kron20", SSSP_APP, sssp),
+                ("bfs", "delaunay1024", BFS_APP, bfs),
+                ("sssp", "delaunay1024", SSSP_APP, sssp),
+                ("pagerank", "kron20", None, pagerank))]
     # warm-up: first launches load the libraries and CUDA modules
-    FrontierPipeline(graphs["kron20"], BFS_APP, mode="sort",
-                     capacity_policy=policy, max_iters=2).run(0)
-    totals = {"coalesced_gather": 0, "segment_merge": 0}
-    for name, gname, app, oracle in runs:
+    for mode in path:
+        FrontierPipeline(graphs["kron20"], BFS_APP, mode=mode,
+                         capacity_policy=policy, max_iters=2).run(0)
+    totals = {"coalesced_gather": 0, "segment_merge": 0, "iru_reorder": 0}
+    seconds = {}
+    for mode, name, gname, app, oracle in runs:
         g = graphs[gname]
-        iters = 20 if name == "pagerank" else None
-        kernel_pipe = FrontierPipeline(g, app, mode="sort",
+        iters = None
+        if name == "pagerank":
+            iters = 20
+            app = pagerank_app(iters)
+        kernel_pipe = FrontierPipeline(g, app, mode=mode,
                                        capacity_policy=policy,
                                        max_iters=iters)
-        plain_pipe = FrontierPipeline(g, app, mode="sort",
+        plain_pipe = FrontierPipeline(g, app, mode=mode,
                                       capacity_policy=policy,
                                       max_iters=iters, kernels=False)
         reset_launch_counts()
         got, t_kernel = wall_s(lambda: kernel_pipe.run(0))
         counts = {k: launch_counts[k] for k in totals}
+        for k in path[mode]:
+            check(counts[k] > 0, f"{mode} {name} on {gname} launched {k}")
         for k, v in counts.items():
-            check(v > 0, f"{name} on {gname} launched {k}")
             totals[k] += v
         want, t_plain = wall_s(lambda: plain_pipe.run(0))
-        host = oracle(g) if name == "pagerank" else oracle(g, 0)
+        host = oracle(g, iters=iters) if name == "pagerank" else oracle(g, 0)
         host = torch.from_numpy(host).to(g.device)
         if name == "pagerank":
             check(torch.allclose(got, want, rtol=1e-5, atol=0.0),
-                  "pagerank kernel path within rtol 1e-5 of the plain path")
+                  f"{mode} pagerank kernel path within rtol 1e-5 of the "
+                  f"plain path")
             check(torch.allclose(got, host, rtol=1e-4, atol=0.0),
-                  "pagerank within rtol 1e-4 of the host oracle")
+                  f"{mode} pagerank within rtol 1e-4 of the host oracle")
             check(bool(torch.isfinite(got).all()), "finite ranks")
         else:
-            check(torch.equal(got, want), f"{name} equals the plain path")
-            check(torch.equal(got, host), f"{name} equals the host oracle")
-        edges = g.n_edges * (20 if name == "pagerank" else 1)
-        print(f"app {name:8s} {gname:12s}: kernel path {t_kernel:.3f} s "
-              f"({edges / t_kernel:.4g} edges/s), plain path {t_plain:.3f} s, "
-              f"launches {counts}, {kernel_pipe.n_hops} bucket hops, host "
-              f"oracle agrees")
+            check(torch.equal(got, want),
+                  f"{mode} {name} equals the plain path")
+            check(torch.equal(got, host),
+                  f"{mode} {name} equals the host oracle")
+        edges = g.n_edges * (iters if name == "pagerank" else 1)
+        seconds[(mode, name, gname)] = (t_kernel, t_plain)
+        print(f"app {mode} {name:8s} {gname:12s}"
+              f"{f' ({iters} iterations)' if iters else ''}: kernel path "
+              f"{t_kernel:.3f} s ({edges / t_kernel:.4g} edges/s), plain "
+              f"path {t_plain:.3f} s, launches {counts}, "
+              f"{kernel_pipe.n_hops} bucket hops, host oracle agrees")
     return totals
 
 
@@ -268,39 +346,70 @@ def phase_timings(g, dsts, contrib):
         # idx 4 + vals 4 + active 1 read, merged 4 + survivor 1 written
         "bytes": n * (4 + 4 + 1) + n * (4 + 1),
     }
-    for name, row in (("coalesced_gather", b1), ("segment_merge", b2)):
+    # B3 at PageRank's shape: every edge's destination, f32 add, all live.
+    # No single PyTorch call computes the IRU hash, so there is no library
+    # time; the plain version peels about a thousand rounds, so one rep.
+    from repro_torch.kernels.iru_reorder import ops as hash_ops
+
+    pr_idx, pr_vals = pagerank_stream(g)
+    b3 = {
+        "ms": event_ms(lambda: hash_ops.hash_reorder(pr_idx, pr_vals,
+                                                     filter_op="add")),
+        "plain_ms": event_ms(lambda: hash_ops.hash_reorder(
+            pr_idx, pr_vals, filter_op="add", kernels=False), reps=1),
+        "library_ms": None,
+        # idx 4 + vals 4 read; idx 4 + vals 4 + pos 4 + active 1 written
+        "bytes": n * (4 + 4) + n * (4 + 4 + 4 + 1),
+    }
+    rows = {"coalesced_gather": b1, "segment_merge": b2, "iru_reorder": b3}
+    for name, row in rows.items():
         row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+        lib = ("none" if row["library_ms"] is None
+               else f"{row['library_ms']:.4f} ms")
         print(f"time {name}: kernel {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
+              f"{row['plain_ms']:.4f} ms, library {lib}, "
               f"bound {row['bound_ms']:.4f} ms ({row['bytes']} bytes, "
               f"{n} lanes)" + (f", group=window=256 "
                                f"{row['gpu_setting_ms']:.4f} ms"
                                if "gpu_setting_ms" in row else ""))
-    return {"coalesced_gather": b1, "segment_merge": b2}
+    return rows
 
 
 def phase_profile(graphs):
-    """Device time by kernel over short windows of two runs (torch.profiler
-    over CUPTI), and the device's busy share of the window's wall time.
-    Profiling adds host overhead, so the share is a lower bound."""
+    """Device time by kernel over short windows (torch.profiler over CUPTI),
+    and the device's busy share of the window's wall time: PageRank on
+    kron-20 in sort and hash mode, SSSP on delaunay-1024, and one B3 call at
+    PageRank's shape (its kernels one by one).  Profiling adds host
+    overhead, so the share is a lower bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.apps.pagerank import pagerank_app
     from repro_torch.apps.sssp import SSSP_APP
     from repro_torch.core import CapacityPolicy, FrontierPipeline
+    from repro_torch.kernels.iru_reorder import ops as hash_ops
 
-    for label, gname, app, iters in (
-            ("pagerank kron20, 2 iterations", "kron20", pagerank_app(2), 2),
-            ("sssp delaunay1024, first 200 rounds", "delaunay1024",
+    windows = []
+    for label, mode, gname, app, iters in (
+            ("pagerank kron20, 2 iterations", "sort", "kron20",
+             pagerank_app(2), 2),
+            ("pagerank kron20, 2 iterations", "hash", "kron20",
+             pagerank_app(2), 2),
+            ("sssp delaunay1024, first 200 rounds", "sort", "delaunay1024",
              SSSP_APP, 200)):
-        pipe = FrontierPipeline(graphs[gname], app, mode="sort",
+        pipe = FrontierPipeline(graphs[gname], app, mode=mode,
                                 capacity_policy=CapacityPolicy(n_buckets=3),
                                 max_iters=iters)
-        pipe.run(0)  # warm-up
+        windows.append((f"{mode} {label}", lambda pipe=pipe: pipe.run(0)))
+    pr_idx, pr_vals = pagerank_stream(graphs["kron20"])
+    windows.append(("B3 at pagerank's shape, one call",
+                    lambda: hash_ops.hash_reorder(pr_idx, pr_vals,
+                                                  filter_op="add")))
+    for label, fn in windows:
+        fn()  # warm-up
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            _, wall = wall_s(lambda: pipe.run(0))
+            _, wall = wall_s(fn)
         rows = []  # device-side events only (kernels, copies, memsets)
         for e in prof.key_averages():
             dev_us = getattr(e, "self_device_time_total",
@@ -347,6 +456,9 @@ def main() -> int:
         "segment_merge": (
             "src/repro_torch/kernels/segment_merge/segment_merge.cu",
             "src/repro/kernels/segment_merge/segment_merge.py:120"),
+        "iru_reorder": (
+            "src/repro_torch/kernels/iru_reorder/iru_reorder.cu",
+            "src/repro/kernels/iru_reorder/iru_reorder.py:168"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": launches[name],

@@ -92,7 +92,11 @@ def bfs_pipeline(
     device: str | torch.device | None = None,
     **pipeline_kw,
 ) -> torch.Tensor:
-    """BFS through ``FrontierPipeline``; int32 labels on the run's device."""
+    """BFS through ``FrontierPipeline``; int32 labels on the run's device.
+
+    ``mode`` is the pipeline's reorder stage: ``"baseline"``, ``"sort"`` or
+    ``"hash"`` (the paper's IRU hash, kernel B3 on the card).
+    """
     pipe = FrontierPipeline(graph, BFS_APP, mode=mode, iru_config=iru_config,
                             capacity_policy=capacity_policy, device=device,
                             **pipeline_kw)

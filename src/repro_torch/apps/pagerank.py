@@ -89,7 +89,11 @@ def pagerank_pipeline(
     **pipeline_kw,
 ) -> torch.Tensor:
     """Push PageRank through ``FrontierPipeline`` (allclose to
-    :func:`pagerank`: fp-add order differs)."""
+    :func:`pagerank`: fp-add order differs).
+
+    ``mode`` is the pipeline's reorder stage: ``"baseline"``, ``"sort"`` or
+    ``"hash"`` (the paper's IRU hash, kernel B3 on the card).
+    """
     pipe = FrontierPipeline(graph, pagerank_app(iters, damping), mode=mode,
                             iru_config=iru_config,
                             capacity_policy=capacity_policy, max_iters=iters,

@@ -100,7 +100,11 @@ def sssp_pipeline(
     device: str | torch.device | None = None,
     **pipeline_kw,
 ) -> torch.Tensor:
-    """Workfront Bellman-Ford through ``FrontierPipeline``."""
+    """Workfront Bellman-Ford through ``FrontierPipeline``.
+
+    ``mode`` is the pipeline's reorder stage: ``"baseline"``, ``"sort"`` or
+    ``"hash"`` (the paper's IRU hash, kernel B3 on the card).
+    """
     pipe = FrontierPipeline(graph, SSSP_APP, mode=mode, iru_config=iru_config,
                             capacity_policy=capacity_policy,
                             max_iters=max_rounds, device=device,

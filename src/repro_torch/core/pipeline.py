@@ -4,14 +4,14 @@ Counterpart of ``repro.core.pipeline``.  One step composes:
 
 * **expand** -- ``graphs.csr.expand_frontier``, through the block-reuse
   gather (kernel B1);
-* **reorder** -- ``core.iru.iru_reorder`` (the sort engine; the hash engine
-  comes with the next slice);
-* **filter/merge** -- ``core.filter.merge_sorted`` inside the sort engine
-  (kernel B2);
+* **reorder** -- ``core.iru.iru_reorder``: the sort engine
+  (``mode="sort"``) or the paper's hash engine (``mode="hash"``, kernel B3);
+* **filter/merge** -- inside the engine: ``core.filter.merge_sorted``
+  after the sort (kernel B2), or the hash walk's own fold (B3);
 * **update** -- the merged scatter and the app's frontier rule (a
   ``FrontierApp``).
 
-``kernels=False`` runs both kernels' plain versions instead, on any device:
+``kernels=False`` runs the kernels' plain versions instead, on any device:
 the plain path a card run is held against.
 
 The reference runs the traversal as a jitted ``lax.while_loop`` per
@@ -140,7 +140,8 @@ def frontier_step(
         real = ef.valid
     else:
         # padding lanes carry the sentinel index n; ragged execution treats
-        # them as dead lanes (sorted to the tail, never merged)
+        # them as dead lanes (inactive at the tail, never merged), a padded
+        # stream as ordinary elements that the scatter drops
         stream = iru_reorder(ef.dsts, vals, config=iru_config,
                              n_live=ef.n_valid if ragged else None,
                              kernels=kernels)
@@ -202,11 +203,14 @@ class FrontierPipeline:
     """Bucketed frontier runtime over one (graph, app) pair.
 
     ``mode`` selects the reorder stage: ``"baseline"`` (none; the raw
-    expansion stream scatters directly) or ``"sort"`` (the stable-sort
-    engine); ``"hash"`` comes with the next slice.  ``kernels`` runs the
-    expansion gather and the merge through kernels B1 and B2 (``False``: their
-    plain versions on any device).  ``ragged`` passes the expansion's live
-    lane count to the reorder engine.
+    expansion stream scatters directly), ``"sort"`` (the stable-sort engine
+    and kernel B2's merge) or ``"hash"`` (the IRU hash, kernel B3).  The
+    host oracle ``"hash_ref"`` is not a pipeline mode.  ``kernels`` runs
+    the expansion gather and the reorder through the kernels (``False``:
+    their plain versions on any device).  ``ragged`` passes the expansion's
+    live lane count to the reorder engine; without it the engine sees the
+    padded stream, whose sentinel lanes (index ``n``) are ordinary elements
+    dropped at the scatter.
 
     ``device=None`` runs on the card and raises without one; the graph is
     moved to the pipeline's device.
@@ -226,12 +230,10 @@ class FrontierPipeline:
         ragged: bool = True,
         device: str | torch.device | None = None,
     ):
-        if mode == "hash":
-            raise NotImplementedError(
-                "mode='hash' comes with the next slice of the port "
-                "(the batched hash engine and kernel B3)")
-        if mode not in ("baseline", "sort"):
-            raise ValueError(f"mode must be baseline|sort, got {mode!r}")
+        if mode not in ("baseline", "sort", "hash"):
+            raise ValueError(
+                f"mode must be baseline|sort|hash, got {mode!r} (hash_ref "
+                f"is the host oracle; use the apps' host functions)")
         self.device = resolve_device(device)
         self.graph = graph.to(self.device)
         self.app = app

@@ -21,7 +21,7 @@ from pathlib import Path
 KERNEL_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNEL_DIR.parents[2] / "build" / "kernels"
 SOURCES = {name: KERNEL_DIR / name / f"{name}.cu"
-           for name in ("coalesced_gather", "segment_merge")}
+           for name in ("coalesced_gather", "segment_merge", "iru_reorder")}
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -46,6 +46,40 @@ print(len(names))
     assert int(r.stdout.strip()) >= 20
 
 
+def test_hash_path_runs_without_jax_or_repro():
+    """The hash slice (oracle copy, plain engine, wrapper, ``hash_ref`` and
+    the pipeline's hash mode) on the CPU, with ``jax`` and ``repro``
+    blocked."""
+    code = """
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import numpy as np, torch
+from repro_torch.apps.bfs import BFS_APP, bfs
+from repro_torch.core import FrontierPipeline, IRUConfig, iru_reorder
+from repro_torch.graphs.generators import kron
+from repro_torch.kernels.iru_reorder import ops, ref
+idx = np.random.default_rng(0).integers(0, 300, 500).astype(np.int32)
+val = np.ones(500, np.float32)
+want = ref.ragged_oracle(ref.hash_reorder_ref, idx, val, 400, num_sets=16,
+                         slots=4, filter_op="add")
+got = ops.hash_reorder(torch.from_numpy(idx), torch.from_numpy(val),
+                       num_sets=16, slots=4, filter_op="add", n_live=400)
+oracle = iru_reorder(torch.from_numpy(idx), torch.from_numpy(val), n_live=400,
+                     config=IRUConfig(mode="hash_ref", num_sets=16, slots=4,
+                                      filter_op="add"))
+for a, b, c in zip(want, got, oracle):
+    assert np.array_equal(a, b.numpy()) and np.array_equal(a, c.numpy())
+g = kron(scale=6, device="cpu")
+label = FrontierPipeline(g, BFS_APP, mode="hash", device="cpu").run(0)
+assert np.array_equal(label.numpy(), bfs(g, 0))
+print("ok")
+"""
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
 def test_entry_points_need_cuda_unless_cpu_is_asked():
     code = """
 import torch
@@ -56,6 +90,7 @@ from repro_torch.graphs.generators import kron
 assert not torch.cuda.is_available()
 g = kron(scale=6, device="cpu")
 calls = [lambda: FrontierPipeline(g, BFS_APP), lambda: bfs_pipeline(g),
+         lambda: FrontierPipeline(g, BFS_APP, mode="hash"),
          lambda: sssp_pipeline(g), lambda: pagerank_pipeline(g, iters=2),
          lambda: kron(scale=4)]
 for call in calls:

@@ -9,7 +9,14 @@ runs on a machine that has only PyTorch:
 Tolerances: the gather is exact; segment-merge survivor masks and ``min`` /
 ``max`` payloads are exact; float ``add`` payloads are held to rtol 1e-5
 (+ atol 1e-6 near zero), because the kernel's scans add in another order than
-the plain scatter reduction.
+the plain scatter reduction.  The IRU hash (B3) gives indices, positions,
+active flags and min/max payloads exactly; its float ``add`` folds run in
+stream order, as in the numpy oracle, so they equal the oracle exactly and
+the plain version (whose scatter adds in another order) within rtol 1e-5.
+Its float payloads are positive, as PageRank's are: long mixed-sign sums
+cancel, and two f32 orders of one such sum can differ by more than any
+relative tolerance of the result (3.3e-5 on one lane of 65,536 in a first
+run on the card), while the exact check against the oracle holds either way.
 """
 from __future__ import annotations
 
@@ -21,8 +28,11 @@ from repro_torch.core import filter as filt
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.coalesced_gather import ops as gather_ops
 from repro_torch.kernels.coalesced_gather.ref import coalesced_gather_ref
+from repro_torch.kernels.iru_reorder import ops as hash_ops
+from repro_torch.kernels.iru_reorder import ref as hash_ref
 from repro_torch.kernels.segment_merge import ops as merge_ops
 from repro_torch.kernels.segment_merge.ref import segment_merge_ref
+from repro_torch.graphs.generators import kron_edges
 from torch_parity import cuda  # noqa: F401  (a fixture)
 from torch_parity import offsets_stream as _stream
 from torch_parity import sorted_stream as _sorted_stream
@@ -106,3 +116,89 @@ def test_segment_merge_rejects_bad_inputs(cuda):
     with pytest.raises(NotImplementedError):
         filt.merge_sorted(idx, torch.zeros(8, device=cuda), "tagged",
                           tags=torch.zeros(8, dtype=torch.bool, device=cuda))
+
+
+def _hash_stream(kind: str, length: int, rng) -> np.ndarray:
+    if kind == "hot":      # few indices: long duplicate runs, many rounds
+        return rng.integers(0, 40, length).astype(np.int32)
+    if kind == "padded":   # a padded expansion: sentinel index lanes mixed in
+        idx = rng.integers(0, 5000, length)
+        idx[rng.random(length) < 0.3] = 5000
+        return idx.astype(np.int32)
+    if kind == "kron":     # an R-MAT edge list's destinations (hubs)
+        _, dst, _ = kron_edges(scale=12, edge_factor=16)
+        return dst[:length].astype(np.int32)
+    return rng.integers(0, 50_000, length).astype(np.int32)
+
+
+HASH_CASES = [((1024, 32), "wide", 1), ((1024, 32), "wide", 3000),
+              ((1024, 32), "hot", 3000), ((1024, 32), "padded", 20_000),
+              ((1024, 32), "wide", 200_000), ((1024, 32), "kron", 65_536),
+              ((8192, 32), "wide", 20_000),  # 128 KB of binning counters
+              ((16, 4), "wide", 3000), ((16, 4), "hot", 3000),
+              ((8, 2), "hot", 2000), ((8, 2), "padded", 5000)]
+
+
+@pytest.mark.parametrize("op", [None, "add", "min", "max"])
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+@pytest.mark.parametrize("geometry,kind,length", HASH_CASES)
+@pytest.mark.parametrize("live", [None, 0, "part", "all"])
+def test_hash_reorder_matches_plain_and_oracle(cuda, op, dtype, geometry,
+                                               kind, length, live):
+    num_sets, slots = geometry
+    rng = np.random.default_rng(length + num_sets)
+    idx = _hash_stream(kind, length, rng)
+    if dtype == "int32":
+        vals = rng.integers(-1000, 1000, length).astype(np.int32)
+    else:  # positive, like PageRank's contributions (see the docstring)
+        vals = rng.uniform(0.0, 1.0, length).astype(np.float32)
+    m = {None: length, 0: 0, "part": length * 2 // 3, "all": length}[live]
+    n_live = (None if live is None
+              else torch.tensor(m, dtype=torch.int32, device=cuda))
+    kw = dict(num_sets=num_sets, slots=slots, filter_op=op, n_live=n_live)
+    before = launch_counts["iru_reorder"]
+    got = hash_ops.hash_reorder(t(idx, cuda), t(vals, cuda), **kw)
+    torch.cuda.synchronize()
+    assert launch_counts["iru_reorder"] == before + 1
+    plain = hash_ops.hash_reorder(t(idx, cuda), t(vals, cuda), kernels=False,
+                                  **kw)
+    assert launch_counts["iru_reorder"] == before + 1
+    oracle = hash_ref.ragged_oracle(hash_ref.hash_reorder_ref_vec, idx, vals,
+                                    m, num_sets=num_sets, slots=slots,
+                                    filter_op=op)
+    for field, want in zip(("indices", "positions", "active"),
+                           (oracle[0], oracle[2], oracle[3])):
+        g = getattr(got, field)
+        assert torch.equal(g, getattr(plain, field)), field
+        assert np.array_equal(g.cpu().numpy(), want), field
+    # the kernel folds in stream order, like the oracle
+    assert np.array_equal(got.secondary.cpu().numpy(), oracle[1])
+    if op == "add" and dtype == "float32":
+        torch.testing.assert_close(got.secondary, plain.secondary, rtol=1e-5,
+                                   atol=1e-6)
+    else:
+        assert torch.equal(got.secondary, plain.secondary)
+
+
+@pytest.mark.parametrize("kw,err", [
+    (dict(filter_op="tagged", tag_table="table"), NotImplementedError),
+    (dict(filter_op="add", round_cap=4), NotImplementedError),
+    (dict(slots=64), NotImplementedError),
+    (dict(payload="2d"), NotImplementedError),
+    (dict(payload="float64"), ValueError),
+    (dict(num_sets=1 << 20), ValueError),
+    (dict(elem_bytes=256), ValueError),
+    (dict(filter_op="mul"), ValueError),
+])
+def test_hash_reorder_refuses_what_the_kernel_lacks(cuda, kw, err):
+    kw = dict(kw)
+    idx = torch.arange(64, dtype=torch.int32, device=cuda)
+    payload = kw.pop("payload", "float32")
+    vals = (torch.zeros(64, 2, device=cuda) if payload == "2d" else
+            torch.zeros(64, device=cuda, dtype=getattr(torch, payload)))
+    if kw.get("tag_table") == "table":
+        kw["tag_table"] = torch.zeros(66, dtype=torch.bool, device=cuda)
+    before = launch_counts["iru_reorder"]
+    with pytest.raises(err):
+        hash_ops.hash_reorder(idx, vals, **kw)
+    assert launch_counts["iru_reorder"] == before

@@ -1,5 +1,6 @@
 """Port parity: the whole slice (``FrontierPipeline`` with BFS, SSSP and
-PageRank) against ``repro.core.pipeline`` with ``gather="xla"``.
+PageRank, baseline / sort / hash) against ``repro.core.pipeline`` with
+``gather="xla"``.
 
 BFS labels and SSSP distances are bit-identical (min merges are order free,
 and SSSP's per-edge sums are the same f32 adds).  PageRank is held to rtol
@@ -63,7 +64,7 @@ def _apps(name):
 
 
 @pytest.mark.parametrize("app", ["bfs", "sssp", "pagerank"])
-@pytest.mark.parametrize("mode", ["baseline", "sort"])
+@pytest.mark.parametrize("mode", ["baseline", "sort", "hash"])
 @pytest.mark.parametrize("buckets", [1, 3])
 def test_pipeline_matches_reference(graphs, app, mode, buckets):
     jg, tg = graphs
@@ -162,8 +163,9 @@ def test_capacity_ladder_matches_reference():
 
 def test_pipeline_rejects_hash_mode_and_unknown_options(graphs):
     _, tg = graphs
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tpipe.FrontierPipeline(tg, tbfs.BFS_APP, mode="hash", device="cpu")
+    with pytest.raises(ValueError, match="hash_ref"):  # the host oracle
+        tpipe.FrontierPipeline(tg, tbfs.BFS_APP, mode="hash_ref",
+                               device="cpu")
     with pytest.raises(ValueError):
         tpipe.FrontierPipeline(tg, tbfs.BFS_APP, mode="bogus", device="cpu")
     with pytest.raises(TypeError):  # one kernels switch, no per-stage names
@@ -221,3 +223,43 @@ def test_padded_execution_matches_reference(graphs, app):
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-9)
     else:
         assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("app", ["bfs", "sssp", "pagerank"])
+def test_padded_hash_matches_reference(graphs, app):
+    """``ragged=False``: the hash engine sees the padded bucket, whose
+    sentinel lanes hash and merge as ordinary elements."""
+    jg, tg = graphs
+    japp, tapp, iters = _apps(app)
+    jpol, tpol = POLICIES[3]
+    jp = jpipe.FrontierPipeline(jg, japp, mode="hash", capacity_policy=jpol,
+                                max_iters=iters, ragged=False)
+    tp = tpipe.FrontierPipeline(tg, tapp, mode="hash", capacity_policy=tpol,
+                                max_iters=iters, ragged=False, device="cpu")
+    want, got = np.asarray(jp.run(2)), n(tp.run(2))
+    if app == "pagerank":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-9)
+    else:
+        assert np.array_equal(got, want)
+    assert tp.n_hops == jp.n_hops
+
+
+@pytest.mark.parametrize("app", ["bfs", "sssp", "pagerank"])
+def test_hash_wrappers_match_oracles(graphs, app):
+    """The ``*_pipeline`` wrappers let ``mode="hash"`` through, on either
+    path, and land on the host oracles."""
+    _, tg = graphs
+    kw = dict(mode="hash", device="cpu", capacity_policy=POLICIES[3][1])
+    for kernels in (True, False):
+        if app == "bfs":
+            got, want = tbfs.bfs_pipeline(tg, 4, kernels=kernels, **kw), \
+                tbfs.bfs(tg, 4)
+        elif app == "sssp":
+            got, want = tsssp.sssp_pipeline(tg, 4, kernels=kernels, **kw), \
+                tsssp.sssp(tg, 4)
+        else:
+            got = tpr.pagerank_pipeline(tg, iters=6, kernels=kernels, **kw)
+            np.testing.assert_allclose(n(got), tpr.pagerank(tg, iters=6),
+                                       rtol=1e-5, atol=1e-9)
+            continue
+        assert np.array_equal(n(got), want)
