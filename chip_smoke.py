@@ -9,8 +9,9 @@ Phases, in order (any failure exits non-zero and prints no result line):
                register / shared-memory report;
   2. kernels -- holds each kernel against its plain PyTorch version on the
                card at full size: B1 (block-reuse gather) on kron-20's edge
-               arrays with a real expansion's monotone offsets and a shuffled
-               stream, at (group, window) = (8, 128) and (256, 256), exactly;
+               arrays with real expansions' monotone offsets (half the nodes,
+               and a gappy quarter of them) and a shuffled stream, at
+               (group, window) = (8, 128) and (256, 256), exactly;
                B2 (segment merge) on kron-20's sorted destination stream with
                an active prefix, for add (f32, rtol 1e-5), min (f32, int32)
                and max, survivors and min/max exactly; B3 (IRU hash) on
@@ -32,8 +33,9 @@ Phases, in order (any failure exits non-zero and prints no result line):
                fails the run;
   4. timings -- CUDA-event times after a warm-up for each kernel, its plain
                version and one library call computing the same function (B3
-               has none), the bound (bytes over the card's 3.35 TB/s), and
-               host-clock times of each app run;
+               has none), the bound (bytes over the card's 3.35 TB/s), at
+               PageRank's shape; B1 also at a BFS level's shape (the gappy
+               quarter-node expansion) beside index_select;
   5. profile -- device time by kernel and the device's busy share over short
                windows of PageRank on kron-20 (sort and hash) and SSSP on
                delaunay-1024, and B3's kernels in one call at PageRank's
@@ -130,13 +132,18 @@ def phase_kernels(g):
 
     dev = g.device
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    # B1: a real expansion's offsets (half the nodes) and a shuffled stream
+    # B1: real expansions' offsets (half the nodes, and a quarter: a BFS
+    # level's gappy offsets) and a shuffled stream
     mask = torch.rand(g.n_nodes, generator=gen, device=dev) < 0.5
     ef = expand_frontier(g, frontier_from_mask(mask), gather="torch")
     mono = ef.eids[:int(ef.n_valid)]
     shuffled = mono[torch.randperm(mono.numel(), generator=gen, device=dev)]
+    quarter = torch.rand(g.n_nodes, generator=gen, device=dev) < 0.25
+    eq = expand_frontier(g, frontier_from_mask(quarter), gather="torch")
+    sparse = eq.eids[:int(eq.n_valid)]
     gerr = 0.0
-    for name, off in (("monotone", mono), ("shuffled", shuffled)):
+    for name, off in (("monotone", mono), ("sparse", sparse),
+                      ("shuffled", shuffled)):
         for group, window in ((8, 128), (256, 256)):
             ok = bool(window_contract_ok(off, group=group, window=window))
             m = off.numel() // group * group
@@ -189,8 +196,8 @@ def phase_kernels(g):
                   f"{'all' if act is None else '70% prefix'}: {n} lanes, "
                   f"{int(got_s.sum())} survivors, matches plain")
     herr = phase_hash_kernel(g, ef, gen)
-    return dsts, contrib, {"coalesced_gather": gerr, "segment_merge": merr,
-                           "iru_reorder": herr}
+    return dsts, contrib, sparse, {"coalesced_gather": gerr,
+                                   "segment_merge": merr, "iru_reorder": herr}
 
 
 def pagerank_stream(g):
@@ -313,7 +320,7 @@ def phase_apps(graphs):
     return totals
 
 
-def phase_timings(g, dsts, contrib):
+def phase_timings(g, dsts, contrib, sparse):
     from repro_torch.kernels.coalesced_gather import ops as gather_ops
     from repro_torch.kernels.coalesced_gather.ref import coalesced_gather_ref
     from repro_torch.kernels.segment_merge import ops as merge_ops
@@ -361,6 +368,16 @@ def phase_timings(g, dsts, contrib):
         # idx 4 + vals 4 read; idx 4 + vals 4 + pos 4 + active 1 written
         "bytes": n * (4 + 4) + n * (4 + 4 + 4 + 1),
     }
+    # B1 at a BFS level's shape: the gappy quarter-node expansion, D = 1
+    ns = sparse.numel()
+    sparse_bytes = ns * 4 * 2 + int(torch.unique(sparse).numel()) * 4
+    kernel_ms = event_ms(lambda: gather_ops.csr_edge_gather(g.col_idx, sparse))
+    library_ms = event_ms(lambda: torch.index_select(g.col_idx, 0, sparse))
+    print(f"time coalesced_gather at a BFS level's shape (a quarter of the "
+          f"nodes, {ns} lanes): kernel {kernel_ms:.4f} ms, library "
+          f"{library_ms:.4f} ms (index_select), bound "
+          f"{sparse_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({sparse_bytes} "
+          f"bytes)")
     rows = {"coalesced_gather": b1, "segment_merge": b2, "iru_reorder": b3}
     for name, row in rows.items():
         row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -444,9 +461,9 @@ def main() -> int:
 
     phase_build()
     graphs = make_graphs(dev)
-    dsts, contrib, errors = phase_kernels(graphs["kron20"])
+    dsts, contrib, sparse, errors = phase_kernels(graphs["kron20"])
     launches = phase_apps(graphs)
-    timings = phase_timings(graphs["kron20"], dsts, contrib)
+    timings = phase_timings(graphs["kron20"], dsts, contrib, sparse)
     phase_profile(graphs)
 
     sources = {

@@ -16,27 +16,37 @@
 // so the stream is binned set-major and each set is walked by its own warp:
 //   bin     a stable counting sort by set: per-chunk histograms (one warp
 //           per 8192-lane chunk, __match_any_sync ranks lanes of one set
-//           within a 32-lane step), an exclusive scan of the set-major
-//           histogram, then the same ranking again to scatter
-//           (index, payload, position) into set-major order;
-//   walk    one warp per set, lane j holding slot j.  Arrivals are read 32
-//           at a time and broadcast one by one: a duplicate of a resident
-//           (one __ballot_sync) folds into the owning lane; otherwise the
-//           element takes slot `cnt`, and the `slots`-th insertion writes
-//           the group back into the set's own (already consumed) stretch of
-//           the binned arrays and marks its trigger's stream position.  The
-//           fold runs in stream order, so f32 sums add in the oracle's
-//           order;
+//           within a 32-lane step) and an exclusive scan of the set-major
+//           histogram; then one CTA per chunk ranks the chunk's lanes by set
+//           in shared memory (each warp counts its stretch, a scan over warps
+//           and sets gives each (warp, set) its local offset, a second
+//           ranking places the lanes) and writes each set's run of the chunk
+//           to its global offset, consecutive threads to consecutive
+//           addresses, as packed 8-byte (index, payload) words and positions;
+//   walk    one warp per set, lane j holding slot j.  Arrivals are taken 32
+//           at a time (the next batch loads meanwhile).  A batch is cut into
+//           sub-steps at triggers; in each, an arrival is filtered if its
+//           index equals a resident's (every lane scans the warp's shared
+//           copy of the resident indices, 16 bytes a load) or an earlier
+//           arrival's of the sub-step (__match_any_sync), and the others
+//           take slots in lane order, the one that fills the set being the
+//           trigger.  Each slot's owner folds its filtered arrivals in lane
+//           order from the warp's shared copy of the batch, so f32 sums add
+//           in the oracle's (stream) order.  A full set is written back into
+//           its own (already consumed) stretch of the binned arrays and its
+//           trigger's stream position is marked;
 //   emit    no sorts: a flush group's rank is an exclusive scan of the
 //           trigger marks over stream positions (triggers are distinct
 //           positions), a filtered lane's tail slot a scan of the filtered
 //           marks, drain offsets a scan of the per-set drain counts.
 //
 // What bounds it on an H100: the walk.  It is sequential within a set, so
-// the busiest set's arrival count sets the time (kron-20 PageRank: 86,047
-// arrivals in the busiest of 1024 sets against a mean of 30,666).  The
-// byte bound is 8 B read and 13 B written a lane.  Spreading a hot set over
-// several warps is later work.
+// the busiest set's arrival count sets the time: one sub-step per batch of
+// 32 arrivals plus one per flush (kron-20 PageRank: 86,047 arrivals and
+// about a thousand flushes in the busiest of 1024 sets, against a mean of
+// 30,666 arrivals), each a chain of shared-memory loads, ballots and folds
+// in one warp.  The byte bound is 8 B read and 13 B written a lane.
+// Spreading a hot set over several warps is later work.
 //
 // Plain C interface, loaded with ctypes; launches on the caller's stream and
 // allocates nothing (the wrapper passes one workspace buffer).
@@ -50,9 +60,11 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarp = 32;
-constexpr int kBinWarps = 4;      // warps per CTA of the binning passes
-constexpr int kChunk = 8192;      // lanes of one binning warp
+constexpr int kBinWarps = 4;      // warps per CTA of the binning count
+constexpr int kChunk = 8192;      // lanes of one histogram column (a count warp, a scatter CTA)
 constexpr int kMaxSets = 8192;    // binning keeps num_sets counters a warp
+constexpr int kScatterMaxWarps = 8;
+constexpr long long kMaxSmem = 232448;  // shared memory a block can use (227 KB)
 constexpr int kScanThreads = 256;
 constexpr int kScanItems = 8;
 constexpr int kScanTile = kScanThreads * kScanItems;
@@ -94,42 +106,35 @@ struct Geo {
 };
 
 // ---------------------------------------------------------------- binning
-// PASS 0 counts each set's live lanes per chunk into hist[s * nchunks + c];
-// PASS 1 reads the scanned offsets back and scatters set-major.
-template <int PASS>
+// One warp adds the lanes [p0, p1) of each set to cnt[set]; lanes of one set
+// within a 32-lane step are ranked with __match_any_sync.
+template <typename C>
+__device__ void count_sets(const int* idx, long long p0, long long p1, const Geo& g, C* cnt) {
+  const int lane = threadIdx.x % kWarp;
+  for (long long base = p0; base < p1; base += kWarp) {
+    const long long p = base + lane;
+    const bool live = p < p1;
+    const int s = live ? hash_set(idx[p], g.epb, g.num_sets) : g.num_sets;
+    const unsigned peers = __match_any_sync(kFull, s);
+    if (live && __popc(peers & ((1u << lane) - 1u)) == 0) cnt[s] += __popc(peers);
+    __syncwarp();
+  }
+}
+
+// Count: one warp per kChunk-lane chunk counts each set's live lanes into
+// hist[s * nchunks + c].
 __global__ void __launch_bounds__(kBinWarps * kWarp)
-bin_pass(const int* idx, const uint32_t* val, const int* n_live, Geo g, int* hist,
-         int* b_idx, uint32_t* b_val, int* b_pos) {
+bin_count(const int* idx, const int* n_live, Geo g, int* hist) {
   extern __shared__ int counters[];
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const int chunk = blockIdx.x * kBinWarps + warp;
   if (chunk >= g.nchunks) return;  // whole warps only; no block barrier below
   int* cnt = counters + warp * g.num_sets;
-  for (int s = lane; s < g.num_sets; s += kWarp)
-    cnt[s] = PASS == 0 ? 0 : hist[(long long)s * g.nchunks + chunk];
+  for (int s = lane; s < g.num_sets; s += kWarp) cnt[s] = 0;
   __syncwarp();
-  const long long m = live_count(n_live, g.n);
   const long long p0 = (long long)chunk * kChunk;
-  const long long p1 = min(p0 + kChunk, m);
-  for (long long base = p0; base < p1; base += kWarp) {
-    const long long p = base + lane;
-    const bool live = p < p1;
-    const int x = live ? idx[p] : 0;
-    const int s = live ? hash_set(x, g.epb, g.num_sets) : g.num_sets;
-    const unsigned peers = __match_any_sync(kFull, s);
-    const int before = __popc(peers & ((1u << lane) - 1u));
-    if (live && PASS == 1) {
-      const int at = cnt[s] + before;
-      b_idx[at] = x;
-      b_val[at] = val[p];
-      b_pos[at] = (int)p;
-    }
-    __syncwarp();
-    if (live && before == 0) cnt[s] += __popc(peers);
-    __syncwarp();
-  }
-  if (PASS == 0)
-    for (int s = lane; s < g.num_sets; s += kWarp) hist[(long long)s * g.nchunks + chunk] = cnt[s];
+  count_sets(idx, p0, min(p0 + kChunk, (long long)live_count(n_live, g.n)), g, cnt);
+  for (int s = lane; s < g.num_sets; s += kWarp) hist[(long long)s * g.nchunks + chunk] = cnt[s];
 }
 
 // set_start[s] = first set-major slot of set s; set_start[num_sets] = n_live
@@ -139,66 +144,245 @@ __global__ void set_starts(const int* hist, const int* n_live, Geo g, int* set_s
   if (s == g.num_sets) set_start[s] = live_count(n_live, g.n);
 }
 
+// shared memory of bin_scatter with `warps` warps: the chunk's lanes laid
+// out set-major (packed (index, payload) words and 16-bit chunk positions),
+// each set's global-minus-local offset, and each warp's 16-bit counters
+long long scatter_smem(int num_sets, int warps) {
+  return (long long)kChunk * (8 + 2) + num_sets * 4LL + (long long)warps * num_sets * 2;
+}
+
+// Scatter: one CTA per chunk ranks the chunk's lanes by set in shared memory,
+// stable by stream position, then writes each set's run of the chunk to the
+// set's scanned offset hist[s * nchunks + c], so consecutive threads write
+// consecutive addresses.  Warp w takes the w-th stretch of the chunk: it
+// counts its lanes per set, a per-set scan over the warps and a block scan
+// over the sets give each (warp, set) its local offset, and a second ranking
+// places the lanes.
+__global__ void __launch_bounds__(kScatterMaxWarps * kWarp)
+bin_scatter(const int* idx, const uint32_t* val, const int* n_live, Geo g, const int* hist,
+            uint2* b_iv, int* b_pos) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int warp_sum[kScatterMaxWarps];
+  const int warps = blockDim.x / kWarp;
+  uint2* buf_iv = reinterpret_cast<uint2*>(smem);
+  int* delta = reinterpret_cast<int*>(buf_iv + kChunk);  // global slot - local slot, by set
+  uint16_t* buf_pos = reinterpret_cast<uint16_t*>(delta + g.num_sets);
+  uint16_t* wcnt = buf_pos + kChunk;  // [warps][num_sets]
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int chunk = blockIdx.x;
+  const long long m = live_count(n_live, g.n);
+  const long long p0 = (long long)chunk * kChunk;
+  const int len = (int)max(0LL, min((long long)kChunk, m - p0));
+  if (len == 0) return;  // the whole block
+  const int per = kChunk / warps;
+  const int w0 = warp * per, w1 = min(w0 + per, len);  // this warp's stretch
+  uint16_t* cnt = wcnt + warp * g.num_sets;
+  for (int s = lane; s < g.num_sets; s += kWarp) cnt[s] = 0;
+  __syncwarp();
+  count_sets(idx, p0 + w0, p0 + w1, g, cnt);
+  __syncthreads();
+  // local layout: set-major, warps in order within a set
+  const int sper = (g.num_sets + blockDim.x - 1) / blockDim.x;
+  const int s0 = min((int)threadIdx.x * sper, g.num_sets), s1 = min(s0 + sper, g.num_sets);
+  int mine = 0;
+  for (int s = s0; s < s1; ++s)
+    for (int w = 0; w < warps; ++w) mine += wcnt[w * g.num_sets + s];
+  int inc = mine;
+  for (int off = 1; off < kWarp; off <<= 1) {
+    const int x = __shfl_up_sync(kFull, inc, off);
+    if (lane >= off) inc += x;
+  }
+  if (lane == kWarp - 1) warp_sum[warp] = inc;
+  __syncthreads();
+  int run = inc - mine;
+  for (int w = 0; w < warp; ++w) run += warp_sum[w];
+  for (int s = s0; s < s1; ++s) {
+    delta[s] = hist[(long long)s * g.nchunks + chunk] - run;
+    for (int w = 0; w < warps; ++w) {
+      const int c = wcnt[w * g.num_sets + s];
+      wcnt[w * g.num_sets + s] = (uint16_t)run;
+      run += c;
+    }
+  }
+  __syncthreads();
+  for (int q0 = w0; q0 < w1; q0 += kWarp) {
+    const int q = q0 + lane;
+    const bool live = q < w1;
+    const int x = live ? idx[p0 + q] : 0;
+    const int s = live ? hash_set(x, g.epb, g.num_sets) : g.num_sets;
+    const unsigned peers = __match_any_sync(kFull, s);
+    const int before = __popc(peers & ((1u << lane) - 1u));
+    if (live) {
+      const int at = cnt[s] + before;
+      buf_iv[at] = make_uint2((uint32_t)x, val[p0 + q]);
+      buf_pos[at] = (uint16_t)q;
+    }
+    __syncwarp();
+    if (live && before == 0) cnt[s] += __popc(peers);
+    __syncwarp();
+  }
+  __syncthreads();
+  for (int q = threadIdx.x; q < len; q += blockDim.x) {
+    const uint2 iv = buf_iv[q];
+    const int at = q + delta[hash_set((int)iv.x, g.epb, g.num_sets)];
+    b_iv[at] = iv;
+    b_pos[at] = (int)(p0 + buf_pos[q]);
+  }
+}
+
 // ------------------------------------------------------------------ walk
+template <typename T>
+__device__ __forceinline__ T from_bits(uint32_t b);
+template <>
+__device__ __forceinline__ float from_bits<float>(uint32_t b) { return __uint_as_float(b); }
+template <>
+__device__ __forceinline__ int from_bits<int>(uint32_t b) { return (int)b; }
+__device__ __forceinline__ uint32_t to_bits(float v) { return __float_as_uint(v); }
+__device__ __forceinline__ uint32_t to_bits(int v) { return (uint32_t)v; }
+
+// lanes up to and including `last`
+__device__ __forceinline__ unsigned upto(int last) { return last >= 31 ? kFull : (2u << last) - 1u; }
+
+// One warp per set, lane j holding slot j; the set's arrivals are taken 32
+// at a time (the next batch loads while this one is folded).  A batch is cut
+// into sub-steps at triggers.  In a sub-step that starts at lane a with cnt
+// residents, an arrival is filtered if its index equals a resident's (each
+// lane scans the warp's shared copy of the resident indices) or an earlier
+// arrival's of the sub-step (__match_any_sync); the others are new, take
+// slots cnt, cnt+1, ... in lane order (each writes itself into its slot's
+// shared entry, which the slot's lane reads), and the new arrival that takes
+// slot `slots`-1 is the trigger, which ends the sub-step: the set flushes into
+// its own consumed stretch of the binned arrays and the next sub-step
+// starts after it with an empty set.  Each slot's owner folds the
+// sub-step's filtered arrivals that name its slot, in lane order (stream
+// order), from the warp's shared copy of the batch, so f32 sums add in the
+// oracle's order.
 template <typename T, int OP>
 __global__ void __launch_bounds__(kWalkWarps * kWarp)
-walk(const int* set_start, Geo g, int* b_idx, uint32_t* b_val_bits, int* b_pos, uint8_t* mark,
-     int* nflush, int* ndrain) {
-  const int lane = threadIdx.x % kWarp;
-  const int s = blockIdx.x * kWalkWarps + threadIdx.x / kWarp;
+walk(const int* set_start, Geo g, uint2* b_iv, int* b_pos, uint8_t* mark, int* nflush,
+     int* ndrain) {
+  // the warp's shared copies: the batch's payload bits and positions, each
+  // slot's index, the lane a new slot takes its arrival from, and the slot
+  // each filtered arrival folds into
+  __shared__ __align__(16) uint32_t payload[kWalkWarps][kWarp];
+  __shared__ int position[kWalkWarps][kWarp];
+  __shared__ __align__(16) int resident[kWalkWarps][kWarp];
+  __shared__ int taken_from[kWalkWarps][kWarp];
+  __shared__ __align__(16) int folds_into[kWalkWarps][kWarp];
+  const int lane = threadIdx.x % kWarp, wid = threadIdx.x / kWarp;
+  const int s = blockIdx.x * kWalkWarps + wid;
   if (s >= g.num_sets) return;
-  T* b_val = reinterpret_cast<T*>(b_val_bits);
+  int* res = resident[wid];
+  const int4* res4 = reinterpret_cast<const int4*>(res);
+  const uint4* pay4 = reinterpret_cast<const uint4*>(payload[wid]);
+  const int4* into4 = reinterpret_cast<const int4*>(folds_into[wid]);
+  const unsigned below = (1u << lane) - 1u;
   const int start = set_start[s];
   const int len = set_start[s + 1] - start;
   int r_idx = 0, r_pos = 0;  // slot `lane` of this set
   T r_val = T(0);
   int cnt = 0, wc = 0, flushes = 0;  // warp-uniform
+  uint2 nx_iv = make_uint2(0, 0);
+  int nx_pos = 0;
+  if (lane < len) {
+    nx_iv = b_iv[start + lane];
+    nx_pos = b_pos[start + lane];
+  }
   for (int k0 = 0; k0 < len; k0 += kWarp) {
-    const bool have = k0 + lane < len;
-    const int at = start + k0 + lane;
-    const int ei = have ? b_idx[at] : 0;
-    const T ev = have ? b_val[at] : T(0);
-    const int ep = have ? b_pos[at] : 0;
     const int steps = min(kWarp, len - k0);
+    const unsigned valid = upto(steps - 1);
+    const bool have = lane < steps;
+    const int ei = (int)nx_iv.x;
+    const int ep = nx_pos;
+    payload[wid][lane] = nx_iv.y;
+    position[wid][lane] = ep;
+    // the next batch lies past every write-back of this one (a flush group
+    // is `slots` arrivals already consumed)
+    if (k0 + kWarp + lane < len) {
+      nx_iv = b_iv[start + k0 + kWarp + lane];
+      nx_pos = b_pos[start + k0 + kWarp + lane];
+    }
+    const unsigned peers = OP != kNone ? __match_any_sync(kFull, ei) & valid : 0u;
     unsigned filtered = 0, triggers = 0;
-    for (int t = 0; t < steps; ++t) {
-      const int xi = __shfl_sync(kFull, ei, t);
-      const T xv = __shfl_sync(kFull, ev, t);
+    int a = 0;
+    while (a < steps) {
+      const unsigned sub = valid & ~((1u << a) - 1u);
+      unsigned newm = sub;
+      int own = -1;  // the slot this lane's arrival folds into
       if (OP != kNone) {
-        const unsigned hit = __ballot_sync(kFull, lane < cnt && r_idx == xi);
-        if (hit) {
-          if (lane == __ffs(hit) - 1) r_val = combine<T, OP>(r_val, xv);
-          filtered |= 1u << t;
-          continue;
+        // residents hold distinct indices, so at most one matches
+        // (all eight loads first: no branch between them)
+#pragma unroll
+        for (int q = 0; q < kWarp / 4; ++q) {
+          const int4 r = res4[q];
+          if (4 * q < cnt && r.x == ei) own = 4 * q;
+          if (4 * q + 1 < cnt && r.y == ei) own = 4 * q + 1;
+          if (4 * q + 2 < cnt && r.z == ei) own = 4 * q + 2;
+          if (4 * q + 3 < cnt && r.w == ei) own = 4 * q + 3;
+        }
+        const unsigned hit = __ballot_sync(kFull, own >= 0) & sub;
+        newm = __ballot_sync(kFull, (peers & sub & below) == 0) & sub & ~hit;
+      }
+      // new arrivals take slots cnt, cnt+1, ... in lane order; the one that
+      // takes slot `slots`-1 is the trigger
+      const bool is_new = newm >> lane & 1u;
+      const int rank = __popc(newm & below);
+      const unsigned tmask = __ballot_sync(kFull, is_new && rank == g.slots - cnt - 1);
+      const bool trig = tmask != 0;
+      const int last = trig ? __ffs(tmask) - 1 : steps - 1;
+      const unsigned range = sub & upto(last);
+      const unsigned ins = newm & range;
+      const int nins = __popc(ins);
+      if (ins >> lane & 1u) {
+        res[cnt + rank] = ei;
+        taken_from[wid][cnt + rank] = lane;
+      }
+      unsigned fm = 0;  // the sub-step's filtered arrivals
+      if (OP != kNone) {
+        fm = range & ~ins;
+        filtered |= fm;
+        if (own < 0 && (fm >> lane & 1u))  // a duplicate of a new arrival
+          own = cnt + __popc(ins & ((1u << (__ffs(peers & sub) - 1)) - 1u));
+        folds_into[wid][lane] = (fm >> lane & 1u) ? own : -1;
+      }
+      __syncwarp();
+      if (lane >= cnt && lane < cnt + nins) {  // a new slot
+        const int t = taken_from[wid][lane];
+        r_idx = res[lane];
+        r_val = from_bits<T>(payload[wid][t]);
+        r_pos = position[wid][t];
+      }
+      if (OP != kNone && fm) {
+        // each slot's owner folds the arrivals that name it, in lane order
+#pragma unroll
+        for (int q = 0; q < kWarp / 4; ++q) {
+          const int4 o = into4[q];
+          const uint4 b = pay4[q];
+          if (o.x == lane) r_val = combine<T, OP>(r_val, from_bits<T>(b.x));
+          if (o.y == lane) r_val = combine<T, OP>(r_val, from_bits<T>(b.y));
+          if (o.z == lane) r_val = combine<T, OP>(r_val, from_bits<T>(b.z));
+          if (o.w == lane) r_val = combine<T, OP>(r_val, from_bits<T>(b.w));
         }
       }
-      const int xp = __shfl_sync(kFull, ep, t);
-      if (lane == cnt) {
-        r_idx = xi;
-        r_val = xv;
-        r_pos = xp;
-      }
-      if (++cnt == g.slots) {
-        // every element of this chunk is in registers by now (the shuffles
-        // above waited on the loads), and the group's stretch lies within
-        // the arrivals already consumed
+      __syncwarp();  // the shared copies are read before they change
+      cnt += nins;
+      if (trig) {
         if (lane < g.slots) {
-          b_idx[start + wc + lane] = r_idx;
-          b_val[start + wc + lane] = r_val;
+          b_iv[start + wc + lane] = make_uint2((uint32_t)r_idx, to_bits(r_val));
           b_pos[start + wc + lane] = r_pos;
         }
-        triggers |= 1u << t;
+        triggers |= 1u << last;
         wc += g.slots;
         cnt = 0;
         ++flushes;
       }
+      a = last + 1;
     }
     if (have && ((filtered | triggers) >> lane & 1u))
       mark[ep] = (filtered >> lane & 1u) ? kFiltered : kTrigger;
   }
   if (lane < cnt) {  // drain group: the residents at end of stream
-    b_idx[start + wc + lane] = r_idx;
-    b_val[start + wc + lane] = r_val;
+    b_iv[start + wc + lane] = make_uint2((uint32_t)r_idx, to_bits(r_val));
     b_pos[start + wc + lane] = r_pos;
   }
   if (lane == 0) {
@@ -362,8 +546,8 @@ finalize(const int* nflush, const int* ndrain, Geo g, int* drain_off, int* meta)
 template <typename T>
 __global__ void __launch_bounds__(kEmitThreads)
 emit_kept(const int* set_start, const int* nflush, const int* ndrain, const int* drain_off,
-          const int* meta, const int* rank, const int* b_idx, const T* b_val, const int* b_pos,
-          Geo g, int* out_idx, T* out_val, int* out_pos, uint8_t* out_act) {
+          const int* meta, const int* rank, const uint2* b_iv, const int* b_pos, Geo g,
+          int* out_idx, T* out_val, int* out_pos, uint8_t* out_act) {
   const long long q = (long long)blockIdx.x * kEmitThreads + threadIdx.x;
   if (q >= set_start[g.num_sets]) return;
   int lo = 0, hi = g.num_sets;  // last s with set_start[s] <= q
@@ -383,8 +567,9 @@ emit_kept(const int* set_start, const int* nflush, const int* ndrain, const int*
   } else {
     o = (long long)meta[0] * g.slots + drain_off[s] + (local - nf);
   }
-  out_idx[o] = b_idx[q];
-  out_val[o] = b_val[q];
+  const uint2 iv = b_iv[q];
+  out_idx[o] = (int)iv.x;
+  out_val[o] = from_bits<T>(iv.y);
   out_pos[o] = b_pos[q];
   out_act[o] = 1;
 }
@@ -398,8 +583,7 @@ struct Work {
   int* ndrain;
   int* drain_off;
   int* meta;
-  int* b_idx;
-  uint32_t* b_val;
+  uint2* b_iv;  // binned (index, payload bits), set-major
   int* b_pos;
   uint8_t* mark;
   int* rank;
@@ -425,8 +609,7 @@ long long carve(char* base, long long n, int num_sets, Work* w) {
   v.ndrain = (int*)take(num_sets * 4LL);
   v.drain_off = (int*)take(num_sets * 4LL);
   v.meta = (int*)take(16);
-  v.b_idx = (int*)take(n * 4);
-  v.b_val = (uint32_t*)take(n * 4);
+  v.b_iv = (uint2*)take(n * 8);
   v.b_pos = (int*)take(n * 4);
   v.mark = (uint8_t*)take(n);
   v.rank = (int*)take(n * 4);
@@ -437,8 +620,8 @@ long long carve(char* base, long long n, int num_sets, Work* w) {
 template <typename T, int OP>
 int walk_one(const Work& w, Geo g, cudaStream_t st) {
   const unsigned blocks = (g.num_sets + kWalkWarps - 1) / kWalkWarps;
-  walk<T, OP><<<blocks, kWalkWarps * kWarp, 0, st>>>(w.set_start, g, w.b_idx, w.b_val, w.b_pos,
-                                                     w.mark, w.nflush, w.ndrain);
+  walk<T, OP><<<blocks, kWalkWarps * kWarp, 0, st>>>(w.set_start, g, w.b_iv, w.b_pos, w.mark,
+                                                     w.nflush, w.ndrain);
   return (int)cudaGetLastError();
 }
 
@@ -456,33 +639,35 @@ int walk_launch(int op, const Work& w, Geo g, cudaStream_t st) {
 template <typename T>
 int run(const int* idx, const T* val, const int* n_live, int* out_idx, T* out_val, int* out_pos,
         uint8_t* out_act, const Work& w, Geo g, int op, cudaStream_t st) {
-  const int smem = kBinWarps * g.num_sets * 4;  // above 48 KB past 3072 sets
+  const int count_smem = kBinWarps * g.num_sets * 4;  // above 48 KB past 3072 sets
+  int warps = kScatterMaxWarps;
+  while (warps > 1 && scatter_smem(g.num_sets, warps) > kMaxSmem) warps /= 2;
+  const int smem = (int)scatter_smem(g.num_sets, warps);
   int e;
-  if (smem > 48 * 1024 &&
-      ((e = (int)cudaFuncSetAttribute(bin_pass<0>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      smem)) ||
-       (e = (int)cudaFuncSetAttribute(bin_pass<1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      smem))))
+  if ((e = (int)cudaFuncSetAttribute(bin_count, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     count_smem)) ||
+      (e = (int)cudaFuncSetAttribute(bin_scatter, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     smem)))
     return e;
-  const unsigned bin_blocks = (g.nchunks + kBinWarps - 1) / kBinWarps;
   const uint32_t* vbits = reinterpret_cast<const uint32_t*>(val);
   if ((e = (int)cudaMemsetAsync(w.mark, 0, g.n, st))) return e;
-  bin_pass<0><<<bin_blocks, kBinWarps * kWarp, smem, st>>>(idx, vbits, n_live, g, w.hist, w.b_idx,
-                                                           w.b_val, w.b_pos);
+  bin_count<<<(g.nchunks + kBinWarps - 1) / kBinWarps, kBinWarps * kWarp, count_smem, st>>>(
+      idx, n_live, g, w.hist);
   if ((e = (int)cudaGetLastError())) return e;
   if ((e = scan(HistScan{w.hist, (long long)g.nchunks * g.num_sets}, w.agg, st))) return e;
   set_starts<<<(g.num_sets + 256) / 256, 256, 0, st>>>(w.hist, n_live, g, w.set_start);
-  bin_pass<1><<<bin_blocks, kBinWarps * kWarp, smem, st>>>(idx, vbits, n_live, g, w.hist, w.b_idx,
-                                                           w.b_val, w.b_pos);
+  bin_scatter<<<g.nchunks, warps * kWarp, smem, st>>>(idx, vbits, n_live, g, w.hist, w.b_iv,
+                                                      w.b_pos);
   if ((e = (int)cudaGetLastError())) return e;
   if ((e = walk_launch<T>(op, w, g, st))) return e;
   finalize<<<1, kScanThreads, 0, st>>>(w.nflush, w.ndrain, g, w.drain_off, w.meta);
   MarkScan<T> ms{w.mark, g.n, idx, val, n_live, w.meta, w.rank, out_idx, out_val, out_pos, out_act};
   if ((e = scan(ms, w.agg, st))) return e;
   const unsigned emit_blocks = (unsigned)((g.n + kEmitThreads - 1) / kEmitThreads);
-  emit_kept<T><<<emit_blocks, kEmitThreads, 0, st>>>(
-      w.set_start, w.nflush, w.ndrain, w.drain_off, w.meta, w.rank, w.b_idx,
-      reinterpret_cast<const T*>(w.b_val), w.b_pos, g, out_idx, out_val, out_pos, out_act);
+  emit_kept<T><<<emit_blocks, kEmitThreads, 0, st>>>(w.set_start, w.nflush, w.ndrain,
+                                                     w.drain_off, w.meta, w.rank, w.b_iv,
+                                                     w.b_pos, g, out_idx, out_val, out_pos,
+                                                     out_act);
   return (int)cudaGetLastError();
 }
 

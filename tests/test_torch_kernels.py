@@ -41,14 +41,20 @@ from torch_parity import t
 pytestmark = pytest.mark.gpu
 
 
-@pytest.mark.parametrize("group,window", [(8, 128), (256, 256), (3, 5)])
+@pytest.mark.parametrize("group,window", [(8, 128), (256, 256), (3, 5),
+                                          (5000, 64)])
 @pytest.mark.parametrize("v", [7, 200, 70_000])
-@pytest.mark.parametrize("kind", ["monotone", "runs", "shuffled"])
+@pytest.mark.parametrize("kind", ["monotone", "runs", "shuffled", "strided",
+                                  "sparse"])
 @pytest.mark.parametrize("d", [1, 2])
-def test_gather_matches_plain(cuda, group, window, v, kind, d):
+@pytest.mark.parametrize("length", [9999, 4095, 4096, 4097])
+def test_gather_matches_plain(cuda, group, window, v, kind, d, length):
+    # 4096 lanes is the kernel's tile at group 8 (1536 at group 3, one
+    # group at 5000); strided offsets at v = 70,000 make a tile's
+    # contract-meeting groups span more rows than it can stage
     rng = np.random.default_rng(v + group)
     table = t(rng.standard_normal((v, d)).astype(np.float32), cuda)
-    idx = t(_stream(kind, v, 9999, rng), cuda)
+    idx = t(_stream(kind, v, length, rng), cuda)
     before = launch_counts["coalesced_gather"]
     got = gather_ops.coalesced_gather(table, idx, group=group, window=window)
     torch.cuda.synchronize()
@@ -128,6 +134,16 @@ def _hash_stream(kind: str, length: int, rng) -> np.ndarray:
     if kind == "kron":     # an R-MAT edge list's destinations (hubs)
         _, dst, _ = kron_edges(scale=12, edge_factor=16)
         return dst[:length].astype(np.int32)
+    base = np.arange(64, 96, dtype=np.int32)  # block 2: a single set
+    if kind == "lanes":    # 32 distinct (a trigger on lane 31), 31 and a
+        # duplicate, then the missing index first (a trigger on lane 0)
+        return np.resize(np.concatenate([base, base[:31], base[30:31],
+                                         np.roll(base, -31)]), length)
+    if kind == "reappear":  # at slots 4, 64 comes back right after a flush
+        return np.resize(np.array([64, 65, 66, 67, 64, 65, 64, 70],
+                                  np.int32), length)
+    if kind == "one_set":
+        return (rng.integers(0, 32, length) + 64).astype(np.int32)
     return rng.integers(0, 50_000, length).astype(np.int32)
 
 
@@ -136,7 +152,12 @@ HASH_CASES = [((1024, 32), "wide", 1), ((1024, 32), "wide", 3000),
               ((1024, 32), "wide", 200_000), ((1024, 32), "kron", 65_536),
               ((8192, 32), "wide", 20_000),  # 128 KB of binning counters
               ((16, 4), "wide", 3000), ((16, 4), "hot", 3000),
-              ((8, 2), "hot", 2000), ((8, 2), "padded", 5000)]
+              ((8, 2), "hot", 2000), ((8, 2), "padded", 5000),
+              # the walk's batches: triggers on lanes 0 and 31, a flushed
+              # resident back in the same batch, one set of 1.5e5 arrivals
+              ((8, 2), "lanes", 3000), ((8, 4), "lanes", 3000),
+              ((8, 32), "lanes", 3000), ((8, 4), "reappear", 3000),
+              ((1024, 32), "one_set", 150_000)]
 
 
 @pytest.mark.parametrize("op", [None, "add", "min", "max"])

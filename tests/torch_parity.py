@@ -44,6 +44,17 @@ def offsets_stream(kind: str, v: int, length: int, rng) -> np.ndarray:
     if kind == "runs":      # long runs of one offset (padding lanes)
         reps = -(-length // 4)
         return np.repeat(rng.integers(0, v, 4), reps)[:length].astype(np.int32)
+    if kind == "strided":   # every third row: the groups meet the contract
+        # but span three times the rows of contiguous offsets
+        return (np.arange(length) * 3 % v).astype(np.int32)
+    if kind == "sparse":    # a quarter of the nodes' CSR expansion: gappy
+        cuts = np.sort(rng.choice(np.arange(1, v), min(v - 1, v // 30),
+                                  replace=False)) if v > 1 else []
+        bounds = np.concatenate(([0], cuts, [v]))
+        pick = np.flatnonzero(rng.random(bounds.size - 1) < 0.25)
+        off = np.concatenate([np.arange(bounds[i], bounds[i + 1])
+                              for i in pick] + [np.zeros(1, np.int64)])
+        return np.sort(np.resize(off, length)).astype(np.int32)
     return rng.integers(0, v, length).astype(np.int32)  # shuffled
 
 
