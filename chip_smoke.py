@@ -14,12 +14,15 @@ Phases, in order (any failure exits non-zero and prints no result line):
                (group, window) = (8, 128) and (256, 256), exactly;
                B2 (segment merge) on kron-20's sorted destination stream with
                an active prefix, for add (f32, rtol 1e-5), min (f32, int32)
-               and max, survivors and min/max exactly; B3 (IRU hash) on
+               and max, survivors and min/max exactly, and B2's tagged body
+               (the fused min+add merge, tags (idx >> 17) & 1: min-family
+               lanes exactly, add-family lanes within rtol 1e-5); B3 (IRU hash) on
                kron-20's PageRank destination stream (add, f32), a half-graph
                expansion stream with its live prefix (min on int32 and f32,
                and no merge) and a stream that hammers eight sets (max, many
                rounds): indices, positions, active and min/max exactly, add
-               within rtol 1e-5;
+               within rtol 1e-5; and B3's tagged fold on the PageRank stream
+               with the same tags;
   3. apps    -- BFS and SSSP from node 0 on kron-20 and delaunay-1024, and
                PageRank on kron-20, through the kernels (kernels=True,
                3-bucket CapacityPolicy), once with mode="sort" (B1, B2) and
@@ -31,15 +34,34 @@ Phases, in order (any failure exits non-zero and prints no result line):
                20 iterations.  The launch counts of each run are zeroed before
                it and read after it; a kernel of the path with no launch
                fails the run;
-  4. timings -- CUDA-event times after a warm-up for each kernel, its plain
-               version and one library call computing the same function (B3
-               has none), the bound (bytes over the card's 3.35 TB/s), at
-               PageRank's shape; B1 also at a BFS level's shape (the gappy
-               quarter-node expansion) beside index_select;
-  5. profile -- device time by kernel and the device's busy share over short
-               windows of PageRank on kron-20 (sort and hash) and SSSP on
-               delaunay-1024, and B3's kernels in one call at PageRank's
-               shape.
+  4. serving -- 12 queries (4 BFS, 4 SSSP, 4 PPR of 20 iterations, seeded
+               sources of nonzero degree) through GraphServingEngine on
+               tile_csr(kron-20, 8) with the default GraphServeConfig (8
+               slots, so four queries wait): fused baseline (B1 and the
+               tagged scatter), fused sort (B1, B2 tagged), fused hash (B1,
+               B3 tagged), split hash (B1, B3) and fused sort through the
+               plain versions.  Every query must end done; BFS and SSSP
+               equal their solo pipeline runs bit for bit (one of each also
+               the host oracles), PPR within rtol 1e-5 of solo; fused sort
+               equals its plain twin.  Each run prints its wall time,
+               queries/s, ticks, overflow and quarantine counts, launch
+               counts and peak device memory.  Then one more fused sort
+               run (untimed, its launches not counted) keeps two of its
+               ticks at the top rung (8 m lanes): B2's tagged body is held
+               against its plain version on the sorted stream of the tick
+               with the most live lanes, B3's tagged fold on the expansion
+               stream and n_live of the tick with the fewest (B3's plain
+               version takes time in proportion to live lanes times width);
+  5. timings -- CUDA-event times after a warm-up for each kernel, its plain
+               version and one library call computing the same function (B2
+               tagged and B3 have none), the bound (bytes over the card's
+               3.35 TB/s), at PageRank's shape; B1 also at a BFS level's
+               shape (the gappy quarter-node expansion) beside index_select;
+  6. profile -- device time by kernel and the device's busy share over short
+               windows of PageRank on kron-20 (sort and hash), SSSP on
+               delaunay-1024, three serving ticks (fused sort and fused
+               hash), and B3's kernels in one call at PageRank's shape
+               (add, and the tagged fold).
 
 It prints the card's name and power limit, one JSON line naming the kernels
 with their numbers, and last {"ok": true, "device": {...}}.  It needs one
@@ -195,9 +217,50 @@ def phase_kernels(g):
             print(f"B2 {op} {str(vals.dtype):13s} active="
                   f"{'all' if act is None else '70% prefix'}: {n} lanes, "
                   f"{int(got_s.sum())} survivors, matches plain")
-    herr = phase_hash_kernel(g, ef, gen)
-    return dsts, contrib, sparse, {"coalesced_gather": gerr,
-                                   "segment_merge": merr, "iru_reorder": herr}
+    # B2's tagged body: a per-node family table, so every run is uniform-tag
+    table = family_table(g)
+    tags = table[dsts.long()]
+    terr = 0.0
+    for vals in (contrib, depth):
+        for act in (None, active):
+            got_v, got_s = merge_ops.segment_merge(dsts, vals, op="tagged",
+                                                   active=act, tags=tags)
+            want_v, want_s = segment_merge_ref(dsts, vals, "tagged", act,
+                                               tags)
+            torch.cuda.synchronize()
+            check_tagged(got_v, want_v, tags, f"B2 tagged {vals.dtype}")
+            check(torch.equal(got_s, want_s), "B2 tagged survivors")
+            terr = max(terr, (got_v.double() - want_v.double()).abs().max()
+                       .item())
+            print(f"B2 tagged {str(vals.dtype):13s} active="
+                  f"{'all' if act is None else '70% prefix'}: {n} lanes, "
+                  f"{int(tags.sum())} add-family lanes, matches plain")
+    herr, herr_tagged = phase_hash_kernel(g, ef, gen)
+    return dsts, contrib, sparse, {
+        "coalesced_gather": gerr, "segment_merge": merr,
+        "segment_merge_tagged": terr, "iru_reorder": herr,
+        "iru_reorder_tagged": herr_tagged}
+
+
+def family_table(g):
+    """A per-node merge family for the tagged kernels' checks: node ids in
+    alternate 2^17-blocks are the add family; the padding entry is min."""
+    ids = torch.arange(g.n_nodes + 1, device=g.device)
+    table = ((ids >> 17) & 1).bool()
+    table[-1] = False
+    return table
+
+
+def check_tagged(got, want, tags, what):
+    """Min-family lanes exactly, add-family lanes within rtol 1e-5."""
+    check(torch.equal(got[~tags], want[~tags]),
+          f"{what}: min-family lanes exact")
+    if got.dtype.is_floating_point:
+        check(torch.allclose(got[tags], want[tags], rtol=1e-5, atol=0.0),
+              f"{what}: add-family lanes within rtol 1e-5")
+    else:
+        check(torch.equal(got[tags], want[tags]),
+              f"{what}: add-family lanes exact")
 
 
 def pagerank_stream(g):
@@ -248,7 +311,24 @@ def phase_hash_kernel(g, ef, gen):
         print(f"B3 {label:20s}: {idx.numel()} lanes ({live} live), "
               f"{int(got.active.sum())} survivors, max abs err "
               f"{err.item():.3g}, matches plain")
-    return herr
+    # B3's tagged fold on the PageRank stream, each lane's family from the
+    # per-node table; one plain call (it peels about a thousand rounds)
+    table = family_table(g)
+    got = hash_ops.hash_reorder(pr_idx, pr_vals, filter_op="tagged",
+                                tag_table=table)
+    want = hash_ops.hash_reorder(pr_idx, pr_vals, filter_op="tagged",
+                                 tag_table=table, kernels=False)
+    torch.cuda.synchronize()
+    for field in ("indices", "positions", "active"):
+        check(torch.equal(getattr(got, field), getattr(want, field)),
+              f"B3 tagged: {field} equal to plain")
+    check_tagged(got.secondary, want.secondary, table[got.indices.long()],
+                 "B3 tagged")
+    terr = (got.secondary.double() - want.secondary.double()).abs().max()
+    print(f"B3 tagged pagerank   : {pr_idx.numel()} lanes, "
+          f"{int(got.active.sum())} survivors, max abs err {terr.item():.3g},"
+          f" matches plain")
+    return herr, terr.item()
 
 
 def phase_apps(graphs):
@@ -320,6 +400,221 @@ def phase_apps(graphs):
     return totals
 
 
+SERVING_RUNS = (  # label, fused, mode, kernels, kernels the run must launch
+    ("fused baseline", True, "baseline", True, ("coalesced_gather",)),
+    ("fused sort", True, "sort", True,
+     ("coalesced_gather", "segment_merge_tagged")),
+    ("fused hash", True, "hash", True,
+     ("coalesced_gather", "iru_reorder_tagged")),
+    ("split hash", False, "hash", True, ("coalesced_gather", "iru_reorder")),
+    ("fused sort plain", True, "sort", False, ()),
+)
+
+
+def rel_err(got: np.ndarray, want: np.ndarray) -> float:
+    """Largest |got - want| / |want| over the entries where want != 0."""
+    nz = want != 0
+    if not nz.any():
+        return 0.0
+    return float(np.max(np.abs(got[nz].astype(np.float64) - want[nz])
+                        / np.abs(want[nz].astype(np.float64))))
+
+
+def serving_queries(g):
+    """The serving mix: 4 BFS, 4 SSSP and 4 PPR (20 iterations, damping
+    0.85) from seeded sources of nonzero degree, interleaved."""
+    from repro_torch.serve import GraphQuery
+
+    nonzero = np.flatnonzero(g.degrees().cpu().numpy() > 0)
+    srcs = np.random.default_rng(SEED).choice(nonzero, 12, replace=False)
+    kinds = ("bfs", "sssp", "ppr") * 4
+    return [GraphQuery(kind, int(src), iters=20, damping=0.85)
+            for kind, src in zip(kinds, srcs)]
+
+
+def serving_streams(view, g):
+    """One extra fused sort run of the serving mix with the reorder stage
+    wrapped (untimed, its launches not counted).  Of its top-rung ticks it
+    keeps the one with the most live lanes (the sorted stream that B2's
+    tagged body merged) and the one with the fewest (the expansion stream
+    and ``n_live`` that B3's tagged fold takes in hash mode: B3's plain
+    version takes time in proportion to live lanes times width)."""
+    from repro_torch.core import filter as filt
+    from repro_torch.core import pipeline
+    from repro_torch.serve import GraphServeConfig, GraphServingEngine
+
+    most, least = {"live": -1}, {"live": view.n_edges + 1}
+    merged = {}
+    reorder, merge = pipeline.iru_reorder, filt.merge_sorted
+
+    def merge_spy(*args):
+        merged["args"] = args
+        return merge(*args)
+
+    def reorder_spy(indices, secondary, **kw):
+        out = reorder(indices, secondary, **kw)
+        sorted_args, live = merged.pop("args"), int(kw["n_live"])
+        if indices.numel() == view.n_edges:
+            if live > most["live"]:
+                most.update(live=live, stream=sorted_args)
+            if live < least["live"]:
+                least.update(live=live, stream=(
+                    indices, secondary, kw["n_live"], kw["tag_table"]))
+        return out
+
+    pipeline.iru_reorder, filt.merge_sorted = reorder_spy, merge_spy
+    try:
+        eng = GraphServingEngine(view, GraphServeConfig(mode="sort"))
+        for q in serving_queries(g):
+            eng.submit(q)
+        eng.run_to_completion(1000)
+    finally:
+        pipeline.iru_reorder, filt.merge_sorted = reorder, merge
+    del eng
+    check(most["live"] >= 0, "a serving tick ran at the top rung")
+    return most, least
+
+
+def max_abs_err(got, want) -> float:
+    """Largest |got - want|, equal entries (infinities too) counting 0."""
+    return torch.where(got == want, 0.0, got.double() - want.double()
+                       ).abs().max().item()
+
+
+def phase_serving_kernels(view, g):
+    """B2's tagged body and B3's tagged fold on serving ticks at the top
+    rung (8 m lanes), against their plain versions: the lane and offset
+    arithmetic at the size the serving path runs."""
+    from repro_torch.kernels.iru_reorder import ops as hash_ops
+    from repro_torch.kernels.segment_merge import ops as merge_ops
+    from repro_torch.kernels.segment_merge.ref import segment_merge_ref
+
+    most, least = serving_streams(view, g)
+    idx, vals, _, live_s, tags = most.pop("stream")
+    lanes = idx.numel()
+    got_v, got_s = merge_ops.segment_merge(idx, vals, op="tagged",
+                                           active=live_s, tags=tags)
+    want_v, want_s = segment_merge_ref(idx, vals, "tagged", live_s, tags)
+    torch.cuda.synchronize()
+    check_tagged(got_v, want_v, tags, "B2 tagged serving tick")
+    check(torch.equal(got_s, want_s), "B2 tagged serving tick survivors")
+    b2_err = max_abs_err(got_v, want_v)
+    b2_ms = event_ms(lambda: merge_ops.segment_merge(
+        idx, vals, op="tagged", active=live_s, tags=tags), reps=3)
+    print(f"B2 tagged serving tick: {lanes} lanes ({most['live']} live), "
+          f"{int(got_s.sum())} survivors, max abs err {b2_err:.3g}, matches "
+          f"plain; kernel {b2_ms:.4f} ms")
+    del idx, vals, live_s, tags, got_v, got_s, want_v, want_s
+    torch.cuda.empty_cache()
+    idx, vals, n_live, table = least.pop("stream")
+    got = hash_ops.hash_reorder(idx, vals, filter_op="tagged",
+                                tag_table=table, n_live=n_live)
+    b3_ms = event_ms(lambda: hash_ops.hash_reorder(
+        idx, vals, filter_op="tagged", tag_table=table, n_live=n_live),
+        reps=3)
+    want, t_plain = wall_s(lambda: hash_ops.hash_reorder(
+        idx, vals, filter_op="tagged", tag_table=table, n_live=n_live,
+        kernels=False))
+    for field in ("indices", "positions", "active"):
+        check(torch.equal(getattr(got, field), getattr(want, field)),
+              f"B3 tagged serving tick: {field} equal to plain")
+    check_tagged(got.secondary, want.secondary, table[got.indices.long()],
+                 "B3 tagged serving tick")
+    b3_err = max_abs_err(got.secondary, want.secondary)
+    print(f"B3 tagged serving tick: {lanes} lanes ({least['live']} live), "
+          f"{int(got.active.sum())} survivors, max abs err {b3_err:.3g}, "
+          f"matches plain; kernel {b3_ms:.4f} ms, plain {t_plain:.1f} s")
+    return {"segment_merge_tagged": b2_err, "iru_reorder_tagged": b3_err}
+
+
+def phase_serving(g):
+    """Multi-tenant serving on tile_csr(kron-20, 8) in five runs (see the
+    module docstring), then the tagged kernels on a serving tick's streams.
+    Returns the launch counts summed over the five runs and the tagged
+    kernels' largest errors there."""
+    from repro_torch.apps import bfs, sssp
+    from repro_torch.graphs.csr import tile_csr
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import GraphServeConfig, GraphServingEngine
+
+    cfg = GraphServeConfig()
+    view, t_tile = wall_s(lambda: tile_csr(g, cfg.query_slots))
+    print(f"serving graph tile_csr(kron20, {cfg.query_slots}): "
+          f"{view.n_nodes} nodes, {view.n_edges} edges, tiled in "
+          f"{t_tile:.3f} s; edge budget {cfg.query_slots * g.n_edges} lanes")
+    totals = {}
+    results = {}
+    for label, fused, mode, kernels, path in SERVING_RUNS:
+        eng = GraphServingEngine(view, GraphServeConfig(
+            fused=fused, mode=mode, kernels=kernels))
+        qs = serving_queries(g)
+        for q in qs:
+            eng.submit(q)
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        _, wall = wall_s(lambda: eng.run_to_completion(1000))
+        counts = dict(launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        for k in path:
+            check(counts.get(k, 0) > 0, f"serving {label} launched {k}")
+        if not kernels:
+            check(not any(counts.values()),
+                  f"serving {label} launched no kernel")
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        for q in qs:
+            check(q.status == "done", f"serving {label}: query {q.qid} "
+                  f"({q.kind}) done, got {q.status} ({q.error})")
+        print(f"serving {label:16s}: {len(qs)} queries in {wall:.3f} s "
+              f"({len(qs) / wall:.4g} queries/s), {eng.tick_no} ticks, "
+              f"{eng.overflow_events} overflow events, {eng.quarantines} "
+              f"quarantines, launches {counts}, peak device memory "
+              f"{peak / 2**30:.2f} GiB")
+        if kernels:
+            worst = 0.0
+            for q in qs:
+                solo = eng.solo_reference(q)
+                if q.kind == "ppr":
+                    worst = max(worst, rel_err(q.result, solo))
+                    check(np.allclose(q.result, solo, rtol=1e-5, atol=0.0),
+                          f"serving {label}: ppr {q.qid} within rtol 1e-5 "
+                          f"of solo (max relative error "
+                          f"{rel_err(q.result, solo):.3g})")
+                else:
+                    check(np.array_equal(q.result, solo),
+                          f"serving {label}: {q.kind} {q.qid} equals solo")
+            print(f"  BFS/SSSP equal their solo runs; PPR max relative error "
+                  f"against solo {worst:.3g}")
+        results[label] = qs
+        del eng
+        torch.cuda.empty_cache()
+    for a, b in zip(results["fused sort"], results["fused sort plain"]):
+        if a.kind == "ppr":
+            print(f"  ppr {a.qid}: fused sort against its plain twin, max "
+                  f"relative error {rel_err(a.result, b.result):.3g}")
+            check(np.allclose(a.result, b.result, rtol=1e-5, atol=0.0),
+                  f"serving ppr {a.qid}: kernels within rtol 1e-5 of plain")
+        else:
+            check(np.array_equal(a.result, b.result),
+                  f"serving {a.kind} {a.qid}: kernels equal plain")
+    qs = results["fused hash"]
+    first_bfs = next(q for q in qs if q.kind == "bfs")
+    first_sssp = next(q for q in qs if q.kind == "sssp")
+    check(np.array_equal(first_bfs.result, bfs(g, first_bfs.source)),
+          "serving bfs equals the host oracle")
+    check(np.array_equal(first_sssp.result, sssp(g, first_sssp.source)),
+          "serving sssp equals the host oracle")
+    print("serving: every query done; BFS/SSSP equal solo runs (and the "
+          "host oracles), PPR within rtol 1e-5 of solo; fused sort equals "
+          "its plain twin")
+    del results, qs
+    torch.cuda.empty_cache()
+    errors = phase_serving_kernels(view, g)
+    del view
+    torch.cuda.empty_cache()
+    return totals, errors
+
+
 def phase_timings(g, dsts, contrib, sparse):
     from repro_torch.kernels.coalesced_gather import ops as gather_ops
     from repro_torch.kernels.coalesced_gather.ref import coalesced_gather_ref
@@ -368,6 +663,30 @@ def phase_timings(g, dsts, contrib, sparse):
         # idx 4 + vals 4 read; idx 4 + vals 4 + pos 4 + active 1 written
         "bytes": n * (4 + 4) + n * (4 + 4 + 4 + 1),
     }
+    # the tagged bodies at the same shapes, tags from the per-node table.
+    # No single PyTorch call computes either function.
+    table = family_table(g)
+    tags = table[dsts.long()]
+    b2t = {
+        "ms": event_ms(lambda: merge_ops.segment_merge(
+            dsts, contrib, op="tagged", active=active, tags=tags)),
+        "plain_ms": event_ms(lambda: segment_merge_ref(dsts, contrib,
+                                                       "tagged", active,
+                                                       tags)),
+        "library_ms": None,
+        # idx 4 + vals 4 + active 1 + tag 1 read, merged 4 + survivor 1
+        "bytes": n * (4 + 4 + 1 + 1) + n * (4 + 1),
+    }
+    b3t = {
+        "ms": event_ms(lambda: hash_ops.hash_reorder(
+            pr_idx, pr_vals, filter_op="tagged", tag_table=table)),
+        "plain_ms": event_ms(lambda: hash_ops.hash_reorder(
+            pr_idx, pr_vals, filter_op="tagged", tag_table=table,
+            kernels=False), reps=1),
+        "library_ms": None,
+        # B3's bytes and the tag table read once
+        "bytes": n * (4 + 4) + table.numel() + n * (4 + 4 + 4 + 1),
+    }
     # B1 at a BFS level's shape: the gappy quarter-node expansion, D = 1
     ns = sparse.numel()
     sparse_bytes = ns * 4 * 2 + int(torch.unique(sparse).numel()) * 4
@@ -378,7 +697,9 @@ def phase_timings(g, dsts, contrib, sparse):
           f"{library_ms:.4f} ms (index_select), bound "
           f"{sparse_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({sparse_bytes} "
           f"bytes)")
-    rows = {"coalesced_gather": b1, "segment_merge": b2, "iru_reorder": b3}
+    rows = {"coalesced_gather": b1, "segment_merge": b2,
+            "segment_merge_tagged": b2t, "iru_reorder": b3,
+            "iru_reorder_tagged": b3t}
     for name, row in rows.items():
         row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
         lib = ("none" if row["library_ms"] is None
@@ -418,10 +739,27 @@ def phase_profile(graphs):
                                 capacity_policy=CapacityPolicy(n_buckets=3),
                                 max_iters=iters)
         windows.append((f"{mode} {label}", lambda pipe=pipe: pipe.run(0)))
+    from repro_torch.graphs.csr import tile_csr
+    from repro_torch.serve import GraphServeConfig, GraphServingEngine
+
+    view = tile_csr(graphs["kron20"], GraphServeConfig().query_slots)
+    for mode in ("sort", "hash"):
+        def serve_ticks(mode=mode):
+            eng = GraphServingEngine(view, GraphServeConfig(mode=mode))
+            for q in serving_queries(graphs["kron20"]):
+                eng.submit(q)
+            for _ in range(3):
+                eng.tick()
+        windows.append((f"serving fused {mode}, first 3 ticks", serve_ticks))
     pr_idx, pr_vals = pagerank_stream(graphs["kron20"])
     windows.append(("B3 at pagerank's shape, one call",
                     lambda: hash_ops.hash_reorder(pr_idx, pr_vals,
                                                   filter_op="add")))
+    table = family_table(graphs["kron20"])
+    windows.append(("B3 tagged at pagerank's shape, one call",
+                    lambda: hash_ops.hash_reorder(pr_idx, pr_vals,
+                                                  filter_op="tagged",
+                                                  tag_table=table)))
     for label, fn in windows:
         fn()  # warm-up
         with profile(activities=[ProfilerActivity.CPU,
@@ -463,6 +801,11 @@ def main() -> int:
     graphs = make_graphs(dev)
     dsts, contrib, sparse, errors = phase_kernels(graphs["kron20"])
     launches = phase_apps(graphs)
+    served, serving_errors = phase_serving(graphs["kron20"])
+    for k, v in served.items():
+        launches[k] = launches.get(k, 0) + v
+    for k, v in serving_errors.items():
+        errors[k] = max(errors[k], v)
     timings = phase_timings(graphs["kron20"], dsts, contrib, sparse)
     phase_profile(graphs)
 
@@ -470,15 +813,21 @@ def main() -> int:
         "coalesced_gather": (
             "src/repro_torch/kernels/coalesced_gather/coalesced_gather.cu",
             "src/repro/kernels/coalesced_gather/coalesced_gather.py:43"),
-        "segment_merge": (
+        "segment_merge": (  # _kernel, add/min/max
             "src/repro_torch/kernels/segment_merge/segment_merge.cu",
-            "src/repro/kernels/segment_merge/segment_merge.py:120"),
+            "src/repro/kernels/segment_merge/segment_merge.py:43"),
+        "segment_merge_tagged": (  # _kernel_tagged, the fused families
+            "src/repro_torch/kernels/segment_merge/segment_merge.cu",
+            "src/repro/kernels/segment_merge/segment_merge.py:74"),
         "iru_reorder": (
+            "src/repro_torch/kernels/iru_reorder/iru_reorder.cu",
+            "src/repro/kernels/iru_reorder/iru_reorder.py:168"),
+        "iru_reorder_tagged": (  # B3's tagged fold (the batched engine's)
             "src/repro_torch/kernels/iru_reorder/iru_reorder.cu",
             "src/repro/kernels/iru_reorder/iru_reorder.py:168"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": replaces, "launches": launches[name],
+                "replaces": replaces, "launches": launches.get(name, 0),
                 "max_abs_err": errors[name], "ms": timings[name]["ms"],
                 "plain_ms": timings[name]["plain_ms"],
                 "bound_ms": timings[name]["bound_ms"], "bound_by": "bytes",

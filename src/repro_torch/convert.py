@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.graphs.csr import CSRGraph
+from repro_torch.graphs.csr import CSRGraph, GraphView
 
 
 def graph_from_numpy(row_ptr, col_idx, weights,
@@ -23,6 +23,16 @@ def graph_from_numpy(row_ptr, col_idx, weights,
         col_idx=torch.from_numpy(np.asarray(col_idx, np.int32).copy()).to(dev),
         weights=torch.from_numpy(
             np.asarray(weights, np.float32).copy()).to(dev))
+
+
+def view_from_numpy(row_ptr, col_idx, weights, *, n_tenants: int,
+                    base_nodes: int, base_edges: int,
+                    device: str | torch.device | None = None) -> GraphView:
+    """A tiled composite's arrays and tenant geometry -> :class:`GraphView`
+    (what ``repro.graphs.csr.tile_csr`` returns, carried across)."""
+    g = graph_from_numpy(row_ptr, col_idx, weights, device)
+    return GraphView(g.row_ptr, g.col_idx, g.weights, n_tenants=n_tenants,
+                     base_nodes=base_nodes, base_edges=base_edges)
 
 
 def state_from_numpy(state: dict, device: str | torch.device | None = None

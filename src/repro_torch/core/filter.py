@@ -5,10 +5,9 @@ indices adjacent, so the merge is a segment reduction: the first lane of
 each run survives and carries the run's merged payload, every other lane is
 deactivated.
 
-``merge_sorted`` for ``add``/``min``/``max`` goes through
-``kernels.segment_merge`` (kernel B2 for CUDA tensors, its plain version for
-CPU tensors).  ``op="tagged"`` (the fused min+add family of the serving
-stack) is plain PyTorch only in this slice.
+``merge_sorted`` goes through ``kernels.segment_merge`` (kernel B2 for CUDA
+tensors, its plain version for CPU tensors), for ``add``/``min``/``max`` and
+for ``op="tagged"``, the fused min+add family of the serving stack.
 """
 from __future__ import annotations
 
@@ -59,31 +58,6 @@ def _lane(mask: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
     return mask.reshape(mask.shape + (1,) * (values.dim() - 1))
 
 
-def _merge_tagged(sorted_indices, values, active, tags):
-    """Fused-family merge: per-lane select of the min and add reductions."""
-    from repro_torch.kernels.segment_merge.ref import segment_reduce
-
-    if tags is None:
-        raise ValueError("op='tagged' requires per-lane tags")
-    if values.is_cuda:
-        raise NotImplementedError(
-            "op='tagged' has no CUDA kernel yet: it comes with the serving "
-            "slice of the port")
-    first = run_starts(sorted_indices, active)
-    segs = torch.cumsum(first, 0, dtype=torch.int64) - 1
-    vmin, vadd = values, values
-    if active is not None:
-        lane = _lane(active, values)
-        vmin = torch.where(lane, values, _merge_init("min", values.dtype))
-        vadd = torch.where(lane, values, _merge_init("add", values.dtype))
-    minned = segment_reduce(vmin, segs, "min")
-    summed = segment_reduce(vadd, segs, "add")
-    out = torch.where(_lane(tags, values), summed[segs], minned[segs])
-    if active is not None:
-        out = torch.where(lane, out, values)
-    return out, first
-
-
 def merge_sorted(
     sorted_indices: torch.Tensor,
     values: torch.Tensor,
@@ -95,15 +69,16 @@ def merge_sorted(
 
     ``merged_values[i]`` is the reduction of ``values`` over the run holding
     lane ``i``; ``survivor_mask`` marks the first active lane of each run.
-    Inactive lanes never start a run, contribute the identity and keep their
-    own value.  Domain: ``active`` is a prefix of the stream (what the sort
+    Inactive lanes never start a run, contribute nothing and keep their
+    own value.  ``op="tagged"``: ``tags`` marks each lane's family (False =
+    min, True = add); equal indices share a tag, so every run is
+    uniform-tag.  Domain: ``active`` is a prefix of the stream (what the sort
     engine passes); off it the reference indexes segment ``-1``.
     """
-    if op == "tagged":
-        return _merge_tagged(sorted_indices, values, active, tags)
     from repro_torch.kernels.segment_merge.ops import segment_merge
 
-    return segment_merge(sorted_indices, values, op=op, active=active)
+    return segment_merge(sorted_indices, values, op=op, active=active,
+                         tags=tags)
 
 
 def filter_rate(survivor_mask: torch.Tensor,

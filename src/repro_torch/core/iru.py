@@ -190,17 +190,15 @@ def _sort_reorder(indices: torch.Tensor, secondary: torch.Tensor,
         active = (torch.ones(n, dtype=torch.bool, device=indices.device)
                   if live_s is None else live_s)
         return IRUStream(idx, sec, pos, active)
+    tags = None
     if cfg.filter_op == "tagged":
         # tags re-derive from the permuted index frame (real values on every
         # lane, dead ones included, so every lookup stays in range)
         tags = tag_table[idx.long().clamp(0, tag_table.shape[0] - 1)]
-        merged, survivors = filt.merge_sorted(idx, sec, "tagged", live_s,
-                                              tags)
-        return IRUStream(idx, merged, pos, survivors)
     from repro_torch.kernels.segment_merge.ref import segment_merge_ref
 
     merge = filt.merge_sorted if kernels else segment_merge_ref
-    merged, survivors = merge(idx, sec, cfg.filter_op, live_s)
+    merged, survivors = merge(idx, sec, cfg.filter_op, live_s, tags)
     return IRUStream(idx, merged, pos, survivors)
 
 

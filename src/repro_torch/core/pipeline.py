@@ -44,17 +44,34 @@ _SCATTER_REDUCE = {"min": "amin", "max": "amax"}
 
 
 def _scatter(target: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
-             act: torch.Tensor, op: str) -> torch.Tensor:
+             act: torch.Tensor, op: str,
+             tags: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Merged scatter: inactive lane ``i`` goes to its own sink slot
     ``n + i`` of an ``n + lanes`` buffer, which is sliced off (the
     reference's ``mode="drop"``).  One shared sink slot would take every
     merged-out lane's atomic on one address, and on the card those
-    serialise."""
+    serialise.
+
+    ``op="tagged"`` is the fused-family scatter: each lane folds under its
+    family (``tags``: False = min, True = add).  A destination index has one
+    family, so the min scatter (add lanes sent to their sinks) and the add
+    scatter (min lanes sent to theirs) compose without interference.
+    """
+    if op == "tagged":
+        if tags is None:
+            raise ValueError("op='tagged' requires per-lane tags")
+        out = _scatter(target, idx, val, act & ~tags, "min")
+        return _scatter(out, idx, val, act & tags, "add")
     if op != "add" and op not in _SCATTER_REDUCE:
         raise ValueError(f"unknown merge op {op!r}")
     n, lanes = target.shape[0], idx.shape[0]
     sink = torch.arange(n, n + lanes, device=idx.device)
     dest = torch.where(act, idx.long(), sink)
+    # lanes fold in the target's dtype.  The PPR apps keep a float64
+    # accumulator: the card's atomics add a hub's f32 contributions in no
+    # fixed order, and summed in float64 and rounded once, the order moves
+    # the f32 result far less than an f32 sum's order does
+    val = val.to(target.dtype)
     buf = torch.cat([target, target.new_full((lanes,), _merge_init(
         op, target.dtype))])
     if op == "add":
@@ -63,6 +80,12 @@ def _scatter(target: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
         buf.scatter_reduce_(0, dest, val, reduce=_SCATTER_REDUCE[op],
                             include_self=True)
     return buf[:n]
+
+
+def _lane_tags(tag_table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Each lane's family from the step's tag table (sentinels clamp in
+    range: the table's last entry covers the padding index)."""
+    return tag_table[idx.long().clamp(0, tag_table.shape[0] - 1)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,15 +148,33 @@ def frontier_step(
     """One expand -> candidate -> reorder -> merge-scatter -> update step at
     one capacity rung ``(e_cap, f_cap)``.
 
+    Apps with ``filter_op == "tagged"`` (the fused min+add datapath) must
+    declare a ``tag_table``; the table is built once a step and rides the
+    reorder engines, which re-derive lane tags from their own index frames,
+    so every duplicate run is uniform-tag.
+
     Returns ``(state, mask, idx, act, real, n_edges, overflow)``.
     """
     n = g.n_nodes
+    tag_tab = None
+    if app.filter_op == "tagged":
+        if app.tag_table is None:
+            raise ValueError(
+                f"app {app.name!r} has filter_op='tagged' but no tag_table")
+        tag_tab = app.tag_table(state, g)
     nodes = frontier_from_mask(mask, size=f_cap)
     ef = expand_frontier(g, nodes, edge_capacity=e_cap,
                          gather="kernel" if kernels else "torch",
                          with_weights=app.needs_weights)
     vals = app.candidate(state, g, ef)
-    vals = torch.where(ef.valid, vals, _merge_init(app.filter_op, vals.dtype))
+    inert = vals.new_full((), _merge_init(app.filter_op, vals.dtype))
+    if tag_tab is not None:
+        # dead lanes of the add family hold the add identity (0), not +inf;
+        # padding lanes (index n) map to the min family
+        inert = torch.where(_lane_tags(tag_tab, ef.dsts),
+                            vals.new_full((), _merge_init("add", vals.dtype)),
+                            inert)
+    vals = torch.where(ef.valid, vals, inert)
     n_edges = ef.n_valid
     if iru_config is None:
         idx, svals, act = ef.dsts, vals, ef.valid
@@ -144,13 +185,14 @@ def frontier_step(
         # stream as ordinary elements that the scatter drops
         stream = iru_reorder(ef.dsts, vals, config=iru_config,
                              n_live=ef.n_valid if ragged else None,
-                             kernels=kernels)
+                             tag_table=tag_tab, kernels=kernels)
         idx, svals = stream.indices, stream.secondary
         act = stream.active & (stream.indices < n)
         # expansion front-packs valid lanes: a lane is real iff its original
         # position is below the valid count
         real = stream.positions < n_edges
-    new_target = _scatter(state[app.target], idx, svals, act, app.filter_op)
+    new_target = _scatter(state[app.target], idx, svals, act, app.filter_op,
+                          None if tag_tab is None else _lane_tags(tag_tab, idx))
     state, mask = app.update(state, new_target, g)
     return state, mask, idx, act, real, n_edges, ef.overflow
 
@@ -184,7 +226,11 @@ class FrontierApp:
     * ``update(state, new_target, graph)`` -> ``(state, mask)``;
     * ``cond(state, mask)`` -> bool 0-d tensor: keep iterating?
     * ``result(state)`` -> the app's output tensor;
-    * ``needs_weights``: expansion co-gathers edge weights into ``ef.weights``.
+    * ``needs_weights``: expansion co-gathers edge weights into ``ef.weights``;
+    * ``tag_table(state, graph)`` (required iff ``filter_op == "tagged"``)
+      -> bool ``[n_nodes + 1]``: each destination index's merge family
+      (False = min, True = add; the last entry covers the padding sentinel
+      and is False).
     """
 
     name: str
@@ -197,6 +243,7 @@ class FrontierApp:
     cond: Callable[[State, torch.Tensor], torch.Tensor]
     result: Callable[[State], torch.Tensor]
     needs_weights: bool = False
+    tag_table: Optional[Callable[[State, CSRGraph], torch.Tensor]] = None
 
 
 class FrontierPipeline:

@@ -2,7 +2,7 @@
 
 Counterpart of ``repro.graphs.csr`` (``CSRGraph``, ``from_edges``,
 ``EdgeFrontier``, ``frontier_from_mask``, ``frontier_degree_sum``,
-``expand_frontier``).  Arrays are torch tensors on one device: int32 ids and
+``expand_frontier``, and the serving stack's ``GraphView`` / ``tile_csr``).  Arrays are torch tensors on one device: int32 ids and
 offsets, float32 weights, as in the reference (x64 off).
 
 :func:`expand_frontier` keeps the reference's fixed output shapes (every
@@ -189,6 +189,85 @@ def expand_frontier(
     dsts = torch.where(valid, dsts, n)
     return EdgeFrontier(srcs, dsts, eids, valid, weights, total > cap,
                         torch.clamp(total, max=cap))
+
+
+@dataclasses.dataclass
+class GraphView(CSRGraph):
+    """A composite ``CSRGraph`` carrying its id-space metadata.
+
+    :func:`tile_csr` emits a ``GraphView``: composite node ``c`` decomposes
+    as ``(tenant, local) = divmod(c, base_nodes)``, and that travels with the
+    arrays.  A view IS a ``CSRGraph``, so the whole pipeline applies
+    unchanged.  Tiling a view multiplies ``n_tenants``; the base stays the
+    original base graph.
+    """
+
+    n_tenants: int = 1
+    base_nodes: int = 0
+    base_edges: int = 0
+
+    @property
+    def base(self) -> CSRGraph:
+        """The single-tenant base graph: exact prefix slices (tenant 0's
+        composite ids coincide with base ids)."""
+        return CSRGraph(row_ptr=self.row_ptr[:self.base_nodes + 1],
+                        col_idx=self.col_idx[:self.base_edges],
+                        weights=self.weights[:self.base_edges])
+
+    def to(self, device: str | torch.device) -> "GraphView":
+        return GraphView(self.row_ptr.to(device), self.col_idx.to(device),
+                         self.weights.to(device), n_tenants=self.n_tenants,
+                         base_nodes=self.base_nodes,
+                         base_edges=self.base_edges)
+
+    def tenant_of(self, composite_ids):
+        """Tenant index of each composite node id."""
+        return composite_ids // self.base_nodes
+
+    def local_of(self, composite_ids):
+        """Base-graph node id of each composite node id."""
+        return composite_ids % self.base_nodes
+
+
+def tile_csr(graph: CSRGraph, copies: int) -> GraphView:
+    """``copies`` disjoint replicas of ``graph`` as one composite CSR view.
+
+    Replica ``q``'s node ``v`` becomes composite node ``q * n_nodes + v`` and
+    its edges shift likewise, so a multi-query frontier over the replicas is
+    one frontier of composite ``(query, node)`` ids, and duplicate merging
+    only ever combines lanes within one query.  Tiling a view composes
+    (``n_tenants`` multiplies).  Memory is ``copies`` times the base graph.
+    """
+    if copies < 1:
+        raise ValueError(f"copies must be >= 1, got {copies}")
+    n, m = graph.n_nodes, graph.n_edges
+    # composite ids pack the tenant into the high part of the node id (and
+    # edge offsets shift by q*m): check copies*n and copies*m against the id
+    # dtype before anything is allocated, since a wraparound would alias
+    # tenants onto each other
+    info = np.iinfo(str(graph.col_idx.dtype).removeprefix("torch."))
+    if copies * max(n, 1) > info.max or copies * max(m, 1) > info.max:
+        raise ValueError(
+            f"tile_csr: copies={copies} tenants over a base of n={n} nodes"
+            f" / {m} edges needs composite ids up to "
+            f"{max(copies * max(n, 1), copies * max(m, 1))}, which"
+            f" overflows the {info.dtype.name} id space "
+            f"(max {info.max}); int32 ids cap copies at "
+            f"{info.max // max(n, m, 1)} for this base graph")
+    if isinstance(graph, GraphView):
+        base_n, base_m = graph.base_nodes, graph.base_edges
+        tenants = graph.n_tenants * copies
+    else:
+        base_n, base_m, tenants = n, m, copies
+    q = torch.arange(copies, dtype=torch.int32, device=graph.device)[:, None]
+    # composite row_ptr[c*n + v] = c*m + row_ptr[v]; interior replica
+    # boundaries coincide, so each replica's row_ptr[1:] after a leading 0
+    row_ptr = torch.cat([graph.row_ptr[:1] * 0,
+                         (graph.row_ptr[None, 1:] + q * m).reshape(-1)])
+    col_idx = (graph.col_idx[None, :] + q * n).reshape(-1)
+    return GraphView(row_ptr=row_ptr, col_idx=col_idx,
+                     weights=graph.weights.repeat(copies),
+                     n_tenants=tenants, base_nodes=base_n, base_edges=base_m)
 
 
 def from_edges(

@@ -1,8 +1,13 @@
 // IRU reordering hash (kernel B3): the paper's hash of num_sets x slots
 // entries keyed on hash(idx // epb), over an int32 index stream with an
 // f32 or int32 [n] payload and a ragged live prefix n_live (read from device
-// memory).  The result equals ragged_oracle(hash_reorder_ref, ...) of
-// repro_torch/kernels/iru_reorder/ref.py, buffer order:
+// memory).  The merge op is none, add, min, max or tagged: the fused min+add
+// family fold of the serving stack, where each arrival's family is
+// tag_table[clamp(idx, 0, T-1)] (1 = add), as in the batched engine's
+// _lane_tags.  The result equals ragged_oracle(hash_reorder_ref, ...) of
+// repro_torch/kernels/iru_reorder/ref.py (tagged: its add result on add
+// lanes and its min result on min lanes; the layout does not depend on the
+// op), buffer order:
 //   1. flushed groups, by their trigger's stream position, each `slots`
 //      entries in insertion order with merged payloads;
 //   2. drained sets in set-id order, each in insertion order;
@@ -32,7 +37,9 @@
 //           take slots in lane order, the one that fills the set being the
 //           trigger.  Each slot's owner folds its filtered arrivals in lane
 //           order from the warp's shared copy of the batch, so f32 sums add
-//           in the oracle's (stream) order.  A full set is written back into
+//           in the oracle's (stream) order.  Tagged, each slot folds under
+//           its resident's family, which the binning packs into bit 31 of
+//           the arrival's position (positions are below 2^31).  A full set is written back into
 //           its own (already consumed) stretch of the binned arrays and its
 //           trigger's stream position is marked;
 //   emit    no sorts: a flush group's rank is an exclusive scan of the
@@ -71,7 +78,7 @@ constexpr int kScanTile = kScanThreads * kScanItems;
 constexpr int kWalkWarps = 4;
 constexpr int kEmitThreads = 256;
 
-enum Op { kNone = 0, kAdd = 1, kMin = 2, kMax = 3 };
+enum Op { kNone = 0, kAdd = 1, kMin = 2, kMax = 3, kTagged = 4 };
 enum Mark : uint8_t { kKept = 0, kTrigger = 1, kFiltered = 2 };
 
 __device__ __forceinline__ int live_count(const int* n_live, long long n) {
@@ -97,13 +104,31 @@ __device__ __forceinline__ T combine(T a, T b) {
   return a;
 }
 
+// a slot's fold of one filtered arrival; tagged, by the slot's family
+template <typename T, int OP>
+__device__ __forceinline__ T fold(T a, T b, bool add) {
+  if (OP == kTagged) return add ? a + b : (b < a ? b : a);
+  return combine<T, OP>(a, b);
+}
+
+constexpr int kPosMask = INT_MAX;  // a binned position; bit 31 = the add family
+
 struct Geo {
   long long n;
   int num_sets;
   int slots;
   int epb;
   int nchunks;
+  const uint8_t* tags;  // op = tagged: the family of each index (1 = add)
+  int ntags;
 };
+
+// bit 31 of a binned position: set when idx's family is add
+__device__ __forceinline__ int family_bit(int idx, const Geo& g) {
+  if (g.tags == nullptr) return 0;
+  const int i = idx < 0 ? 0 : (idx >= g.ntags ? g.ntags - 1 : idx);
+  return g.tags[i] != 0 ? INT_MIN : 0;
+}
 
 // ---------------------------------------------------------------- binning
 // One warp adds the lanes [p0, p1) of each set to cnt[set]; lanes of one set
@@ -226,7 +251,7 @@ bin_scatter(const int* idx, const uint32_t* val, const int* n_live, Geo g, const
     const uint2 iv = buf_iv[q];
     const int at = q + delta[hash_set((int)iv.x, g.epb, g.num_sets)];
     b_iv[at] = iv;
-    b_pos[at] = (int)(p0 + buf_pos[q]);
+    b_pos[at] = (int)(p0 + buf_pos[q]) | family_bit((int)iv.x, g);
   }
 }
 
@@ -281,6 +306,7 @@ walk(const int* set_start, Geo g, uint2* b_iv, int* b_pos, uint8_t* mark, int* n
   const int len = set_start[s + 1] - start;
   int r_idx = 0, r_pos = 0;  // slot `lane` of this set
   T r_val = T(0);
+  bool r_add = false;        // tagged: the slot's family
   int cnt = 0, wc = 0, flushes = 0;  // warp-uniform
   uint2 nx_iv = make_uint2(0, 0);
   int nx_pos = 0;
@@ -293,9 +319,9 @@ walk(const int* set_start, Geo g, uint2* b_iv, int* b_pos, uint8_t* mark, int* n
     const unsigned valid = upto(steps - 1);
     const bool have = lane < steps;
     const int ei = (int)nx_iv.x;
-    const int ep = nx_pos;
+    const int ep = nx_pos & kPosMask;
     payload[wid][lane] = nx_iv.y;
-    position[wid][lane] = ep;
+    position[wid][lane] = nx_pos;
     // the next batch lies past every write-back of this one (a flush group
     // is `slots` arrivals already consumed)
     if (k0 + kWarp + lane < len) {
@@ -350,7 +376,8 @@ walk(const int* set_start, Geo g, uint2* b_iv, int* b_pos, uint8_t* mark, int* n
         const int t = taken_from[wid][lane];
         r_idx = res[lane];
         r_val = from_bits<T>(payload[wid][t]);
-        r_pos = position[wid][t];
+        r_pos = position[wid][t] & kPosMask;
+        r_add = position[wid][t] < 0;
       }
       if (OP != kNone && fm) {
         // each slot's owner folds the arrivals that name it, in lane order
@@ -358,10 +385,10 @@ walk(const int* set_start, Geo g, uint2* b_iv, int* b_pos, uint8_t* mark, int* n
         for (int q = 0; q < kWarp / 4; ++q) {
           const int4 o = into4[q];
           const uint4 b = pay4[q];
-          if (o.x == lane) r_val = combine<T, OP>(r_val, from_bits<T>(b.x));
-          if (o.y == lane) r_val = combine<T, OP>(r_val, from_bits<T>(b.y));
-          if (o.z == lane) r_val = combine<T, OP>(r_val, from_bits<T>(b.z));
-          if (o.w == lane) r_val = combine<T, OP>(r_val, from_bits<T>(b.w));
+          if (o.x == lane) r_val = fold<T, OP>(r_val, from_bits<T>(b.x), r_add);
+          if (o.y == lane) r_val = fold<T, OP>(r_val, from_bits<T>(b.y), r_add);
+          if (o.z == lane) r_val = fold<T, OP>(r_val, from_bits<T>(b.z), r_add);
+          if (o.w == lane) r_val = fold<T, OP>(r_val, from_bits<T>(b.w), r_add);
         }
       }
       __syncwarp();  // the shared copies are read before they change
@@ -632,6 +659,7 @@ int walk_launch(int op, const Work& w, Geo g, cudaStream_t st) {
     case kAdd: return walk_one<T, kAdd>(w, g, st);
     case kMin: return walk_one<T, kMin>(w, g, st);
     case kMax: return walk_one<T, kMax>(w, g, st);
+    case kTagged: return walk_one<T, kTagged>(w, g, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -682,20 +710,24 @@ long long iru_hash_reorder_workspace(long long n, int num_sets) {
   return carve(nullptr, n, num_sets, nullptr);
 }
 
-// dtype: 0 = float32, 1 = int32; op: 0 = none, 1 = add, 2 = min, 3 = max.
+// dtype: 0 = float32, 1 = int32; op: 0 = none, 1 = add, 2 = min, 3 = max,
+// 4 = tagged (tag_table: ntags bytes on the device, nonzero = the add family;
+// null for other ops).
 // n_live: device pointer to one int32, or null for a padded stream.
 // Returns a cudaError_t code (0 on success).
-int iru_hash_reorder(const int* idx, const void* val, const int* n_live, int* out_idx,
-                     void* out_val, int* out_pos, uint8_t* out_act, void* workspace,
-                     long long n, int num_sets, int slots, int epb, int dtype, int op,
-                     void* stream) {
+int iru_hash_reorder(const int* idx, const void* val, const int* n_live, const uint8_t* tag_table,
+                     int ntags, int* out_idx, void* out_val, int* out_pos, uint8_t* out_act,
+                     void* workspace, long long n, int num_sets, int slots, int epb, int dtype,
+                     int op, void* stream) {
   if (n <= 0) return 0;
   if (n >= INT_MAX || num_sets < 1 || num_sets > kMaxSets || slots < 1 || slots > kWarp ||
-      epb < 1 || op < kNone || op > kMax)
+      epb < 1 || op < kNone || op > kTagged ||
+      (op == kTagged) != (tag_table != nullptr && ntags > 0))
     return (int)cudaErrorInvalidValue;
   Work w;
   carve((char*)workspace, n, num_sets, &w);
-  Geo g{n, num_sets, slots, epb, (int)((n + kChunk - 1) / kChunk)};
+  Geo g{n, num_sets, slots, epb, (int)((n + kChunk - 1) / kChunk),
+        op == kTagged ? tag_table : nullptr, ntags};
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
     return run<float>(idx, (const float*)val, n_live, out_idx, (float*)out_val, out_pos,

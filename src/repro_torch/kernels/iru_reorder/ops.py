@@ -3,9 +3,12 @@ kernel, CPU tensors take the plain version (``batched.py``).
 
 Counterpart of ``repro.kernels.iru_reorder.ops.hash_reorder``.  The kernel
 carries the single-partition contract with ``n_live``: ``filter_op`` in
-{None, add, min, max}, an f32 or int32 ``[n]`` payload, ``slots <= 32``.  On
-a CUDA tensor with ``kernels=True`` every other option raises, naming the
-slice that brings it; nothing quietly runs the plain version instead.
+{None, add, min, max, tagged} (tagged with a bool ``tag_table``, the fused
+min+add fold of the batched engine), an f32 or int32 ``[n]`` payload,
+``slots <= 32``.  On a CUDA tensor with ``kernels=True`` every other option
+raises, naming the slice that brings it; nothing quietly runs the plain
+version instead.  Launches count under ``iru_reorder`` or, tagged,
+``iru_reorder_tagged``.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ from repro_torch.kernels import _build, launch_counts
 from repro_torch.kernels.iru_reorder.batched import hash_reorder_batched
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_OPS = {None: 0, "add": 1, "min": 2, "max": 3}
+_OPS = {None: 0, "add": 1, "min": 2, "max": 3, "tagged": 4}
 _DTYPES = {torch.float32: 0, torch.int32: 1}
 _WARP = 32
 
@@ -26,8 +29,8 @@ _WARP = 32
 def _lib() -> ctypes.CDLL:
     lib = _build.load("iru_reorder")
     fn = lib.iru_hash_reorder
-    fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I,
-                   _P]
+    fn.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _LL, _I, _I, _I,
+                   _I, _I, _P]
     fn.restype = _I
     lib.iru_hash_reorder_workspace.argtypes = [_LL, _I]
     lib.iru_hash_reorder_workspace.restype = _LL
@@ -35,13 +38,9 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _refuse(secondary, *, num_sets, slots, epb, filter_op, round_cap, n_live,
-            tag_table, device) -> None:
+def _refuse(secondary, *, num_sets, slots, epb, round_cap, n_live, tag_table,
+            device) -> None:
     """What kernel B3 does not carry yet raises on CUDA."""
-    if filter_op == "tagged" or tag_table is not None:
-        raise NotImplementedError(
-            "kernel B3 has no tagged merge yet: it comes with the serving "
-            "slice of the port; pass kernels=False for the plain version")
     if secondary.dim() != 1:
         raise NotImplementedError(
             "kernel B3 carries [n] payloads only; [n, k] payloads come with "
@@ -63,8 +62,13 @@ def _refuse(secondary, *, num_sets, slots, epb, filter_op, round_cap, n_live,
     if not 1 <= num_sets <= max_sets:
         raise ValueError(f"kernel B3 takes 1 <= num_sets <= {max_sets}, "
                          f"got {num_sets}")
-    if secondary.device != device or (isinstance(n_live, torch.Tensor)
-                                      and n_live.device != device):
+    if tag_table is not None and (tag_table.dim() != 1
+                                  or tag_table.dtype != torch.bool
+                                  or not 1 <= tag_table.numel() < 2**31):
+        raise ValueError(f"tag_table must be a non-empty bool [T], got "
+                         f"{tag_table.dtype} {tuple(tag_table.shape)}")
+    if any(isinstance(x, torch.Tensor) and x.device != device
+           for x in (secondary, n_live, tag_table)):
         raise ValueError("all operands must be on one device")
 
 
@@ -96,8 +100,10 @@ def hash_reorder(
         raise NotImplementedError(
             "n_partitions > 1 (the banked hash engine) comes with a later "
             "slice of the port")
-    if filter_op not in _OPS and filter_op != "tagged":
+    if filter_op not in _OPS:
         raise ValueError(f"unknown filter op {filter_op!r}")
+    if (filter_op == "tagged") != (tag_table is not None):
+        raise ValueError("filter_op='tagged' and tag_table go together")
     indices = indices.to(torch.int32)
     n = indices.shape[0]
     if secondary is None:
@@ -110,13 +116,14 @@ def hash_reorder(
             tag_table=tag_table))
     epb = block_bytes // elem_bytes
     _refuse(secondary, num_sets=num_sets, slots=slots, epb=epb,
-            filter_op=filter_op, round_cap=round_cap, n_live=n_live,
-            tag_table=tag_table, device=indices.device)
+            round_cap=round_cap, n_live=n_live, tag_table=tag_table,
+            device=indices.device)
     return IRUStream(*_launch(indices, secondary, num_sets, slots, epb,
-                              filter_op, n_live))
+                              filter_op, n_live, tag_table))
 
 
-def _launch(indices, secondary, num_sets, slots, epb, filter_op, n_live):
+def _launch(indices, secondary, num_sets, slots, epb, filter_op, n_live,
+            tag_table):
     dev = indices.device
     n = indices.shape[0]
     idx = indices.contiguous()
@@ -130,15 +137,19 @@ def _launch(indices, secondary, num_sets, slots, epb, filter_op, n_live):
     live = None
     if n_live is not None:
         live = torch.as_tensor(n_live, device=dev).to(torch.int32).reshape(())
+    tags = None if tag_table is None else tag_table.contiguous()
     lib = _lib()
     work = torch.empty(lib.iru_hash_reorder_workspace(n, num_sets),
                        dtype=torch.uint8, device=dev)
     code = lib.iru_hash_reorder(
         idx.data_ptr(), sec.data_ptr(), None if live is None else
-        live.data_ptr(), out_idx.data_ptr(), out_sec.data_ptr(),
-        out_pos.data_ptr(), out_act.data_ptr(), work.data_ptr(), n, num_sets,
+        live.data_ptr(), None if tags is None else tags.data_ptr(),
+        0 if tags is None else tags.numel(), out_idx.data_ptr(),
+        out_sec.data_ptr(), out_pos.data_ptr(), out_act.data_ptr(),
+        work.data_ptr(), n, num_sets,
         slots, epb, _DTYPES[sec.dtype], _OPS[filter_op],
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, code, "iru_reorder")
-    launch_counts["iru_reorder"] += 1
+    launch_counts["iru_reorder_tagged" if filter_op == "tagged"
+                  else "iru_reorder"] += 1
     return out_idx, out_sec, out_pos, out_act

@@ -36,15 +36,30 @@ def segment_reduce(values: torch.Tensor, segs: torch.Tensor,
 
 
 def segment_merge_ref(sorted_indices: torch.Tensor, values: torch.Tensor,
-                      op: str = "add", active: torch.Tensor | None = None):
-    """``(merged, survivors)`` with the contract of ``core.filter.merge_sorted``."""
+                      op: str = "add", active: torch.Tensor | None = None,
+                      tags: torch.Tensor | None = None):
+    """``(merged, survivors)`` with the contract of ``core.filter.merge_sorted``.
+
+    ``op="tagged"`` (the fused min+add family merge) reduces every run both
+    ways, with the inactive lanes inert under each, and each lane takes the
+    reduction of its tag's family (True = add).
+    """
+    if op == "tagged" and tags is None:
+        raise ValueError("op='tagged' requires per-lane tags")
     first = run_starts(sorted_indices, active)
     segs = torch.cumsum(first, 0, dtype=torch.int64) - 1
-    vals = values
-    if active is not None:
-        lane = _lane(active, values)
-        vals = torch.where(lane, values, _merge_init(op, values.dtype))
-    out = segment_reduce(vals, segs, op)[segs]  # segs == -1 wraps, as in jnp
-    if active is not None:
+    lane = None if active is None else _lane(active, values)
+
+    def reduce(op):
+        vals = values
+        if lane is not None:
+            vals = torch.where(lane, values, _merge_init(op, values.dtype))
+        return segment_reduce(vals, segs, op)[segs]  # segs == -1 wraps, as in jnp
+
+    if op == "tagged":
+        out = torch.where(_lane(tags, values), reduce("add"), reduce("min"))
+    else:
+        out = reduce(op)
+    if lane is not None:
         out = torch.where(lane, out, values)
     return out, first

@@ -104,6 +104,57 @@ def test_merge_sorted_tagged_plain():
         filt.merge_sorted(t(idx), t(vals), "tagged")
 
 
+def _assert_tagged_equal(want, got, tags, dtype, lanes=None):
+    """Survivors and min-family lanes exactly; add-family lanes as ``add``."""
+    keep = np.ones(tags.shape, bool) if lanes is None else lanes
+    _assert_merge_equal(want, got, "min", dtype, lanes=keep & ~tags)
+    _assert_merge_equal(want, got, "add", dtype, lanes=keep & tags)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+@pytest.mark.parametrize("tail_family", ["add", "min"])
+@pytest.mark.parametrize("live", [None, "prefix"])
+def test_merge_sorted_tagged_matches_reference_and_pallas(dtype, tail_family,
+                                                          live):
+    """The plain tagged merge against the reference's ``merge_sorted`` on
+    all lanes and its Pallas ``_kernel_tagged`` (interpret mode) on the
+    survivors.  With an active prefix, the last live run and the dead tail
+    behind it take opposite families: a dead lane's inert payload chosen by
+    its own tag would poison the live run (``+inf`` into an add run)."""
+    rng = np.random.default_rng(29)
+    idx = _sorted_stream(1300, 90, rng, long_run=700)  # crosses 512-chunks
+    vals = _values(1300, dtype, rng)
+    table = rng.random(92) < 0.5
+    active = None
+    if live is not None:
+        cut = 1000
+        while idx[cut] == idx[cut - 1]:  # the dead tail starts a new index
+            cut += 1
+        active = np.arange(1300) < cut
+        table[idx[cut - 1]] = tail_family == "add"
+        table[idx[cut:]] = tail_family != "add"
+    tags = table[idx]
+    want = jfilt.merge_sorted(jnp.asarray(idx), jnp.asarray(vals), "tagged",
+                              active=None if active is None
+                              else jnp.asarray(active),
+                              tags=jnp.asarray(tags))
+    got = filt.merge_sorted(t(idx), t(vals), "tagged",
+                            active=None if active is None else t(active),
+                            tags=t(tags))
+    _assert_tagged_equal(want, got, tags, dtype)
+    assert np.isfinite(n(got[0]).astype(np.float64)[tags]).all()
+    got_ref = segment_merge_ref(t(idx), t(vals), "tagged",
+                                None if active is None else t(active),
+                                t(tags))
+    _assert_tagged_equal(want, got_ref, tags, dtype)
+    if active is None:  # the Pallas kernel takes no active prefix
+        pallas = segment_merge_pallas(jnp.asarray(idx), jnp.asarray(vals),
+                                      jnp.asarray(tags), op="tagged",
+                                      interpret=True)
+        _assert_tagged_equal(pallas, got, tags, dtype,
+                             lanes=np.asarray(pallas[1]))
+
+
 def test_run_starts_segment_ids_filter_rate_compact():
     rng = np.random.default_rng(3)
     idx = _sorted_stream(200, 30, rng)

@@ -80,11 +80,44 @@ print("ok")
     assert r.stdout.strip() == "ok"
 
 
+def test_serving_path_runs_without_jax_or_repro():
+    """The serving slice (views, PPR, fault plans, the fused engine in every
+    reorder mode) on the CPU, with ``jax`` and ``repro`` blocked."""
+    code = """
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import numpy as np
+from repro_torch.apps.ppr import ppr
+from repro_torch.ft import QueryFaultPlan
+from repro_torch.graphs.generators import kron
+from repro_torch.serve import GraphQuery, GraphServeConfig, GraphServingEngine
+g = kron(scale=6, device="cpu")
+for mode in ("baseline", "sort", "hash"):
+    eng = GraphServingEngine(g, GraphServeConfig(query_slots=2, mode=mode),
+                             fault_plan=QueryFaultPlan(), device="cpu")
+    qs = [GraphQuery("bfs", 0), GraphQuery("ppr", 1, iters=5),
+          GraphQuery("sssp", 2)]
+    for q in qs:
+        eng.submit(q)
+    eng.run_to_completion(500)
+    assert all(q.done for q in qs)
+    assert np.array_equal(qs[0].result, eng.solo_reference(qs[0]))
+    assert np.allclose(qs[1].result, ppr(g, 1, iters=5), rtol=1e-4)
+print("ok")
+"""
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
 def test_entry_points_need_cuda_unless_cpu_is_asked():
     code = """
 import torch
-from repro_torch.apps import bfs_pipeline, pagerank_pipeline, sssp_pipeline
+from repro_torch.apps import (bfs_pipeline, pagerank_pipeline, ppr_pipeline,
+                              sssp_pipeline)
 from repro_torch.core import FrontierPipeline
+from repro_torch.serve import GraphServingEngine
 from repro_torch.apps.bfs import BFS_APP
 from repro_torch.graphs.generators import kron
 assert not torch.cuda.is_available()
@@ -92,6 +125,7 @@ g = kron(scale=6, device="cpu")
 calls = [lambda: FrontierPipeline(g, BFS_APP), lambda: bfs_pipeline(g),
          lambda: FrontierPipeline(g, BFS_APP, mode="hash"),
          lambda: sssp_pipeline(g), lambda: pagerank_pipeline(g, iters=2),
+         lambda: ppr_pipeline(g, iters=2), lambda: GraphServingEngine(g),
          lambda: kron(scale=4)]
 for call in calls:
     try:

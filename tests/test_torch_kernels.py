@@ -119,9 +119,56 @@ def test_segment_merge_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError):
         merge_ops.segment_merge(idx, torch.zeros(8, device=cuda,
                                                  dtype=torch.float64))
-    with pytest.raises(NotImplementedError):
-        filt.merge_sorted(idx, torch.zeros(8, device=cuda), "tagged",
-                          tags=torch.zeros(8, dtype=torch.bool, device=cuda))
+    with pytest.raises(ValueError):  # tags are bool lanes
+        merge_ops.segment_merge(idx, torch.zeros(8, device=cuda), op="tagged",
+                                tags=torch.zeros(8, dtype=torch.int32,
+                                                 device=cuda))
+    with pytest.raises(ValueError):  # tagged needs its tags
+        filt.merge_sorted(idx, torch.zeros(8, device=cuda), "tagged")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+@pytest.mark.parametrize("length,long_run", [(1, 0), (1023, 0), (1025, 0),
+                                             (70_000, 5000),
+                                             (300_000, 150_000)])
+@pytest.mark.parametrize("live", [None, 0, "half", "all"])
+def test_segment_merge_tagged_matches_plain(cuda, dtype, length, long_run,
+                                            live):
+    """B2's tagged body: each run folds under its index's family.  The
+    dead tail's lanes carry their own indices' tags, so some of them name
+    the other family than the last live run (an inert payload chosen by a
+    dead lane's tag would poison an add run with +inf)."""
+    rng = np.random.default_rng(length + 1)
+    idx_np = _sorted_stream(length, max(length // 8, 2), rng, long_run)
+    table = rng.random(int(idx_np.max()) + 2) < 0.5
+    if long_run:  # the hub run (crossing tiles) in the add family
+        table[idx_np[0] if length == 1 else np.bincount(idx_np).argmax()] = 1
+    idx, tags = t(idx_np, cuda), t(table[idx_np], cuda)
+    if dtype == "int32":
+        vals = t(rng.integers(-1000, 1000, length).astype(np.int32), cuda)
+    else:
+        vals = t(rng.standard_normal(length).astype(np.float32), cuda)
+    active = None if live is None else torch.arange(
+        length, device=cuda) < {0: 0, "half": length // 2,
+                                "all": length}[live]
+    before = dict(launch_counts)
+    got_v, got_s = merge_ops.segment_merge(idx, vals, op="tagged",
+                                           active=active, tags=tags)
+    torch.cuda.synchronize()
+    assert launch_counts["segment_merge_tagged"] == before.get(
+        "segment_merge_tagged", 0) + 1
+    assert launch_counts["segment_merge"] == before.get("segment_merge", 0)
+    want_v, want_s = segment_merge_ref(idx, vals, "tagged", active, tags)
+    assert torch.equal(got_s, want_s)
+    assert torch.equal(got_v[~tags], want_v[~tags])  # the min family
+    if dtype == "int32":
+        assert torch.equal(got_v[tags], want_v[tags])
+    else:
+        torch.testing.assert_close(got_v[tags], want_v[tags], rtol=1e-5,
+                                   atol=1e-6)
+    # and through core.filter, as the sort engine calls it
+    via = filt.merge_sorted(idx, vals, "tagged", active, tags)
+    assert torch.equal(via[0], got_v) and torch.equal(via[1], got_s)
 
 
 def _hash_stream(kind: str, length: int, rng) -> np.ndarray:
@@ -201,8 +248,66 @@ def test_hash_reorder_matches_plain_and_oracle(cuda, op, dtype, geometry,
         assert torch.equal(got.secondary, plain.secondary)
 
 
+TAGGED_CASES = [((1024, 32), "wide", 3000), ((1024, 32), "hot", 3000),
+                ((1024, 32), "padded", 20_000), ((1024, 32), "kron", 65_536),
+                ((16, 4), "hot", 3000), ((8, 2), "lanes", 3000),
+                ((8, 4), "reappear", 3000), ((1024, 32), "one_set", 150_000)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+@pytest.mark.parametrize("geometry,kind,length", TAGGED_CASES)
+@pytest.mark.parametrize("live", [None, 0, "part"])
+def test_hash_reorder_tagged_matches_plain_and_oracle(cuda, dtype, geometry,
+                                                      kind, length, live):
+    """B3's tagged fold: each slot folds under its index's family.  The
+    layout is the single-op layout (filtering depends on index equality
+    alone), so the kernel equals the numpy oracle run with ``add`` on the
+    add family's lanes and with ``min`` on the min family's, bit for bit."""
+    num_sets, slots = geometry
+    rng = np.random.default_rng(length + num_sets + 7)
+    idx = _hash_stream(kind, length, rng)
+    table = rng.random(int(idx.max()) + 2) < 0.5
+    if dtype == "int32":
+        vals = rng.integers(-1000, 1000, length).astype(np.int32)
+    else:  # positive, like PPR's contributions (see the docstring)
+        vals = rng.uniform(0.0, 1.0, length).astype(np.float32)
+    m = {None: length, 0: 0, "part": length * 2 // 3}[live]
+    n_live = (None if live is None
+              else torch.tensor(m, dtype=torch.int32, device=cuda))
+    kw = dict(num_sets=num_sets, slots=slots, filter_op="tagged",
+              n_live=n_live, tag_table=t(table, cuda))
+    before = dict(launch_counts)
+    got = hash_ops.hash_reorder(t(idx, cuda), t(vals, cuda), **kw)
+    torch.cuda.synchronize()
+    assert launch_counts["iru_reorder_tagged"] == before.get(
+        "iru_reorder_tagged", 0) + 1
+    assert launch_counts["iru_reorder"] == before.get("iru_reorder", 0)
+    plain = hash_ops.hash_reorder(t(idx, cuda), t(vals, cuda), kernels=False,
+                                  **kw)
+    oracle = {op: hash_ref.ragged_oracle(
+        hash_ref.hash_reorder_ref_flat, idx, vals, m, num_sets=num_sets,
+        slots=slots, filter_op=op) for op in ("add", "min")}
+    for k, field in enumerate(("indices", "secondary", "positions",
+                               "active")):
+        if field == "secondary":
+            continue
+        g = getattr(got, field)
+        assert torch.equal(g, getattr(plain, field)), field
+        assert np.array_equal(g.cpu().numpy(), oracle["add"][k]), field
+        assert np.array_equal(g.cpu().numpy(), oracle["min"][k]), field
+    fam = table[np.clip(got.indices.cpu().numpy(), 0, table.size - 1)]
+    want = np.where(fam, oracle["add"][1], oracle["min"][1])
+    assert np.array_equal(got.secondary.cpu().numpy(), want)
+    if dtype == "float32":
+        torch.testing.assert_close(got.secondary, plain.secondary, rtol=1e-5,
+                                   atol=1e-6)
+    else:
+        assert torch.equal(got.secondary, plain.secondary)
+
+
 @pytest.mark.parametrize("kw,err", [
-    (dict(filter_op="tagged", tag_table="table"), NotImplementedError),
+    (dict(filter_op="tagged", tag_table="int8"), ValueError),
+    (dict(filter_op="tagged"), ValueError),
     (dict(filter_op="add", round_cap=4), NotImplementedError),
     (dict(slots=64), NotImplementedError),
     (dict(payload="2d"), NotImplementedError),
@@ -217,9 +322,46 @@ def test_hash_reorder_refuses_what_the_kernel_lacks(cuda, kw, err):
     payload = kw.pop("payload", "float32")
     vals = (torch.zeros(64, 2, device=cuda) if payload == "2d" else
             torch.zeros(64, device=cuda, dtype=getattr(torch, payload)))
-    if kw.get("tag_table") == "table":
-        kw["tag_table"] = torch.zeros(66, dtype=torch.bool, device=cuda)
-    before = launch_counts["iru_reorder"]
+    if kw.get("tag_table") == "int8":
+        kw["tag_table"] = torch.zeros(66, dtype=torch.int8, device=cuda)
+    before = dict(launch_counts)
     with pytest.raises(err):
         hash_ops.hash_reorder(idx, vals, **kw)
-    assert launch_counts["iru_reorder"] == before
+    assert launch_counts == before
+
+
+@pytest.mark.parametrize("mode", ["sort", "hash"])
+def test_serving_engine_kernels_match_plain(cuda, mode):
+    """The fused serving engine through B2's tagged body (sort) or B3's
+    tagged fold (hash) against its ``kernels=False`` twin: BFS and SSSP
+    exactly (and equal to their solo runs), PPR within rtol 1e-5."""
+    from repro_torch.graphs.generators import kron
+    from repro_torch.serve import (GraphQuery, GraphServeConfig,
+                                   GraphServingEngine)
+
+    g = kron(scale=10, edge_factor=8, device=cuda)
+    runs = []
+    for kernels in (True, False):
+        eng = GraphServingEngine(g, GraphServeConfig(
+            query_slots=4, mode=mode, kernels=kernels), device=cuda)
+        qs = [GraphQuery(kind, src, iters=6) for kind in ("bfs", "sssp", "ppr")
+              for src in (0, 77)]
+        for q in qs:
+            eng.submit(q)
+        before = dict(launch_counts)
+        eng.run_to_completion(1000)
+        torch.cuda.synchronize()
+        tagged = ("segment_merge_tagged" if mode == "sort"
+                  else "iru_reorder_tagged")
+        launched = launch_counts[tagged] - before.get(tagged, 0)
+        assert launched > 0 if kernels else launched == 0
+        assert all(q.done for q in qs), [(q.status, q.error) for q in qs]
+        runs.append((eng, qs))
+    (eng, got), (_, want) = runs
+    for a, b in zip(got, want):
+        if a.kind == "ppr":
+            np.testing.assert_allclose(a.result, b.result, rtol=1e-5,
+                                       atol=1e-7)
+        else:
+            assert np.array_equal(a.result, b.result)
+            assert np.array_equal(a.result, eng.solo_reference(a))

@@ -11,6 +11,7 @@ graph crosses to the port through ``repro_torch.convert``.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
 
 import jax.numpy as jnp
@@ -263,3 +264,129 @@ def test_hash_wrappers_match_oracles(graphs, app):
                                        rtol=1e-5, atol=1e-9)
             continue
         assert np.array_equal(n(got), want)
+
+
+# ---------------------------------------------------------------------------
+# the tagged (fused min+add) datapath and PPR
+# ---------------------------------------------------------------------------
+
+def test_scatter_add_accumulates_in_float64():
+    """A float64 target (the PPR apps' accumulator) sums f32 lanes in
+    float64, so on these lanes the f32-rounded sum does not depend on the
+    order the card's atomics add in; an f32 target stays f32."""
+    rng = np.random.default_rng(8)
+    val = rng.uniform(0, 1, 50_000).astype(np.float32)
+    idx = np.zeros(50_000, np.int32)
+    act = np.ones(50_000, bool)
+    want = np.float32(val.astype(np.float64).sum() + 0.5)
+    for perm in (np.arange(50_000), rng.permutation(50_000)):
+        got = n(tpipe._scatter(t(np.array([0.5], np.float64)), t(idx),
+                               t(val[perm]), t(act), "add"))
+        assert got.dtype == np.float64 and np.float32(got[0]) == want
+    got = n(tpipe._scatter(t(np.array([0.5], np.float32)), t(idx), t(val),
+                           t(act), "add"))
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got[0], want, rtol=1e-5)
+
+
+def test_tagged_scatter_matches_reference():
+    """Min lanes exact, add lanes within rtol 1e-5; each family's lanes go
+    to their sinks in the other family's pass."""
+    rng = np.random.default_rng(5)
+    target = rng.uniform(0, 5, 40).astype(np.float32)
+    idx = rng.integers(0, 41, 200).astype(np.int32)  # 40 = sentinel lanes
+    val = rng.uniform(0, 5, 200).astype(np.float32)
+    act = rng.random(200) < 0.7
+    family = rng.random(41) < 0.5
+    family[40] = False
+    tags = family[idx]
+    want = np.asarray(jpipe._scatter(jnp.asarray(target), jnp.asarray(idx),
+                                     jnp.asarray(val), jnp.asarray(act),
+                                     "tagged", tags=jnp.asarray(tags)))
+    got = n(tpipe._scatter(t(target), t(idx), t(val), t(act), "tagged",
+                           tags=t(tags)))
+    assert np.array_equal(got[~family[:40]], want[~family[:40]])
+    np.testing.assert_allclose(got[family[:40]], want[family[:40]],
+                               rtol=1e-5)
+    with pytest.raises(ValueError, match="tags"):
+        tpipe._scatter(t(target), t(idx), t(val), t(act), "tagged")
+
+
+def _fused_state(Q, n_base, sources):
+    """A fused serving state: slot 0 BFS, slot 1 PPR, slot 2 SSSP."""
+    val = np.full(Q * n_base, np.inf, np.float32)
+    tgt = val.copy()
+    src = np.zeros(Q * n_base, np.float32)
+    mask = np.zeros(Q * n_base, bool)
+    lane = slice(n_base, 2 * n_base)
+    val[lane], tgt[lane] = 0.0, 0.0
+    val[n_base + sources[1]] = src[n_base + sources[1]] = 1.0
+    mask[lane] = True
+    for slot in (0, 2):
+        seed = slot * n_base + sources[slot]
+        val[seed] = tgt[seed] = 0.0
+        mask[seed] = True
+    state = {"val": val, "tgt": tgt, "src": src,
+             "tag": np.array([False, True, False]),
+             "unit": np.array([True, False, False]),
+             "live": np.array([False, True, False]),
+             "damp": np.array([0, 0.85, 0], np.float32)}
+    return state, mask
+
+
+@pytest.mark.parametrize("mode", ["baseline", "sort", "hash"])
+def test_fused_frontier_step_matches_reference(mode):
+    """The serving stack's fused app through ``frontier_step``: two
+    reference steps, then the state crosses and both packages step once."""
+    from repro.core.iru import IRUConfig as JConfig
+    from repro.graphs.csr import tile_csr as jtile
+    from repro.serve.graph_engine import _fused_family_app as japp_of
+    from repro_torch.core.iru import IRUConfig as TConfig
+    from repro_torch.graphs.csr import tile_csr as ttile
+    from repro_torch.serve.graph_engine import _fused_family_app as tapp_of
+
+    Q = 3
+    jg = _weighted(generators.kron_edges(scale=6), 4)
+    jv = jtile(jg, Q)
+    tv = ttile(jax_graph_to_torch(jg), Q)
+    japp, tapp = japp_of(Q, jg.n_nodes), tapp_of(Q, jg.n_nodes)
+    cfgs = (None, None) if mode == "baseline" else (
+        JConfig(mode=mode, filter_op="tagged"),
+        TConfig(mode=mode, filter_op="tagged"))
+    state, mask = _fused_state(Q, jg.n_nodes, (1, 2, 3))
+    state = {k: jnp.asarray(v) for k, v in state.items()}
+    mask = jnp.asarray(mask)
+    caps = dict(e_cap=jv.n_edges, f_cap=jv.n_nodes)
+    for _ in range(2):
+        state, mask, *_ = jpipe.frontier_step(jv, japp, state, mask,
+                                              iru_config=cfgs[0], **caps)
+    want = jpipe.frontier_step(jv, japp, state, mask, iru_config=cfgs[0],
+                               **caps)
+    got = tpipe.frontier_step(tv, tapp, state_from_numpy(state, "cpu"),
+                              t(np.asarray(mask)), iru_config=cfgs[1], **caps)
+    add = np.repeat(np.asarray(state["tag"]), jg.n_nodes)
+    for key in ("val", "tgt"):
+        w, g = np.asarray(want[0][key]), n(got[0][key])
+        assert np.array_equal(g[~add], w[~add]), key
+        np.testing.assert_allclose(g[add], w[add], rtol=1e-5, atol=1e-7)
+    for a, b in zip(want[1:], got[1:]):
+        assert np.array_equal(n(b), np.asarray(a))
+    bad = dataclasses.replace(tapp, tag_table=None)
+    with pytest.raises(ValueError, match="tag_table"):
+        tpipe.frontier_step(tv, bad, state_from_numpy(state, "cpu"),
+                            t(np.asarray(mask)), **caps)
+
+
+@pytest.mark.parametrize("mode", ["baseline", "sort", "hash"])
+def test_ppr_pipeline_matches_reference_and_oracle(graphs, mode):
+    jppr, tppr = (importlib.import_module(f"{pkg}.apps.ppr")
+                  for pkg in ("repro", "repro_torch"))
+    jg, tg = graphs
+    kw = dict(iters=7, damping=0.85, mode=mode)
+    want = jppr.ppr_pipeline(jg, 3, capacity_policy=POLICIES[3][0], **kw)
+    got = n(tppr.ppr_pipeline(tg, 3, capacity_policy=POLICIES[3][1],
+                              device="cpu", **kw))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-9)
+    oracle = jppr.ppr(jg, 3, iters=7)
+    assert np.array_equal(tppr.ppr(tg, 3, iters=7), oracle)
+    np.testing.assert_allclose(got, oracle, rtol=1e-4, atol=1e-9)
