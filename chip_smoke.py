@@ -16,7 +16,9 @@ Phases, in order (any failure exits non-zero and prints no result line):
                an active prefix, for add (f32, rtol 1e-5), min (f32, int32)
                and max, survivors and min/max exactly, and B2's tagged body
                (the fused min+add merge, tags (idx >> 17) & 1: min-family
-               lanes exactly, add-family lanes within rtol 1e-5); B3 (IRU hash) on
+               lanes exactly, add-family lanes within rtol 1e-5), and two
+               calls of B2 add and tagged on the same stream, which must be
+               bit-identical (their largest difference is printed); B3 (IRU hash) on
                kron-20's PageRank destination stream (add, f32), a half-graph
                expansion stream with its live prefix (min on int32 and f32,
                and no merge) and a stream that hammers eight sets (max, many
@@ -51,7 +53,8 @@ Phases, in order (any failure exits non-zero and prints no result line):
                against its plain version on the sorted stream of the tick
                with the most live lanes, B3's tagged fold on the expansion
                stream and n_live of the tick with the fewest (B3's plain
-               version takes time in proportion to live lanes times width);
+               version takes time in proportion to live lanes times width),
+               and B2's call on that tick is profiled kernel by kernel;
   5. timings -- CUDA-event times after a warm-up for each kernel, its plain
                version and one library call computing the same function (B2
                tagged and B3 have none), the bound (bytes over the card's
@@ -60,8 +63,8 @@ Phases, in order (any failure exits non-zero and prints no result line):
   6. profile -- device time by kernel and the device's busy share over short
                windows of PageRank on kron-20 (sort and hash), SSSP on
                delaunay-1024, three serving ticks (fused sort and fused
-               hash), and B3's kernels in one call at PageRank's shape
-               (add, and the tagged fold).
+               hash), and B2's and B3's kernels in one call each at
+               PageRank's shape (add, and the tagged bodies).
 
 It prints the card's name and power limit, one JSON line naming the kernels
 with their numbers, and last {"ok": true, "device": {...}}.  It needs one
@@ -235,6 +238,16 @@ def phase_kernels(g):
             print(f"B2 tagged {str(vals.dtype):13s} active="
                   f"{'all' if act is None else '70% prefix'}: {n} lanes, "
                   f"{int(tags.sum())} add-family lanes, matches plain")
+    # repeated calls on the hub-heavy stream: the f32 sums are deterministic
+    for op, kw in (("add", {}), ("tagged", {"tags": tags})):
+        first, _ = merge_ops.segment_merge(dsts, contrib, op=op, **kw)
+        again, _ = merge_ops.segment_merge(dsts, contrib, op=op, **kw)
+        torch.cuda.synchronize()
+        diff = max_abs_err(first, again)
+        print(f"B2 {op} f32, two calls on the same {n} lanes: max abs "
+              f"difference {diff:.3g}")
+        check(torch.equal(first, again),
+              f"B2 {op}: repeated calls bit-identical")
     herr, herr_tagged = phase_hash_kernel(g, ef, gen)
     return dsts, contrib, sparse, {
         "coalesced_gather": gerr, "segment_merge": merr,
@@ -504,6 +517,9 @@ def phase_serving_kernels(view, g):
     print(f"B2 tagged serving tick: {lanes} lanes ({most['live']} live), "
           f"{int(got_s.sum())} survivors, max abs err {b2_err:.3g}, matches "
           f"plain; kernel {b2_ms:.4f} ms")
+    profile_window("B2 tagged on the serving tick, one call",
+                   lambda: merge_ops.segment_merge(
+                       idx, vals, op="tagged", active=live_s, tags=tags))
     del idx, vals, live_s, tags, got_v, got_s, want_v, want_s
     torch.cuda.empty_cache()
     idx, vals, n_live, table = least.pop("stream")
@@ -713,19 +729,18 @@ def phase_timings(g, dsts, contrib, sparse):
     return rows
 
 
-def phase_profile(graphs):
+def phase_profile(graphs, dsts, contrib):
     """Device time by kernel over short windows (torch.profiler over CUPTI),
     and the device's busy share of the window's wall time: PageRank on
-    kron-20 in sort and hash mode, SSSP on delaunay-1024, and one B3 call at
-    PageRank's shape (its kernels one by one).  Profiling adds host
-    overhead, so the share is a lower bound."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    kron-20 in sort and hash mode, SSSP on delaunay-1024, and one B2 call
+    (add and tagged) and one B3 call (add and tagged) at PageRank's shape,
+    their kernels one by one.  Profiling adds host overhead, so the share is
+    a lower bound."""
     from repro_torch.apps.pagerank import pagerank_app
     from repro_torch.apps.sssp import SSSP_APP
     from repro_torch.core import CapacityPolicy, FrontierPipeline
     from repro_torch.kernels.iru_reorder import ops as hash_ops
+    from repro_torch.kernels.segment_merge import ops as merge_ops
 
     windows = []
     for label, mode, gname, app, iters in (
@@ -751,33 +766,57 @@ def phase_profile(graphs):
             for _ in range(3):
                 eng.tick()
         windows.append((f"serving fused {mode}, first 3 ticks", serve_ticks))
+    table = family_table(graphs["kron20"])
+    tags = table[dsts.long()]
+    windows.append(("B2 add at pagerank's shape, one call",
+                    lambda: merge_ops.segment_merge(dsts, contrib, op="add")))
+    windows.append(("B2 tagged at pagerank's shape, one call",
+                    lambda: merge_ops.segment_merge(dsts, contrib,
+                                                    op="tagged", tags=tags)))
     pr_idx, pr_vals = pagerank_stream(graphs["kron20"])
     windows.append(("B3 at pagerank's shape, one call",
                     lambda: hash_ops.hash_reorder(pr_idx, pr_vals,
                                                   filter_op="add")))
-    table = family_table(graphs["kron20"])
     windows.append(("B3 tagged at pagerank's shape, one call",
                     lambda: hash_ops.hash_reorder(pr_idx, pr_vals,
                                                   filter_op="tagged",
                                                   tag_table=table)))
     for label, fn in windows:
-        fn()  # warm-up
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        profile_window(label, fn)
+
+
+def profile_window(label, fn):
+    """Print the device time by kernel of one call of ``fn`` (after a
+    warm-up call) and the device's busy share of its wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()  # warm-up
+    for _ in range(3):  # a session sometimes records no device event
+        # the profiler's own warm-up step: without it the first kernels of
+        # a session can go unrecorded
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            wall_s(fn)
+            prof.step()  # the recorded step ends with the session
             _, wall = wall_s(fn)
         rows = []  # device-side events only (kernels, copies, memsets)
         for e in prof.key_averages():
             dev_us = getattr(e, "self_device_time_total",
                              getattr(e, "self_cuda_time_total", 0))
-            if e.device_type == DeviceType.CUDA and dev_us > 0:
+            # the step's own span is not device work
+            if (e.device_type == DeviceType.CUDA and dev_us > 0
+                    and not e.key.startswith("ProfilerStep")):
                 rows.append((dev_us, e.count, e.key))
-        rows.sort(reverse=True)
-        busy_ms = sum(r[0] for r in rows) / 1e3
-        share = busy_ms / (wall * 1e3)
-        print(f"profile {label}: wall {wall * 1e3:.1f} ms, device busy "
-              f"{busy_ms:.1f} ms ({share:.3f} of wall)")
-        for dev_us, count, key in rows[:8]:
-            print(f"  {dev_us / 1e3:9.3f} ms  x{count:<6d} {key[:100]}")
+        if rows:
+            break
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    share = busy_ms / (wall * 1e3)
+    print(f"profile {label}: wall {wall * 1e3:.1f} ms, device busy "
+          f"{busy_ms:.3f} ms ({share:.3f} of wall)")
+    for dev_us, count, key in rows[:8]:
+        print(f"  {dev_us / 1e3:9.4f} ms  x{count:<6d} {key[:100]}")
 
 
 def main() -> int:
@@ -807,7 +846,7 @@ def main() -> int:
     for k, v in serving_errors.items():
         errors[k] = max(errors[k], v)
     timings = phase_timings(graphs["kron20"], dsts, contrib, sparse)
-    phase_profile(graphs)
+    phase_profile(graphs, dsts, contrib)
 
     sources = {
         "coalesced_gather": (

@@ -23,10 +23,9 @@ _DTYPES = {torch.float32: 0, torch.int32: 1}
 def _lib() -> ctypes.CDLL:
     lib = _build.load("segment_merge")
     fn = lib.iru_segment_merge
-    fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P]
+    fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P]
     fn.restype = _I
     lib.iru_segment_merge_tile.restype = _I
-    lib.iru_segment_merge_agg_bytes.restype = _I
     return lib
 
 
@@ -36,7 +35,9 @@ def segment_merge(sorted_indices: torch.Tensor, values: torch.Tensor, *,
     """Merge duplicate adjacent indices -> ``(merged, survivor_mask)``.
 
     Launches count under ``segment_merge`` (add/min/max, the reference's
-    ``_kernel``) or ``segment_merge_tagged`` (its ``_kernel_tagged``).
+    ``_kernel``) or ``segment_merge_tagged`` (its ``_kernel_tagged``).  On
+    CUDA it is one launch (and one memset of the per-tile status words), and
+    repeated calls give bit-identical results, f32 sums included.
     """
     if op not in _OPS:
         raise ValueError(f"unknown filter op {op!r}")
@@ -67,16 +68,13 @@ def segment_merge(sorted_indices: torch.Tensor, values: torch.Tensor, *,
         return out, surv
     lib = _lib()
     tiles = -(-n // lib.iru_segment_merge_tile())
-    agg_bytes = tiles * lib.iru_segment_merge_agg_bytes()
-    scratch = torch.empty_like(vals)
-    agg_f = torch.empty(tiles, dtype=torch.uint8, device=vals.device)
-    agg_v = torch.empty(agg_bytes, dtype=torch.uint8, device=vals.device)
-    prefix = torch.empty(agg_bytes, dtype=torch.uint8, device=vals.device)
+    # one status word a tile and the tile ticket, zeroed on the stream
+    # before the launch
+    status = torch.empty(tiles + 1, dtype=torch.int64, device=vals.device)
     code = lib.iru_segment_merge(
         idx.data_ptr(), None if act is None else act.data_ptr(),
         None if tag is None else tag.data_ptr(), vals.data_ptr(),
-        out.data_ptr(), surv.data_ptr(), scratch.data_ptr(),
-        agg_f.data_ptr(), agg_v.data_ptr(), prefix.data_ptr(), n,
+        out.data_ptr(), surv.data_ptr(), status.data_ptr(), n,
         _DTYPES[vals.dtype], _OPS[op],
         torch.cuda.current_stream(vals.device).cuda_stream)
     _build.check(lib, code, "segment_merge")

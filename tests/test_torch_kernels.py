@@ -84,11 +84,15 @@ def test_gather_rejects_bad_inputs(cuda):
         gather_ops.coalesced_gather(table[:, :1].cpu(), idx)
 
 
+# B2's tile is 4096 lanes: its edges, and a hub run over 110 tiles
+MERGE_LENGTHS = [(1, 0), (1023, 0), (1025, 0), (4095, 0), (4096, 0),
+                 (4097, 0), (70_000, 5000), (300_000, 150_000),
+                 (500_000, 450_000)]
+
+
 @pytest.mark.parametrize("op", ["add", "min", "max"])
 @pytest.mark.parametrize("dtype", ["float32", "int32"])
-@pytest.mark.parametrize("length,long_run", [(1, 0), (1023, 0), (1025, 0),
-                                             (70_000, 5000),
-                                             (300_000, 150_000)])
+@pytest.mark.parametrize("length,long_run", MERGE_LENGTHS)
 @pytest.mark.parametrize("live", [None, 0, "half", "all"])
 def test_segment_merge_matches_plain(cuda, op, dtype, length, long_run, live):
     rng = np.random.default_rng(length)
@@ -128,9 +132,7 @@ def test_segment_merge_rejects_bad_inputs(cuda):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "int32"])
-@pytest.mark.parametrize("length,long_run", [(1, 0), (1023, 0), (1025, 0),
-                                             (70_000, 5000),
-                                             (300_000, 150_000)])
+@pytest.mark.parametrize("length,long_run", MERGE_LENGTHS)
 @pytest.mark.parametrize("live", [None, 0, "half", "all"])
 def test_segment_merge_tagged_matches_plain(cuda, dtype, length, long_run,
                                             live):
@@ -169,6 +171,52 @@ def test_segment_merge_tagged_matches_plain(cuda, dtype, length, long_run,
     # and through core.filter, as the sort engine calls it
     via = filt.merge_sorted(idx, vals, "tagged", active, tags)
     assert torch.equal(via[0], got_v) and torch.equal(via[1], got_s)
+
+
+@pytest.mark.parametrize("op", ["add", "tagged"])
+@pytest.mark.parametrize("live", [None, "part"])
+def test_segment_merge_repeated_calls_are_bit_identical(cuda, op, live):
+    """The look-back folds the tiles of a run in stream order, so f32 sums
+    do not depend on the order in which tiles ran."""
+    rng = np.random.default_rng(11)
+    length = 2_000_000
+    idx_np = _sorted_stream(length, 60_000, rng, long_run=400_000)
+    idx = t(idx_np, cuda)
+    vals = t(rng.uniform(0.0, 1.0, length).astype(np.float32), cuda)
+    tags = (t((rng.random(int(idx_np.max()) + 1) < 0.5)[idx_np], cuda)
+            if op == "tagged" else None)
+    active = None if live is None else torch.arange(
+        length, device=cuda) < length * 7 // 10
+    first = merge_ops.segment_merge(idx, vals, op=op, active=active,
+                                    tags=tags)
+    for _ in range(3):
+        again = merge_ops.segment_merge(idx, vals, op=op, active=active,
+                                        tags=tags)
+        assert torch.equal(again[0], first[0])
+        assert torch.equal(again[1], first[1])
+
+
+@pytest.mark.parametrize("op", ["add", "min", "tagged"])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_segment_merge_unaligned_views_match_plain(cuda, op, offset):
+    """Views that start off a 16-byte boundary take the scalar loads."""
+    rng = np.random.default_rng(offset)
+    length = 50_000 + offset
+    idx_np = _sorted_stream(length, 3000, rng, long_run=9000)
+    idx = t(idx_np, cuda)[offset:]
+    vals = t(rng.standard_normal(length).astype(np.float32), cuda)[offset:]
+    active = (torch.arange(length, device=cuda) < length // 2)[offset:]
+    tags = (t((rng.random(int(idx_np.max()) + 1) < 0.5)[idx_np],
+              cuda)[offset:] if op == "tagged" else None)
+    got_v, got_s = merge_ops.segment_merge(idx, vals, op=op, active=active,
+                                           tags=tags)
+    want_v, want_s = segment_merge_ref(idx, vals, op, active, tags)
+    torch.cuda.synchronize()
+    assert torch.equal(got_s, want_s)
+    if op == "min":
+        assert torch.equal(got_v, want_v)
+    else:
+        torch.testing.assert_close(got_v, want_v, rtol=1e-5, atol=1e-6)
 
 
 def _hash_stream(kind: str, length: int, rng) -> np.ndarray:

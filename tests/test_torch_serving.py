@@ -274,7 +274,8 @@ def test_admission_gate_delays_join(gk):
 def test_injected_overflow_quarantines_and_recovers(gk, fused):
     (_, _), (te, tq) = _engines(
         gk, _mixed, plan=dict(overflow_at=(3,)), query_slots=4,
-        backoff_base_s=0.001, fused=fused)
+        backoff_base_s=0.001, fused=fused,
+        max_ticks=10**6)  # idle ticks may outrun the backoff
     assert ("overflow", 3) in te.injector.fired
     assert te.quarantines >= 1 and any(q.retries for q in tq)
     _assert_solo(te, [q for q in tq if q.kind != "ppr"])
@@ -287,7 +288,8 @@ def test_capacity_pressure_evicts_and_recovers(gk):
     (_, _), (te, tq) = _engines(
         gk, queries, query_slots=4, edge_capacity=int(1.3 * gk[0].n_edges),
         backoff_base_s=0.001,
-        policy=dict(n_buckets=3, min_capacity=64, growth=8))
+        policy=dict(n_buckets=3, min_capacity=64, growth=8),
+        max_ticks=10**6)  # idle ticks may outrun the backoff
     assert te.overflow_events > 0 and te.quarantines > 0
     _assert_solo(te, tq)
 
@@ -305,7 +307,8 @@ def test_step_overflow_flag_quarantines_without_committing(gk):
     (_, _), (te, tq) = _engines(
         gk, queries, patch=lie, query_slots=4,
         edge_capacity=int(1.2 * gk[0].n_edges), backoff_base_s=0.001,
-        policy=dict(n_buckets=2, min_capacity=64, growth=8))
+        policy=dict(n_buckets=2, min_capacity=64, growth=8),
+        max_ticks=10**6)  # idle ticks may outrun the backoff
     assert te.overflow_events > 0
     _assert_solo(te, tq)
 
