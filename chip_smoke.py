@@ -25,18 +25,40 @@ Phases, in order (any failure exits non-zero and prints no result line):
                rounds): indices, positions, active and min/max exactly, add
                within rtol 1e-5; and B3's tagged fold on the PageRank stream
                with the same tags;
-  3. apps    -- BFS and SSSP from node 0 on kron-20 and delaunay-1024, and
+  3. banked/windowed -- the paper's IRU geometry (IRU_HASH: 1024 x 32 sets
+               over 4 partitions x 2 banks, 8192-lane windows, round cap 64).
+               B3's windowed body (one launch) on kron-20's PageRank stream
+               (add and min, f32) equals the numpy oracle on every window,
+               bit for bit, and the plain window loop on the whole stream
+               (min exactly, add within rtol 1e-5; max abs and relative
+               error printed); two 1M-lane streams built to trip the
+               round-cap fallback and the bank bypass are held the same way,
+               and each prints how many windows took its branch (each count
+               must be non-zero).  Whole-stream B3 with the banked layout (4
+               partitions, no window) equals the banked plain version at
+               PageRank's shape (add, rtol 1e-5) and, without a merge,
+               hash_reorder_ref_banked exactly.  Then BFS, SSSP and PageRank
+               (20 iterations) on kron-20 and delaunay-1024 through
+               FrontierPipeline(mode="hash", iru_config=IRUConfig(**IRU_HASH))
+               against the host oracles (BFS/SSSP exactly, PageRank rtol
+               1e-4), and reorder_frontier with IRU_HASH and with 4
+               partitions and no window, each run with its launch counts
+               zeroed before and read after; then both bodies' CUDA-event
+               times and a profile of one call each;
+  4. apps    -- BFS and SSSP from node 0 on kron-20 and delaunay-1024, and
                PageRank on kron-20, through the kernels (kernels=True,
                3-bucket CapacityPolicy), once with mode="sort" (B1, B2) and
                once with mode="hash" (B1, B3).  Each run is held against the
                same run through the plain path (kernels=False) -- exactly for
-               BFS/SSSP, rtol 1e-5 for PageRank -- and against the port's
+               BFS/SSSP, rtol 1e-5 for PageRank; hash-mode PageRank's and
+               delaunay SSSP's plain runs are cut to 5 and 300 iterations,
+               beside a kernel run of that depth -- and against the port's
                numpy host oracle (PageRank at rtol 1e-4: the oracle sums each
                hub's ~1e5 contributions sequentially in f32).  PageRank runs
                20 iterations.  The launch counts of each run are zeroed before
                it and read after it; a kernel of the path with no launch
                fails the run;
-  4. serving -- 12 queries (4 BFS, 4 SSSP, 4 PPR of 20 iterations, seeded
+  5. serving -- 12 queries (4 BFS, 4 SSSP, 4 PPR of 20 iterations, seeded
                sources of nonzero degree) through GraphServingEngine on
                tile_csr(kron-20, 8) with the default GraphServeConfig (8
                slots, so four queries wait): fused baseline (B1 and the
@@ -55,12 +77,12 @@ Phases, in order (any failure exits non-zero and prints no result line):
                stream and n_live of the tick with the fewest (B3's plain
                version takes time in proportion to live lanes times width),
                and B2's call on that tick is profiled kernel by kernel;
-  5. timings -- CUDA-event times after a warm-up for each kernel, its plain
+  6. timings -- CUDA-event times after a warm-up for each kernel, its plain
                version and one library call computing the same function (B2
                tagged and B3 have none), the bound (bytes over the card's
                3.35 TB/s), at PageRank's shape; B1 also at a BFS level's
                shape (the gappy quarter-node expansion) beside index_select;
-  6. profile -- device time by kernel and the device's busy share over short
+  7. profile -- device time by kernel and the device's busy share over short
                windows of PageRank on kron-20 (sort and hash), SSSP on
                delaunay-1024, three serving ticks (fused sort and fused
                hash), and B2's and B3's kernels in one call each at
@@ -344,8 +366,27 @@ def phase_hash_kernel(g, ef, gen):
     return herr, terr.item()
 
 
-def phase_apps(graphs):
+def host_oracle(cache: dict, name: str, gname: str, g, iters=None):
+    """The host (numpy) oracle of app ``name`` on graph ``gname``, computed
+    once a run (PageRank at ``iters`` iterations) and kept in ``cache``."""
     from repro_torch.apps import bfs, pagerank, sssp
+
+    key = (name, gname, iters)
+    if key not in cache:
+        cache[key] = (pagerank(g, iters=iters) if name == "pagerank"
+                      else {"bfs": bfs, "sssp": sssp}[name](g, 0))
+    return torch.from_numpy(cache[key]).to(g.device)
+
+
+# the plain hash engine peels about a thousand occupancy rounds a call at
+# PageRank's shape and its SSSP on delaunay-1024 runs 1478 rounds: their
+# plain-path comparison is cut to these depths (the kernel path runs the
+# same depth for it, and in full against the host oracle)
+PLAIN_DEPTH = {("hash", "pagerank", "kron20"): 5,
+               ("hash", "sssp", "delaunay1024"): 300}
+
+
+def phase_apps(graphs, oracles):
     from repro_torch.apps.bfs import BFS_APP
     from repro_torch.apps.pagerank import pagerank_app
     from repro_torch.apps.sssp import SSSP_APP
@@ -355,21 +396,20 @@ def phase_apps(graphs):
     policy = CapacityPolicy(n_buckets=3)
     path = {"sort": ("coalesced_gather", "segment_merge"),
             "hash": ("coalesced_gather", "iru_reorder")}
-    runs = [(mode, name, gname, app, oracle)
+    runs = [(mode, name, gname, app)
             for mode in ("sort", "hash")
-            for name, gname, app, oracle in (
-                ("bfs", "kron20", BFS_APP, bfs),
-                ("sssp", "kron20", SSSP_APP, sssp),
-                ("bfs", "delaunay1024", BFS_APP, bfs),
-                ("sssp", "delaunay1024", SSSP_APP, sssp),
-                ("pagerank", "kron20", None, pagerank))]
+            for name, gname, app in (
+                ("bfs", "kron20", BFS_APP),
+                ("sssp", "kron20", SSSP_APP),
+                ("bfs", "delaunay1024", BFS_APP),
+                ("sssp", "delaunay1024", SSSP_APP),
+                ("pagerank", "kron20", None))]
     # warm-up: first launches load the libraries and CUDA modules
     for mode in path:
         FrontierPipeline(graphs["kron20"], BFS_APP, mode=mode,
                          capacity_policy=policy, max_iters=2).run(0)
     totals = {"coalesced_gather": 0, "segment_merge": 0, "iru_reorder": 0}
-    seconds = {}
-    for mode, name, gname, app, oracle in runs:
+    for mode, name, gname, app in runs:
         g = graphs[gname]
         iters = None
         if name == "pagerank":
@@ -378,9 +418,6 @@ def phase_apps(graphs):
         kernel_pipe = FrontierPipeline(g, app, mode=mode,
                                        capacity_policy=policy,
                                        max_iters=iters)
-        plain_pipe = FrontierPipeline(g, app, mode=mode,
-                                      capacity_policy=policy,
-                                      max_iters=iters, kernels=False)
         reset_launch_counts()
         got, t_kernel = wall_s(lambda: kernel_pipe.run(0))
         counts = {k: launch_counts[k] for k in totals}
@@ -388,28 +425,36 @@ def phase_apps(graphs):
             check(counts[k] > 0, f"{mode} {name} on {gname} launched {k}")
         for k, v in counts.items():
             totals[k] += v
+        depth = PLAIN_DEPTH.get((mode, name, gname))
+        plain_pipe = FrontierPipeline(g, app, mode=mode,
+                                      capacity_policy=policy,
+                                      max_iters=depth or iters, kernels=False)
         want, t_plain = wall_s(lambda: plain_pipe.run(0))
-        host = oracle(g, iters=iters) if name == "pagerank" else oracle(g, 0)
-        host = torch.from_numpy(host).to(g.device)
+        mine = got
+        if depth:  # the kernel path at the plain path's depth
+            mine = FrontierPipeline(g, app, mode=mode, capacity_policy=policy,
+                                    max_iters=depth).run(0)
+        host = host_oracle(oracles, name, gname, g, iters)
         if name == "pagerank":
-            check(torch.allclose(got, want, rtol=1e-5, atol=0.0),
+            check(torch.allclose(mine, want, rtol=1e-5, atol=0.0),
                   f"{mode} pagerank kernel path within rtol 1e-5 of the "
                   f"plain path")
             check(torch.allclose(got, host, rtol=1e-4, atol=0.0),
                   f"{mode} pagerank within rtol 1e-4 of the host oracle")
             check(bool(torch.isfinite(got).all()), "finite ranks")
         else:
-            check(torch.equal(got, want),
+            check(torch.equal(mine, want),
                   f"{mode} {name} equals the plain path")
             check(torch.equal(got, host),
                   f"{mode} {name} equals the host oracle")
         edges = g.n_edges * (iters if name == "pagerank" else 1)
-        seconds[(mode, name, gname)] = (t_kernel, t_plain)
         print(f"app {mode} {name:8s} {gname:12s}"
               f"{f' ({iters} iterations)' if iters else ''}: kernel path "
               f"{t_kernel:.3f} s ({edges / t_kernel:.4g} edges/s), plain "
-              f"path {t_plain:.3f} s, launches {counts}, "
-              f"{kernel_pipe.n_hops} bucket hops, host oracle agrees")
+              f"path {t_plain:.3f} s"
+              f"{f' (first {depth} iterations)' if depth else ''}, launches "
+              f"{counts}, {kernel_pipe.n_hops} bucket hops, host oracle "
+              f"agrees")
     return totals
 
 
@@ -631,6 +676,288 @@ def phase_serving(g):
     return totals, errors
 
 
+# the paper's IRU geometry (benchmarks/common.py's IRU_HASH): 1024 x 32 sets
+# over 4 partitions x 2 banks, 8192-lane windows, round cap 64
+IRU_HASH = dict(num_sets=1024, slots=32, window_elems=8192, n_partitions=4,
+                n_banks=2, round_cap=64)
+FIELDS = ("indices", "secondary", "positions", "active")
+
+
+def window_branches(idx: np.ndarray, n_live, geo=IRU_HASH):
+    """How many windows bypass the banks and how many take the round-cap
+    fallback in a partition, by the oracle's rules (host numpy)."""
+    from repro_torch.kernels.iru_reorder.ref import hash_set
+
+    w, sets_n, parts = geo["window_elems"], geo["num_sets"], geo["n_partitions"]
+    n = idx.size
+    windows = -(-n // w)
+    lane = np.arange(n)
+    live = lane < (n if n_live is None else int(n_live))
+    sets = hash_set(idx // np.int32(32), sets_n)
+    cnt = np.bincount((lane // w * sets_n + sets)[live],
+                      minlength=windows * sets_n).reshape(windows, sets_n)
+    m = cnt.sum(1)
+    per = -(-m // parts)
+    capacity = np.minimum(m, per + np.maximum(64, per // 4))
+    by_part = cnt.reshape(windows, sets_n // parts, parts)  # set r*P + p
+    bypass = by_part.sum(1).max(1) > capacity
+    hot = cnt > geo["round_cap"] * geo["slots"]
+    dense = np.where(bypass, hot.any(1),
+                     hot.reshape(windows, sets_n // parts, parts).any(1)
+                     .any(1))
+    return int(bypass.sum()), int(dense.sum())
+
+
+def hold_windowed(label, idx, vals, op, n_live=None):
+    """B3's windowed body (IRU_HASH, one launch) against the numpy oracle
+    on every window, bit for bit, and against the plain window loop
+    (kernels=False) on the whole stream: exact but for f32 add (rtol 1e-5,
+    another addition order).  Returns (max abs error against plain, the
+    plain call's seconds, windows that bypass, windows that fall back)."""
+    from repro_torch.core import iru
+
+    cfg = iru.IRUConfig(mode="hash", filter_op=op, **IRU_HASH)
+    got = iru.iru_reorder(idx, vals, config=cfg, n_live=n_live)
+    torch.cuda.synchronize()
+    idx_np, vals_np = idx.cpu().numpy(), vals.cpu().numpy()
+    live = None if n_live is None else int(n_live)
+    t0 = time.perf_counter()
+    oracle = iru._hash_ref_host(idx_np, vals_np, cfg, live)
+    t_oracle = time.perf_counter() - t0
+    w = cfg.window_elems
+    windows = -(-idx.numel() // w)
+    bad = set()
+    for k, field in enumerate(FIELDS):
+        a = getattr(got, field).cpu().numpy()
+        b = oracle[k]
+        if a.dtype == np.float32:  # bit for bit
+            a, b = a.view(np.int32), b.view(np.int32)
+        bad |= set((np.flatnonzero(a != b) // w).tolist())
+    check(not bad, f"{label}: equal to the numpy oracle on every window "
+          f"({len(bad)} of {windows} differ, first {sorted(bad)[:5]})")
+    want, t_plain = wall_s(lambda: iru.iru_reorder(
+        idx, vals, config=cfg, n_live=n_live, kernels=False))
+    for field in ("indices", "positions", "active"):
+        check(torch.equal(getattr(got, field), getattr(want, field)),
+              f"{label}: {field} equal to plain")
+    err = max_abs_err(got.secondary, want.secondary)
+    nz = want.secondary != 0
+    rel = ((got.secondary[nz].double() - want.secondary[nz].double()).abs()
+           / want.secondary[nz].double().abs()).max().item() if nz.any() \
+        else 0.0
+    if op == "add":
+        check(torch.allclose(got.secondary, want.secondary, rtol=1e-5,
+                             atol=0.0), f"{label}: add within rtol 1e-5")
+    else:
+        check(torch.equal(got.secondary, want.secondary),
+              f"{label}: exact against plain")
+    bypass, dense = window_branches(idx_np, n_live)
+    print(f"B3 windowed {label:22s}: {idx.numel()} lanes "
+          f"({idx.numel() if live is None else live} live), {windows} "
+          f"windows, {bypass} bypass the banks, {dense} take the round-cap "
+          f"fallback in a partition; {int(got.active.sum())} survivors; "
+          f"equal to the numpy oracle on every window (oracle {t_oracle:.1f} "
+          f"s); against plain max abs err {err:.3g}, max rel err {rel:.3g} "
+          f"(plain {t_plain:.1f} s)")
+    return err, t_plain, bypass, dense
+
+
+def trip_streams(dev):
+    """Two 1M-lane streams (seeded, last windows ragged): one whose windows
+    put about 2200 arrivals in one set of one partition (past the round
+    cap's 64 x 32, under the partition's capacity), one whose windows put
+    45% of their lanes into one partition's sets (past its capacity, no set
+    past the cap)."""
+    from repro_torch.kernels.iru_reorder.ref import hash_set
+
+    rng = np.random.default_rng(SEED)
+    n = 1 << 20
+    blocks = np.arange(1 << 16)
+    bset = hash_set(blocks, 1024)
+
+    def pick(pool):  # n indices of the blocks in pool
+        return (pool[rng.integers(0, pool.size, n)] * 32
+                + rng.integers(0, 32, n))
+
+    hot = rng.random(n) < 2200 / 8192
+    cap_idx = np.where(hot, pick(blocks[bset == 3][:4]),
+                       pick(blocks[bset % 4 != 3]))
+    heavy = rng.random(n) < 0.45
+    bypass_idx = np.where(heavy, pick(blocks[bset % 4 == 0]),
+                          pick(blocks[bset % 4 != 0]))
+    vals = rng.uniform(0.0, 1.0, n).astype(np.float32)
+    live = torch.tensor(n - 25810, dtype=torch.int32, device=dev)
+    as_t = lambda a: torch.from_numpy(a.astype(np.int32)).to(dev)
+    return as_t(cap_idx), as_t(bypass_idx), torch.from_numpy(vals).to(dev), \
+        live
+
+
+def phase_windowed(graphs, oracles):
+    """The paper's geometry on the card: B3's windowed body and its banked
+    whole-stream layout held against the numpy oracle and the plain
+    versions, the apps through FrontierPipeline with IRU_HASH and the host
+    entry point reorder_frontier (the launch counts zeroed before each run
+    and read after it), then the two bodies' times and a profile.  Returns
+    (launches, errors, timing rows)."""
+    from repro_torch.apps.bfs import BFS_APP
+    from repro_torch.apps.pagerank import pagerank_app
+    from repro_torch.apps.sssp import SSSP_APP
+    from repro_torch.core import CapacityPolicy, FrontierPipeline
+    from repro_torch.core.iru import IRUConfig, reorder_frontier
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.iru_reorder import ops as hash_ops
+    from repro_torch.kernels.iru_reorder.ref import (hash_reorder_ref_banked,
+                                                     hash_set,
+                                                     partition_capacity)
+
+    g = graphs["kron20"]
+    dev = g.device
+    pr_idx, pr_vals = pagerank_stream(g)
+    idx_np, vals_np = pr_idx.cpu().numpy(), pr_vals.cpu().numpy()
+    n = pr_idx.numel()
+    err_w, t_plain_w, _, _ = hold_windowed("pagerank add", pr_idx, pr_vals,
+                                           "add")
+    err_min, _, _, _ = hold_windowed("pagerank min", pr_idx, pr_vals, "min")
+    cap_idx, bypass_idx, vals, live = trip_streams(dev)
+    err_cap, _, _, dense = hold_windowed("round-cap trip add", cap_idx, vals,
+                                         "add", live)
+    err_by, _, bypass, _ = hold_windowed("bypass trip min", bypass_idx, vals,
+                                         "min", live)
+    check(dense > 0, "the round-cap trip stream takes the fallback")
+    check(bypass > 0, "the bypass trip stream bypasses the banks")
+    print(f"B3 windowed: {dense} windows took the round-cap fallback, "
+          f"{bypass} bypassed the banks")
+
+    # whole-stream B3, banked layout (4 partitions, no window)
+    kw = dict(num_sets=1024, slots=32, n_partitions=4)
+    got = hash_ops.hash_reorder(pr_idx, pr_vals, filter_op="add", **kw)
+    want, t_plain_b = wall_s(lambda: hash_ops.hash_reorder(
+        pr_idx, pr_vals, filter_op="add", kernels=False, **kw))
+    for field in ("indices", "positions", "active"):
+        check(torch.equal(getattr(got, field), getattr(want, field)),
+              f"B3 banked: {field} equal to plain")
+    check(torch.allclose(got.secondary, want.secondary, rtol=1e-5, atol=0.0),
+          "B3 banked add within rtol 1e-5 of plain")
+    err_b = max_abs_err(got.secondary, want.secondary)
+    # the oracle's round peeling for add takes minutes of host time at this
+    # size; without a merge it is a closed form, and the layout (banks,
+    # bypass, partition-major emission) is the same
+    got0 = hash_ops.hash_reorder(pr_idx, pr_vals, **kw)
+    t0 = time.perf_counter()
+    oracle0 = hash_reorder_ref_banked(idx_np, vals_np, **kw)
+    t_oracle = time.perf_counter() - t0
+    for k, field in enumerate(FIELDS):
+        check(np.array_equal(getattr(got0, field).cpu().numpy(), oracle0[k]),
+              f"B3 banked, no merge: {field} equal to the numpy oracle")
+    counts = np.bincount(hash_set(idx_np // np.int32(32), 1024) % 4,
+                         minlength=4)
+    print(f"B3 banked pagerank add  : {n} lanes, partitions hold "
+          f"{counts.tolist()} (capacity {partition_capacity(n, 4)}), "
+          f"{int(got.active.sum())} survivors, max abs err {err_b:.3g} "
+          f"against plain (plain {t_plain_b:.1f} s); without a merge equal "
+          f"to hash_reorder_ref_banked (oracle {t_oracle:.1f} s)")
+
+    # the main path: the apps with IRU_HASH, and reorder_frontier
+    cfg = IRUConfig(mode="hash", **IRU_HASH)
+    policy = CapacityPolicy(n_buckets=3)
+    FrontierPipeline(g, BFS_APP, mode="hash", iru_config=cfg,
+                     capacity_policy=policy, max_iters=2).run(0)  # warm-up
+    totals = {}
+    for gname in ("kron20", "delaunay1024"):
+        gr = graphs[gname]
+        for name, app, iters in (("bfs", BFS_APP, None),
+                                 ("sssp", SSSP_APP, None),
+                                 ("pagerank", pagerank_app(20), 20)):
+            pipe = FrontierPipeline(gr, app, mode="hash", iru_config=cfg,
+                                    capacity_policy=policy, max_iters=iters)
+            reset_launch_counts()
+            out, secs = wall_s(lambda: pipe.run(0))
+            counts_run = dict(launch_counts)
+            for k in ("coalesced_gather", "iru_reorder_windowed"):
+                check(counts_run.get(k, 0) > 0,
+                      f"IRU_HASH {name} on {gname} launched {k}")
+            for k, v in counts_run.items():
+                totals[k] = totals.get(k, 0) + v
+            host = host_oracle(oracles, name, gname, gr, iters)
+            if iters:
+                check(torch.allclose(out, host, rtol=1e-4, atol=0.0),
+                      f"IRU_HASH pagerank on {gname} within rtol 1e-4 of the "
+                      f"host oracle")
+            else:
+                check(torch.equal(out, host),
+                      f"IRU_HASH {name} on {gname} equals the host oracle")
+            edges = gr.n_edges * (iters or 1)
+            print(f"app IRU_HASH {name:8s} {gname:12s}"
+                  f"{f' ({iters} iterations)' if iters else ''}: "
+                  f"{secs:.3f} s ({edges / secs:.4g} edges/s), launches "
+                  f"{counts_run}, {pipe.n_hops} bucket hops, host oracle "
+                  f"agrees")
+    for label, fcfg, key in (
+            ("IRU_HASH", IRUConfig(mode="hash", filter_op="add", **IRU_HASH),
+             "iru_reorder_windowed"),
+            ("4 partitions, no window",
+             IRUConfig(mode="hash", filter_op="add", n_partitions=4),
+             "iru_reorder_banked")):
+        reset_launch_counts()
+        out, secs = wall_s(lambda: reorder_frontier(idx_np, vals_np,
+                                                    config=fcfg))
+        counts_run = dict(launch_counts)
+        check(counts_run.get(key, 0) == 1,
+              f"reorder_frontier ({label}) launched {key} once")
+        check(isinstance(out[0], np.ndarray)
+              and np.array_equal(np.sort(out[2]), np.arange(n)),
+              f"reorder_frontier ({label}): numpy, a permutation")
+        for k, v in counts_run.items():
+            totals[k] = totals.get(k, 0) + v
+        print(f"reorder_frontier {label}: {n} lanes in {secs:.3f} s (host "
+              f"copies included), {int(out[3].sum())} survivors, launches "
+              f"{counts_run}")
+
+    # times at PageRank's shape: CUDA events, bound = bytes over 3.35 TB/s
+    add_cfg = IRUConfig(mode="hash", filter_op="add", **IRU_HASH)
+    from repro_torch.core.iru import iru_reorder
+
+    nbytes = n * (4 + 4) + n * (4 + 4 + 4 + 1)
+    rows = {
+        "iru_reorder_windowed": {
+            "ms": event_ms(lambda: iru_reorder(pr_idx, pr_vals,
+                                               config=add_cfg)),
+            "plain_ms": t_plain_w * 1e3, "library_ms": None,
+            "bytes": nbytes},
+        "iru_reorder_banked": {
+            "ms": event_ms(lambda: hash_ops.hash_reorder(
+                pr_idx, pr_vals, filter_op="add", **kw)),
+            "plain_ms": t_plain_b * 1e3, "library_ms": None,
+            "bytes": nbytes},
+    }
+    for name, row in rows.items():
+        row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+        print(f"time {name}: kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.1f} ms (one call), library none, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bytes']} bytes, {n} lanes)")
+    # where the windowed body's time goes: the same stream by window size,
+    # without a merge, and in one partition
+    sweep = {f"w={w}": dict(IRU_HASH, window_elems=w, filter_op="add")
+             for w in (1024, 2048, 4096)}
+    sweep["no merge"] = dict(IRU_HASH)
+    sweep["1 partition"] = dict(IRU_HASH, filter_op="add", n_partitions=1)
+    parts = []
+    for label, kw_v in sweep.items():
+        cfg_v = IRUConfig(mode="hash", **kw_v)
+        ms = event_ms(lambda: iru_reorder(pr_idx, pr_vals, config=cfg_v))
+        parts.append(f"{label} {ms:.4f} ms")
+    print("time iru_reorder_windowed by variant at pagerank's shape: "
+          + ", ".join(parts))
+    profile_window("B3 windowed at pagerank's shape, one call",
+                   lambda: iru_reorder(pr_idx, pr_vals, config=add_cfg))
+    profile_window("B3 banked at pagerank's shape, one call",
+                   lambda: hash_ops.hash_reorder(pr_idx, pr_vals,
+                                                 filter_op="add", **kw))
+    errors = {"iru_reorder_windowed": max(err_w, err_min, err_cap, err_by),
+              "iru_reorder_banked": err_b}
+    return totals, errors, rows
+
+
 def phase_timings(g, dsts, contrib, sparse):
     from repro_torch.kernels.coalesced_gather import ops as gather_ops
     from repro_torch.kernels.coalesced_gather.ref import coalesced_gather_ref
@@ -839,7 +1166,9 @@ def main() -> int:
     phase_build()
     graphs = make_graphs(dev)
     dsts, contrib, sparse, errors = phase_kernels(graphs["kron20"])
-    launches = phase_apps(graphs)
+    oracles = {}
+    win_launches, win_errors, win_rows = phase_windowed(graphs, oracles)
+    launches = phase_apps(graphs, oracles)
     served, serving_errors = phase_serving(graphs["kron20"])
     for k, v in served.items():
         launches[k] = launches.get(k, 0) + v
@@ -847,6 +1176,10 @@ def main() -> int:
         errors[k] = max(errors[k], v)
     timings = phase_timings(graphs["kron20"], dsts, contrib, sparse)
     phase_profile(graphs, dsts, contrib)
+    for k, v in win_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    errors.update(win_errors)
+    timings.update(win_rows)
 
     sources = {
         "coalesced_gather": (
@@ -862,6 +1195,12 @@ def main() -> int:
             "src/repro_torch/kernels/iru_reorder/iru_reorder.cu",
             "src/repro/kernels/iru_reorder/iru_reorder.py:168"),
         "iru_reorder_tagged": (  # B3's tagged fold (the batched engine's)
+            "src/repro_torch/kernels/iru_reorder/iru_reorder.cu",
+            "src/repro/kernels/iru_reorder/iru_reorder.py:168"),
+        "iru_reorder_banked": (  # B3, the banked layout (banked.py's)
+            "src/repro_torch/kernels/iru_reorder/iru_reorder.cu",
+            "src/repro/kernels/iru_reorder/iru_reorder.py:168"),
+        "iru_reorder_windowed": (  # B3's windowed body (the paper's geometry)
             "src/repro_torch/kernels/iru_reorder/iru_reorder.cu",
             "src/repro/kernels/iru_reorder/iru_reorder.py:168"),
     }

@@ -4,16 +4,23 @@
 // memory).  The merge op is none, add, min, max or tagged: the fused min+add
 // family fold of the serving stack, where each arrival's family is
 // tag_table[clamp(idx, 0, T-1)] (1 = add), as in the batched engine's
-// _lane_tags.  The result equals ragged_oracle(hash_reorder_ref, ...) of
+// _lane_tags.  Sets stripe over n_partitions partitions as set % P.  The
+// result equals ragged_oracle(hash_reorder_ref_banked, ...) of
 // repro_torch/kernels/iru_reorder/ref.py (tagged: its add result on add
 // lanes and its min result on min lanes; the layout does not depend on the
 // op), buffer order:
-//   1. flushed groups, by their trigger's stream position, each `slots`
-//      entries in insertion order with merged payloads;
-//   2. drained sets in set-id order, each in insertion order;
-//   3. dead lanes (n_live..n-1) in stream order, original values, inactive;
-//   4. filtered lanes with their original payload, the first detected at
-//      n-1 (reverse detection order), inactive.
+//   1. each partition's front, partition by partition: its flushed groups,
+//      by their trigger's stream position, each `slots` entries in insertion
+//      order with merged payloads, then its drained sets in set-id order,
+//      each in insertion order;
+//   2. dead lanes (n_live..n-1) in stream order, original values, inactive;
+//   3. each partition's filtered lanes, partition by partition, with their
+//      original payload, the first detected last (reverse detection order),
+//      inactive.
+// A stream whose busiest partition holds more live lanes than
+// partition_capacity(n_live, P) bypasses the banks: it is laid out as one
+// partition (P = 1 is the flat layout).  The whole-stream body decides that
+// on the device from the set histogram the binning builds.
 //
 // Replaces the TPU kernel repro/kernels/iru_reorder/iru_reorder.py
 // (hash_reorder_pallas, _kernel, _hash_set): there one core streamed the
@@ -42,10 +49,12 @@
 //           the arrival's position (positions are below 2^31).  A full set is written back into
 //           its own (already consumed) stretch of the binned arrays and its
 //           trigger's stream position is marked;
-//   emit    no sorts: a flush group's rank is an exclusive scan of the
-//           trigger marks over stream positions (triggers are distinct
-//           positions), a filtered lane's tail slot a scan of the filtered
-//           marks, drain offsets a scan of the per-set drain counts.
+//   emit    no sorts: a flush group's rank within its partition is an
+//           exclusive scan of its partition's trigger marks over stream
+//           positions (triggers are distinct positions), a filtered lane's
+//           tail slot a scan of its partition's filtered marks (one scan
+//           pass a partition), drain offsets a scan of the per-set drain
+//           counts in partition-major set order.
 //
 // What bounds it on an H100: the walk.  It is sequential within a set, so
 // the busiest set's arrival count sets the time: one sub-step per batch of
@@ -54,6 +63,27 @@
 // 30,666 arrivals), each a chain of shared-memory loads, ballots and folds
 // in one warp.  The byte bound is 8 B read and 13 B written a lane.
 // Spreading a hot set over several warps is later work.
+//
+// The windowed body (win_reorder) reorders independent windows of w lanes
+// (the streaming lookahead of the paper's geometry: 8192 lanes, 1024 x 32
+// sets over 4 partitions, round cap 64) in one launch, one CTA a window,
+// all in shared memory: it bins the window by (partition, set) with a
+// block-wide bitonic sort of (partition, set or index, lane) keys, decides
+// the window's bank bypass and each partition's round-cap fallback from
+// the set histogram, walks the hash partitions' sets (from the same
+// histogram: a set of at most `slots` arrivals, which fills at most once,
+// by one thread in a single round, a larger one by a warp with the
+// whole-stream walk), folds a capped partition's runs of equal indices in
+// stream order
+// (ref.dense_merge_ref), and emits partition-major with block scans,
+// positions offset by the window's start.  A fully dead window is a copy.
+// Its equality with the oracle is window by window, the positions global.
+// What bounds it on an H100: work in shared memory, not device memory (the
+// same 8 B read and 13 B written a lane).  A window of 8192 lanes at 1024
+// sets and 4 partitions takes about 196 KB, so one CTA runs on an SM at a
+// time and its phases (the sort's 91 steps, the walk, the scans) run one
+// after another; one launch a call and no device-wide pass in between is
+// what the design buys.
 //
 // Plain C interface, loaded with ctypes; launches on the caller's stream and
 // allocates nothing (the wrapper passes one workspace buffer).
@@ -119,6 +149,7 @@ struct Geo {
   int slots;
   int epb;
   int nchunks;
+  int nparts;           // partitions: sets stripe as set % nparts
   const uint8_t* tags;  // op = tagged: the family of each index (1 = add)
   int ntags;
 };
@@ -268,66 +299,64 @@ __device__ __forceinline__ uint32_t to_bits(int v) { return (uint32_t)v; }
 // lanes up to and including `last`
 __device__ __forceinline__ unsigned upto(int last) { return last >= 31 ? kFull : (2u << last) - 1u; }
 
-// One warp per set, lane j holding slot j; the set's arrivals are taken 32
-// at a time (the next batch loads while this one is folded).  A batch is cut
-// into sub-steps at triggers.  In a sub-step that starts at lane a with cnt
-// residents, an arrival is filtered if its index equals a resident's (each
-// lane scans the warp's shared copy of the resident indices) or an earlier
-// arrival's of the sub-step (__match_any_sync); the others are new, take
-// slots cnt, cnt+1, ... in lane order (each writes itself into its slot's
-// shared entry, which the slot's lane reads), and the new arrival that takes
-// slot `slots`-1 is the trigger, which ends the sub-step: the set flushes into
-// its own consumed stretch of the binned arrays and the next sub-step
-// starts after it with an empty set.  Each slot's owner folds the
-// sub-step's filtered arrivals that name its slot, in lane order (stream
-// order), from the warp's shared copy of the batch, so f32 sums add in the
-// oracle's order.
-template <typename T, int OP>
-__global__ void __launch_bounds__(kWalkWarps * kWarp)
-walk(const int* set_start, Geo g, uint2* b_iv, int* b_pos, uint8_t* mark, int* nflush,
-     int* ndrain) {
-  // the warp's shared copies: the batch's payload bits and positions, each
-  // slot's index, the lane a new slot takes its arrival from, and the slot
-  // each filtered arrival folds into
-  __shared__ __align__(16) uint32_t payload[kWalkWarps][kWarp];
-  __shared__ int position[kWalkWarps][kWarp];
-  __shared__ __align__(16) int resident[kWalkWarps][kWarp];
-  __shared__ int taken_from[kWalkWarps][kWarp];
-  __shared__ __align__(16) int folds_into[kWalkWarps][kWarp];
-  const int lane = threadIdx.x % kWarp, wid = threadIdx.x / kWarp;
-  const int s = blockIdx.x * kWalkWarps + wid;
-  if (s >= g.num_sets) return;
-  int* res = resident[wid];
-  const int4* res4 = reinterpret_cast<const int4*>(res);
-  const uint4* pay4 = reinterpret_cast<const uint4*>(payload[wid]);
-  const int4* into4 = reinterpret_cast<const int4*>(folds_into[wid]);
+// The warp's shared copies of walk_set: the batch's payload bits and
+// positions, each slot's index, the lane a new slot takes its arrival from,
+// and the slot each filtered arrival folds into (kWarp entries each,
+// 16-byte aligned).
+struct WalkScratch {
+  uint32_t* payload;
+  int* position;
+  int* resident;
+  int* taken_from;
+  int* folds_into;
+};
+
+// One warp walks one set's `len` arrivals, lane j holding slot j; the
+// arrivals are taken 32 at a time (the next batch loads while this one is
+// folded).  A batch is cut into sub-steps at triggers.  In a sub-step that
+// starts at lane a with cnt residents, an arrival is filtered if its index
+// equals a resident's (each lane scans the warp's shared copy of the
+// resident indices) or an earlier arrival's of the sub-step
+// (__match_any_sync); the others are new, take slots cnt, cnt+1, ... in lane
+// order (each writes itself into its slot's shared entry, which the slot's
+// lane reads), and the new arrival that takes slot `slots`-1 is the trigger,
+// which ends the sub-step: the set's residents are put at the next `slots`
+// kept entries and the next sub-step starts after it with an empty set.
+// Each slot's owner folds the sub-step's filtered arrivals that name its
+// slot, in lane order (stream order), from the warp's shared copy of the
+// batch, so f32 sums add in the oracle's order.
+//
+// Src gives arrival k of the set (load: packed (index, payload bits) and
+// position, bit 31 of the position the add family), takes kept entry q of
+// the set (put: flush groups first, then the drain group), and marks an
+// arrival's position as a trigger or filtered (mark).  Returns the number
+// of flush groups; `drained` is the drain group's size.
+template <typename T, int OP, class Src>
+__device__ int walk_set(const Src& src, int len, int slots, const WalkScratch& sh,
+                        int& drained) {
+  const int lane = threadIdx.x % kWarp;
+  const int4* res4 = reinterpret_cast<const int4*>(sh.resident);
+  const uint4* pay4 = reinterpret_cast<const uint4*>(sh.payload);
+  const int4* into4 = reinterpret_cast<const int4*>(sh.folds_into);
   const unsigned below = (1u << lane) - 1u;
-  const int start = set_start[s];
-  const int len = set_start[s + 1] - start;
   int r_idx = 0, r_pos = 0;  // slot `lane` of this set
   T r_val = T(0);
   bool r_add = false;        // tagged: the slot's family
   int cnt = 0, wc = 0, flushes = 0;  // warp-uniform
   uint2 nx_iv = make_uint2(0, 0);
   int nx_pos = 0;
-  if (lane < len) {
-    nx_iv = b_iv[start + lane];
-    nx_pos = b_pos[start + lane];
-  }
+  if (lane < len) src.load(lane, nx_iv, nx_pos);
   for (int k0 = 0; k0 < len; k0 += kWarp) {
     const int steps = min(kWarp, len - k0);
     const unsigned valid = upto(steps - 1);
     const bool have = lane < steps;
     const int ei = (int)nx_iv.x;
     const int ep = nx_pos & kPosMask;
-    payload[wid][lane] = nx_iv.y;
-    position[wid][lane] = nx_pos;
-    // the next batch lies past every write-back of this one (a flush group
-    // is `slots` arrivals already consumed)
-    if (k0 + kWarp + lane < len) {
-      nx_iv = b_iv[start + k0 + kWarp + lane];
-      nx_pos = b_pos[start + k0 + kWarp + lane];
-    }
+    sh.payload[lane] = nx_iv.y;
+    sh.position[lane] = nx_pos;
+    // the next batch is never put before it is loaded (a flush group is
+    // `slots` arrivals already consumed)
+    if (k0 + kWarp + lane < len) src.load(k0 + kWarp + lane, nx_iv, nx_pos);
     const unsigned peers = OP != kNone ? __match_any_sync(kFull, ei) & valid : 0u;
     unsigned filtered = 0, triggers = 0;
     int a = 0;
@@ -353,15 +382,15 @@ walk(const int* set_start, Geo g, uint2* b_iv, int* b_pos, uint8_t* mark, int* n
       // takes slot `slots`-1 is the trigger
       const bool is_new = newm >> lane & 1u;
       const int rank = __popc(newm & below);
-      const unsigned tmask = __ballot_sync(kFull, is_new && rank == g.slots - cnt - 1);
+      const unsigned tmask = __ballot_sync(kFull, is_new && rank == slots - cnt - 1);
       const bool trig = tmask != 0;
       const int last = trig ? __ffs(tmask) - 1 : steps - 1;
       const unsigned range = sub & upto(last);
       const unsigned ins = newm & range;
       const int nins = __popc(ins);
       if (ins >> lane & 1u) {
-        res[cnt + rank] = ei;
-        taken_from[wid][cnt + rank] = lane;
+        sh.resident[cnt + rank] = ei;
+        sh.taken_from[cnt + rank] = lane;
       }
       unsigned fm = 0;  // the sub-step's filtered arrivals
       if (OP != kNone) {
@@ -369,15 +398,15 @@ walk(const int* set_start, Geo g, uint2* b_iv, int* b_pos, uint8_t* mark, int* n
         filtered |= fm;
         if (own < 0 && (fm >> lane & 1u))  // a duplicate of a new arrival
           own = cnt + __popc(ins & ((1u << (__ffs(peers & sub) - 1)) - 1u));
-        folds_into[wid][lane] = (fm >> lane & 1u) ? own : -1;
+        sh.folds_into[lane] = (fm >> lane & 1u) ? own : -1;
       }
       __syncwarp();
       if (lane >= cnt && lane < cnt + nins) {  // a new slot
-        const int t = taken_from[wid][lane];
-        r_idx = res[lane];
-        r_val = from_bits<T>(payload[wid][t]);
-        r_pos = position[wid][t] & kPosMask;
-        r_add = position[wid][t] < 0;
+        const int t = sh.taken_from[lane];
+        r_idx = sh.resident[lane];
+        r_val = from_bits<T>(sh.payload[t]);
+        r_pos = sh.position[t] & kPosMask;
+        r_add = sh.position[t] < 0;
       }
       if (OP != kNone && fm) {
         // each slot's owner folds the arrivals that name it, in lane order
@@ -394,36 +423,72 @@ walk(const int* set_start, Geo g, uint2* b_iv, int* b_pos, uint8_t* mark, int* n
       __syncwarp();  // the shared copies are read before they change
       cnt += nins;
       if (trig) {
-        if (lane < g.slots) {
-          b_iv[start + wc + lane] = make_uint2((uint32_t)r_idx, to_bits(r_val));
-          b_pos[start + wc + lane] = r_pos;
-        }
+        if (lane < slots) src.put(wc + lane, r_idx, to_bits(r_val), r_pos);
         triggers |= 1u << last;
-        wc += g.slots;
+        wc += slots;
         cnt = 0;
         ++flushes;
       }
       a = last + 1;
     }
     if (have && ((filtered | triggers) >> lane & 1u))
-      mark[ep] = (filtered >> lane & 1u) ? kFiltered : kTrigger;
+      src.mark(ep, (filtered >> lane & 1u) ? kFiltered : kTrigger);
   }
-  if (lane < cnt) {  // drain group: the residents at end of stream
-    b_iv[start + wc + lane] = make_uint2((uint32_t)r_idx, to_bits(r_val));
-    b_pos[start + wc + lane] = r_pos;
+  if (lane < cnt) src.put(wc + lane, r_idx, to_bits(r_val), r_pos);  // drain group
+  drained = cnt;
+  return flushes;
+}
+
+// walk_set's view of one set of the whole-stream body: its stretch of the
+// binned arrays, into whose consumed part the kept entries are put, and the
+// stream's marks
+struct BinnedSet {
+  uint2* b_iv;
+  int* b_pos;
+  uint8_t* marks;
+  int start;
+  __device__ void load(int k, uint2& iv, int& pos) const {
+    iv = b_iv[start + k];
+    pos = b_pos[start + k];
   }
+  __device__ void put(int q, int idx, uint32_t bits, int pos) const {
+    b_iv[start + q] = make_uint2((uint32_t)idx, bits);
+    b_pos[start + q] = pos;
+  }
+  __device__ void mark(int pos, uint8_t kind) const { marks[pos] = kind; }
+};
+
+// One warp per set (kWalkWarps a CTA).
+template <typename T, int OP>
+__global__ void __launch_bounds__(kWalkWarps * kWarp)
+walk(const int* set_start, Geo g, uint2* b_iv, int* b_pos, uint8_t* mark, int* nflush,
+     int* ndrain) {
+  __shared__ __align__(16) uint32_t payload[kWalkWarps][kWarp];
+  __shared__ __align__(16) int position[kWalkWarps][kWarp];
+  __shared__ __align__(16) int resident[kWalkWarps][kWarp];
+  __shared__ __align__(16) int taken_from[kWalkWarps][kWarp];
+  __shared__ __align__(16) int folds_into[kWalkWarps][kWarp];
+  const int lane = threadIdx.x % kWarp, wid = threadIdx.x / kWarp;
+  const int s = blockIdx.x * kWalkWarps + wid;
+  if (s >= g.num_sets) return;
+  const WalkScratch sh{payload[wid], position[wid], resident[wid], taken_from[wid],
+                       folds_into[wid]};
+  const BinnedSet src{b_iv, b_pos, mark, set_start[s]};
+  int drained;
+  const int flushes = walk_set<T, OP>(src, set_start[s + 1] - set_start[s], g.slots, sh, drained);
   if (lane == 0) {
     nflush[s] = flushes;
-    ndrain[s] = cnt;
+    ndrain[s] = drained;
   }
 }
 
 // ------------------------------------------------------------------ scans
 __device__ __forceinline__ int2 add2(int2 a, int2 b) { return make_int2(a.x + b.x, a.y + b.y); }
 
-// exclusive block scan of int2 sums over kScanThreads threads
+// exclusive block scan of int2 sums over NT threads
+template <int NT>
 __device__ int2 block_scan(int2 v, int2& total) {
-  __shared__ int2 warp_sum[kScanThreads / kWarp];
+  __shared__ int2 warp_sum[NT / kWarp];
   const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
   int2 inc = v;
   for (int off = 1; off < kWarp; off <<= 1) {
@@ -433,31 +498,61 @@ __device__ int2 block_scan(int2 v, int2& total) {
   if (lane == kWarp - 1) warp_sum[warp] = inc;
   __syncthreads();
   if (warp == 0) {
-    int2 w = lane < kScanThreads / kWarp ? warp_sum[lane] : make_int2(0, 0);
+    int2 w = lane < NT / kWarp ? warp_sum[lane] : make_int2(0, 0);
     for (int off = 1; off < kWarp; off <<= 1) {
       const int x = __shfl_up_sync(kFull, w.x, off), y = __shfl_up_sync(kFull, w.y, off);
       if (lane >= off) w = add2(w, make_int2(x, y));
     }
-    if (lane < kScanThreads / kWarp) warp_sum[lane] = w;
+    if (lane < NT / kWarp) warp_sum[lane] = w;
   }
   __syncthreads();
   const int2 before = warp > 0 ? warp_sum[warp - 1] : make_int2(0, 0);
-  total = warp_sum[kScanThreads / kWarp - 1];
+  total = warp_sum[NT / kWarp - 1];
   __syncthreads();
   return make_int2(inc.x - v.x + before.x, inc.y - v.y + before.y);
+}
+
+// exclusive scan over [0, count) by one block of NT threads, each taking a
+// contiguous stretch: use(j, prefix before j, load(j)).  Returns the total.
+template <int NT, class Load, class Use>
+__device__ int2 stretch_scan(int count, const Load& load, const Use& use) {
+  const int per = (count + NT - 1) / NT;
+  const int j0 = min((int)threadIdx.x * per, count), j1 = min(j0 + per, count);
+  int2 v = make_int2(0, 0);
+  for (int j = j0; j < j1; ++j) v = add2(v, load(j));
+  int2 total;
+  int2 run = block_scan<NT>(v, total);
+  for (int j = j0; j < j1; ++j) {
+    const int2 x = load(j);
+    use(j, run, x);
+    run = add2(run, x);
+  }
+  return total;
 }
 
 // in-place exclusive scan of the set-major histogram
 struct HistScan {
   int* data;
   long long n;
+  __device__ bool skip() const { return false; }
   __device__ int2 load(long long j) const { return make_int2(data[j], 0); }
   __device__ void store(long long j, int2 before, int2) const { data[j] = before.x; }
 };
 
-// scan of the walk's marks over stream positions: x counts triggers, y
-// filtered lanes.  store() records each trigger's flush rank and places the
-// filtered and dead lanes (their final slots need only these counts).
+// per-partition layout, written by finalize: the front's first slot, its
+// flush groups, the tail's first slot and its length
+struct Part {
+  int front;
+  int flushes;
+  int tail;
+  int filtered;
+};
+
+// One scan pass of the walk's marks over stream positions for partition p
+// (of meta[2] partitions): x counts its triggers, y its filtered lanes.
+// store() records each trigger's flush rank within the partition and
+// places the partition's filtered lanes; pass 0 also places the dead lanes
+// (their final slots need only the survivors' count).
 template <typename T>
 struct MarkScan {
   const uint8_t* mark;
@@ -465,23 +560,33 @@ struct MarkScan {
   const int* idx;
   const T* val;
   const int* n_live;
-  const int* meta;  // [1] = survivors
+  const int* meta;  // [1] = survivors, [2] = partitions of the layout
+  const Part* part;
+  Geo g;
+  int p;
   int* rank;
   int* out_idx;
   T* out_val;
   int* out_pos;
   uint8_t* out_act;
+  __device__ bool skip() const { return p >= meta[2]; }
+  __device__ bool mine(long long j) const {
+    const int parts = meta[2];
+    return parts == 1 || hash_set(idx[j], g.epb, g.num_sets) % parts == p;
+  }
   __device__ int2 load(long long j) const {
     const uint8_t k = mark[j];
+    if (k == kKept || !mine(j)) return make_int2(0, 0);
     return make_int2(k == kTrigger, k == kFiltered);
   }
   __device__ void store(long long j, int2 before, int2 x) const {
     const long long m = live_count(n_live, n);
     long long o;
     if (j >= m) {
+      if (p != 0) return;
       o = meta[1] + (j - m);  // dead lane
     } else if (x.y) {
-      o = n - 1 - before.y;   // filtered lane
+      o = part[p].tail + part[p].filtered - 1 - before.y;  // filtered lane
     } else {
       if (x.x) rank[j] = before.x;
       return;
@@ -503,9 +608,10 @@ __device__ __forceinline__ int2 thread_sum(const F& f, long long j0) {
 
 template <class F>
 __global__ void __launch_bounds__(kScanThreads) scan_reduce(F f, int2* agg) {
+  if (f.skip()) return;
   const long long j0 = (long long)blockIdx.x * kScanTile + (long long)threadIdx.x * kScanItems;
   int2 total;
-  block_scan(thread_sum(f, j0), total);
+  block_scan<kScanThreads>(thread_sum(f, j0), total);
   if (threadIdx.x == 0) agg[blockIdx.x] = total;
 }
 
@@ -517,7 +623,7 @@ __global__ void __launch_bounds__(kScanThreads) scan_tiles(int2* agg, long long 
   int2 v = make_int2(0, 0);
   for (long long t = t0; t < t1; ++t) v = add2(v, agg[t]);
   int2 total;
-  int2 run = block_scan(v, total);
+  int2 run = block_scan<kScanThreads>(v, total);
   for (long long t = t0; t < t1; ++t) {
     const int2 x = agg[t];
     agg[t] = run;
@@ -527,9 +633,10 @@ __global__ void __launch_bounds__(kScanThreads) scan_tiles(int2* agg, long long 
 
 template <class F>
 __global__ void __launch_bounds__(kScanThreads) scan_apply(F f, const int2* agg) {
+  if (f.skip()) return;
   const long long j0 = (long long)blockIdx.x * kScanTile + (long long)threadIdx.x * kScanItems;
   int2 total;
-  int2 run = add2(agg[blockIdx.x], block_scan(thread_sum(f, j0), total));
+  int2 run = add2(agg[blockIdx.x], block_scan<kScanThreads>(thread_sum(f, j0), total));
   for (int k = 0; k < kScanItems; ++k) {
     const long long j = j0 + k;
     if (j >= f.n) break;
@@ -549,32 +656,92 @@ int scan(const F& f, int2* agg, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// one CTA: drain offsets by set id, and meta = {flush groups, survivors}
+// partition_capacity of ref.py: the most live lanes a partition's bank row
+// holds before the stream bypasses the banks
+__device__ __forceinline__ long long partition_capacity(long long m, int parts) {
+  const long long per = (m + parts - 1) / parts;
+  return min(m, per + max(64LL, per / 4));
+}
+
+// the set of the k-th slot of partition-major set order (partition k / q,
+// then set id), with q = num_sets / parts sets a partition
+__device__ __forceinline__ int set_of_key(int k, int q, int parts) { return (k % q) * parts + k / q; }
+
+// One CTA: the bank bypass (from the per-set live counts), then drain
+// offsets within each partition (a scan of the drain counts in
+// partition-major set order) and each partition's front and tail; meta =
+// {flush groups, survivors, partitions of the layout}.  pd and pf (nparts+1
+// entries each) hold the drain and flush prefixes at each partition's first
+// set.
 __global__ void __launch_bounds__(kScanThreads)
-finalize(const int* nflush, const int* ndrain, Geo g, int* drain_off, int* meta) {
-  const int per = (g.num_sets + kScanThreads - 1) / kScanThreads;
-  const int s0 = threadIdx.x * per, s1 = min(s0 + per, g.num_sets);
-  int2 v = make_int2(0, 0);
-  for (int s = s0; s < s1; ++s) v = add2(v, make_int2(ndrain[s], nflush[s]));
-  int2 total;
-  int2 run = block_scan(v, total);
-  for (int s = s0; s < s1; ++s) {
-    drain_off[s] = run.x;
-    run.x += ndrain[s];
-  }
+finalize(const int* set_start, const int* nflush, const int* ndrain, const int* n_live, Geo g,
+         int* drain_off, int* meta, Part* part, int* pd, int* pf) {
+  __shared__ int parts_sh;
+  const long long m = live_count(n_live, g.n);
   if (threadIdx.x == 0) {
+    int parts = g.nparts;
+    if (parts > 1) {
+      long long worst = 0;
+      for (int p = 0; p < parts; ++p) {
+        long long c = 0;
+        for (int s = p; s < g.num_sets; s += parts) c += set_start[s + 1] - set_start[s];
+        worst = max(worst, c);
+      }
+      if (worst > partition_capacity(m, parts)) parts = 1;  // bank bypass
+    }
+    parts_sh = parts;
+  }
+  __syncthreads();
+  const int parts = parts_sh, q = g.num_sets / parts;
+  const int2 total = stretch_scan<kScanThreads>(
+      g.num_sets,
+      [&](int k) {
+        const int s = set_of_key(k, q, parts);
+        return make_int2(ndrain[s], nflush[s]);
+      },
+      [&](int k, int2 before, int2) {
+        drain_off[set_of_key(k, q, parts)] = before.x;
+        if (k % q == 0) {
+          pd[k / q] = before.x;
+          pf[k / q] = before.y;
+        }
+      });
+  if (threadIdx.x == 0) {
+    pd[parts] = total.x;
+    pf[parts] = total.y;
+  }
+  __syncthreads();
+  for (int s = threadIdx.x; s < g.num_sets; s += blockDim.x) drain_off[s] -= pd[s % parts];
+  if (threadIdx.x == 0) {
+    long long front = 0, tail = 0;
+    const long long survivors = (long long)total.y * g.slots + total.x;
+    for (int p = 0; p < parts; ++p) {
+      long long lanes = m;  // the partition's live lanes
+      if (parts > 1) {
+        lanes = 0;
+        for (int s = p; s < g.num_sets; s += parts) lanes += set_start[s + 1] - set_start[s];
+      }
+      const int flushes = pf[p + 1] - pf[p];
+      const long long kept = (long long)flushes * g.slots + (pd[p + 1] - pd[p]);
+      part[p] = Part{(int)front, flushes, (int)(g.n - (m - survivors) + tail),
+                     (int)(lanes - kept)};
+      front += kept;
+      tail += lanes - kept;
+    }
     meta[0] = total.y;
-    meta[1] = total.y * g.slots + total.x;
+    meta[1] = (int)survivors;
+    meta[2] = parts;
   }
 }
 
 // ------------------------------------------------------------------ emit
-// one thread per set-major slot q < n_live: kept entries go to the front
+// one thread per set-major slot q < n_live: kept entries go to their
+// partition's front
 template <typename T>
 __global__ void __launch_bounds__(kEmitThreads)
 emit_kept(const int* set_start, const int* nflush, const int* ndrain, const int* drain_off,
-          const int* meta, const int* rank, const uint2* b_iv, const int* b_pos, Geo g,
-          int* out_idx, T* out_val, int* out_pos, uint8_t* out_act) {
+          const int* meta, const Part* part, const int* rank, const uint2* b_iv,
+          const int* b_pos, Geo g, int* out_idx, T* out_val, int* out_pos, uint8_t* out_act) {
   const long long q = (long long)blockIdx.x * kEmitThreads + threadIdx.x;
   if (q >= set_start[g.num_sets]) return;
   int lo = 0, hi = g.num_sets;  // last s with set_start[s] <= q
@@ -586,18 +753,19 @@ emit_kept(const int* set_start, const int* nflush, const int* ndrain, const int*
   const int local = (int)(q - start);
   const int nf = nflush[s] * g.slots;
   if (local >= nf + ndrain[s]) return;  // consumed arrivals past the kept entries
+  const Part pt = part[s % meta[2]];
   long long o;
   if (local < nf) {
     const int grp = local / g.slots, j = local % g.slots;
-    const int trig = b_pos[start + grp * g.slots + g.slots - 1];
-    o = (long long)rank[trig] * g.slots + j;
+    const int trig = b_pos[start + grp * g.slots + g.slots - 1] & kPosMask;
+    o = pt.front + (long long)rank[trig] * g.slots + j;
   } else {
-    o = (long long)meta[0] * g.slots + drain_off[s] + (local - nf);
+    o = pt.front + (long long)pt.flushes * g.slots + drain_off[s] + (local - nf);
   }
   const uint2 iv = b_iv[q];
   out_idx[o] = (int)iv.x;
   out_val[o] = from_bits<T>(iv.y);
-  out_pos[o] = b_pos[q];
+  out_pos[o] = b_pos[q] & kPosMask;
   out_act[o] = 1;
 }
 
@@ -610,6 +778,9 @@ struct Work {
   int* ndrain;
   int* drain_off;
   int* meta;
+  Part* part;
+  int* pd;
+  int* pf;
   uint2* b_iv;  // binned (index, payload bits), set-major
   int* b_pos;
   uint8_t* mark;
@@ -618,7 +789,7 @@ struct Work {
 
 long long align(long long b) { return (b + 255) / 256 * 256; }
 
-long long carve(char* base, long long n, int num_sets, Work* w) {
+long long carve(char* base, long long n, int num_sets, int nparts, Work* w) {
   const long long nchunks = (n + kChunk - 1) / kChunk;
   const long long h = nchunks * num_sets;
   const long long tiles = (std::max(h, n) + kScanTile - 1) / kScanTile;
@@ -636,6 +807,9 @@ long long carve(char* base, long long n, int num_sets, Work* w) {
   v.ndrain = (int*)take(num_sets * 4LL);
   v.drain_off = (int*)take(num_sets * 4LL);
   v.meta = (int*)take(16);
+  v.part = (Part*)take(nparts * (long long)sizeof(Part));
+  v.pd = (int*)take((nparts + 1) * 4LL);
+  v.pf = (int*)take((nparts + 1) * 4LL);
   v.b_iv = (uint2*)take(n * 8);
   v.b_pos = (int*)take(n * 4);
   v.mark = (uint8_t*)take(n);
@@ -688,15 +862,437 @@ int run(const int* idx, const T* val, const int* n_live, int* out_idx, T* out_va
                                                       w.b_pos);
   if ((e = (int)cudaGetLastError())) return e;
   if ((e = walk_launch<T>(op, w, g, st))) return e;
-  finalize<<<1, kScanThreads, 0, st>>>(w.nflush, w.ndrain, g, w.drain_off, w.meta);
-  MarkScan<T> ms{w.mark, g.n, idx, val, n_live, w.meta, w.rank, out_idx, out_val, out_pos, out_act};
-  if ((e = scan(ms, w.agg, st))) return e;
+  finalize<<<1, kScanThreads, 0, st>>>(w.set_start, w.nflush, w.ndrain, n_live, g, w.drain_off,
+                                       w.meta, w.part, w.pd, w.pf);
+  // one pass a partition (a pass past the layout's partitions returns at once)
+  for (int p = 0; p < g.nparts; ++p) {
+    MarkScan<T> ms{w.mark, g.n,   idx,    val,     n_live,  w.meta, w.part, g,
+                   p,      w.rank, out_idx, out_val, out_pos, out_act};
+    if ((e = scan(ms, w.agg, st))) return e;
+  }
   const unsigned emit_blocks = (unsigned)((g.n + kEmitThreads - 1) / kEmitThreads);
   emit_kept<T><<<emit_blocks, kEmitThreads, 0, st>>>(w.set_start, w.nflush, w.ndrain,
-                                                     w.drain_off, w.meta, w.rank, w.b_iv,
+                                                     w.drain_off, w.meta, w.part, w.rank, w.b_iv,
                                                      w.b_pos, g, out_idx, out_val, out_pos,
                                                      out_act);
   return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------- windowed body
+constexpr int kWinThreads = 1024;
+constexpr int kWinWarps = kWinThreads / kWarp;
+constexpr int kLaneBits = 13;  // a lane's bits in a window's sort key
+constexpr int kLaneMask = (1 << kLaneBits) - 1;
+constexpr int kMaxWindow = 1 << kLaneBits;
+constexpr int kPartShift = 32 + kLaneBits;  // a sort key: partition, set or index, lane
+constexpr long long kWinMaxSmem = kMaxSmem - 1024;  // the rest: the kernel's static shared memory
+
+struct WinGeo {
+  long long n;
+  int w;
+  int num_sets;
+  int slots;
+  int epb;
+  int nparts;
+  int round_cap;  // 0: none
+};
+
+// shared memory of one window's CTA
+struct WinSmem {
+  uint64_t* keys;    // [pow2 >= w] sort keys; after the sort, the binned order
+  int* s_idx;        // [w] the window's live lanes
+  uint32_t* s_val;   // [w] payload bits; a kept lane's merged payload after the walk
+  uint16_t* b_lane;  // [w] each set's kept entries in emission order, by binned slot
+  uint8_t* mark;     // [w] kKept, kTrigger or kFiltered, by lane
+  int* cnt;          // [num_sets] live arrivals, by set
+  int* start;        // [num_sets + 1] first binned slot, by partition-major set order
+  int* nflush;       // [num_sets] flush groups, by partition-major set order
+  int* ndrain;       // [num_sets] drain group size, likewise
+  int* drain_off;    // [num_sets] drain offset within its partition, likewise
+  int* hot;          // [num_sets] sets walked by a warp
+  int* pc;           // [nparts + 1] live lanes, by partition
+  int* dense;        // [nparts + 1] 1: the partition takes the round-cap fallback
+  int* heads;        // [nparts + 1] a capped partition's survivors
+  int* pfront;       // [nparts + 1] a partition's first front slot
+  int* ptail;        // [nparts + 1] a partition's first tail slot
+  int* pfilt;        // [nparts + 1] a partition's filtered lanes
+  int* phead;        // [nparts + 1] capped partitions' survivors before the partition
+  int* pd;           // [nparts + 1] drain prefix at a partition's first set
+  int* pf;           // [nparts + 1] flush prefix at a partition's first set
+  uint32_t* walk;    // [warps][5][kWarp] walk_set's shared copies
+};
+
+__host__ __device__ inline int pow2_ceil(int x) {
+  int p = 1;
+  while (p < x) p <<= 1;
+  return p;
+}
+
+__host__ __device__ inline unsigned char* smem_take(unsigned char* base, long long& off,
+                                                    long long bytes) {
+  unsigned char* p = base ? base + off : nullptr;
+  off += (bytes + 15) / 16 * 16;
+  return p;
+}
+
+__host__ __device__ inline long long win_carve(unsigned char* b, int w, int num_sets, int nparts,
+                                               WinSmem* sm) {
+  long long off = 0;
+  WinSmem v;
+  v.keys = (uint64_t*)smem_take(b, off, 8LL * pow2_ceil(w));
+  v.s_idx = (int*)smem_take(b, off, 4LL * w);
+  v.s_val = (uint32_t*)smem_take(b, off, 4LL * w);
+  v.b_lane = (uint16_t*)smem_take(b, off, 2LL * w);
+  v.mark = smem_take(b, off, w);
+  int** per_set[] = {&v.cnt, &v.nflush, &v.ndrain, &v.drain_off, &v.hot};
+  for (int** a : per_set) *a = (int*)smem_take(b, off, 4LL * num_sets);
+  v.start = (int*)smem_take(b, off, 4LL * (num_sets + 1));
+  int** per_part[] = {&v.pc, &v.dense, &v.heads, &v.pfront, &v.ptail,
+                      &v.pfilt, &v.phead, &v.pd, &v.pf};
+  for (int** a : per_part) *a = (int*)smem_take(b, off, 4LL * (nparts + 1));
+  v.walk = (uint32_t*)smem_take(b, off, 4LL * kWinWarps * 5 * kWarp);
+  if (sm) *sm = v;
+  return off;
+}
+
+// ascending bitonic sort of a[0, n2) (n2 a power of two) by one block; the
+// caller synchronises before, and the sort after its last step
+__device__ void bitonic_sort(uint64_t* a, int n2) {
+  for (int k = 2; k <= n2; k <<= 1)
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = threadIdx.x; i < n2 / 2; i += blockDim.x) {
+        const int lo = 2 * i - (i & (j - 1)), hi = lo + j;
+        const uint64_t x = a[lo], y = a[hi];
+        if ((x > y) == ((lo & k) == 0)) {
+          a[lo] = y;
+          a[hi] = x;
+        }
+      }
+      __syncthreads();
+    }
+}
+
+// walk_set's view of one set of a window: its arrivals are the binned
+// order's lanes; a kept entry's lane is put at its binned slot and its
+// merged payload over its own
+struct WindowSet {
+  const uint64_t* keys;
+  const int* s_idx;
+  uint32_t* s_val;
+  uint16_t* b_lane;
+  uint8_t* marks;
+  int start;
+  __device__ void load(int k, uint2& iv, int& pos) const {
+    pos = (int)(keys[start + k] & kLaneMask);
+    iv = make_uint2((uint32_t)s_idx[pos], s_val[pos]);
+  }
+  __device__ void put(int q, int, uint32_t bits, int pos) const {
+    b_lane[start + q] = (uint16_t)pos;
+    s_val[pos] = bits;
+  }
+  __device__ void mark(int pos, uint8_t kind) const { marks[pos] = kind; }
+};
+
+// A set of at most `slots` arrivals fills at most once, at its last
+// arrival, so one thread walks it in a single round (the whole-stream
+// walk's result on such a set): an arrival whose index a kept entry holds
+// is filtered and folds into that entry, in stream order; the others are
+// kept in arrival order.  The set flushes when its `slots` arrivals are all
+// kept (the last one the trigger), else drains.  Returns the flush groups
+// (0 or 1); `drained` is the drain group's size.
+template <typename T, int OP>
+__device__ int walk_small_set(const WinSmem& sm, int start, int len, int slots, int& drained) {
+  int kept = 0;
+  for (int k = 0; k < len; ++k) {
+    const int ln = (int)(sm.keys[start + k] & kLaneMask);
+    const int x = sm.s_idx[ln];
+    int into = -1;
+    if (OP != kNone)
+      for (int j = 0; j < kept && into < 0; ++j)
+        if (sm.s_idx[sm.b_lane[start + j]] == x) into = sm.b_lane[start + j];
+    if (into < 0) {
+      sm.b_lane[start + kept++] = (uint16_t)ln;
+      continue;
+    }
+    sm.s_val[into] = to_bits(combine<T, OP>(from_bits<T>(sm.s_val[into]),
+                                            from_bits<T>(sm.s_val[ln])));
+    sm.mark[ln] = kFiltered;
+  }
+  const bool flush = kept == slots;
+  if (flush) sm.mark[sm.b_lane[start + slots - 1]] = kTrigger;
+  drained = flush ? 0 : kept;
+  return flush ? 1 : 0;
+}
+
+// One CTA per window of g.w lanes (the last one ragged).  The result of a
+// window equals ragged_oracle(hash_reorder_ref_banked, ...) of ref.py on it
+// (round_cap included), positions offset by the window's start.
+template <typename T, int OP>
+__global__ void __launch_bounds__(kWinThreads, 1)
+win_reorder(const int* idx, const uint32_t* val, const int* n_live, WinGeo g, int* out_idx,
+            uint32_t* out_val, int* out_pos, uint8_t* out_act) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int nhot, queue, parts_sh, survivors_sh, any_dense;
+  const int tid = threadIdx.x, lane = tid % kWarp, wid = tid / kWarp;
+  const long long base = (long long)blockIdx.x * g.w;
+  const int span = (int)min((long long)g.w, g.n - base);
+  const int m = (int)max(0LL, min((long long)span, live_count(n_live, g.n) - base));
+  if (m == 0) {  // a dead window is the identity layout
+    for (int j = tid; j < span; j += kWinThreads) {
+      out_idx[base + j] = idx[base + j];
+      out_val[base + j] = val[base + j];
+      out_pos[base + j] = (int)(base + j);
+      out_act[base + j] = 0;
+    }
+    return;
+  }
+  WinSmem sm;
+  win_carve(smem, g.w, g.num_sets, g.nparts, &sm);
+  const int S = g.num_sets, P = g.nparts;
+  for (int j = tid; j < m; j += kWinThreads) {
+    sm.s_idx[j] = idx[base + j];
+    sm.s_val[j] = val[base + j];
+    sm.mark[j] = kKept;
+  }
+  for (int s = tid; s < S; s += kWinThreads) sm.cnt[s] = sm.nflush[s] = sm.ndrain[s] = 0;
+  for (int p = tid; p <= P; p += kWinThreads) sm.pc[p] = sm.dense[p] = sm.heads[p] = 0;
+  if (tid == 0) {
+    nhot = queue = any_dense = 0;
+  }
+  __syncthreads();
+  for (int j = tid; j < m; j += kWinThreads)
+    atomicAdd(&sm.cnt[hash_set(sm.s_idx[j], g.epb, S)], 1);
+  __syncthreads();
+  for (int s = tid; s < S; s += kWinThreads)
+    if (sm.cnt[s]) atomicAdd(&sm.pc[s % P], sm.cnt[s]);
+  __syncthreads();
+  if (tid == 0) {  // the bank bypass: the window laid out as one partition
+    int parts = P, worst = 0;
+    for (int p = 0; p < P; ++p) worst = max(worst, sm.pc[p]);
+    if (P > 1 && worst > partition_capacity(m, P)) parts = 1;
+    parts_sh = parts;
+  }
+  __syncthreads();
+  const int parts = parts_sh, q = S / parts;
+  if (OP != kNone && g.round_cap > 0) {  // the round-cap fallback, by partition
+    const long long most = (long long)g.round_cap * g.slots;
+    for (int s = tid; s < S; s += kWinThreads)
+      if (sm.cnt[s] > most) {
+        sm.dense[s % parts] = 1;
+        any_dense = 1;
+      }
+  }
+  __syncthreads();
+  // bin: (partition, set within it, lane) keys, or (partition, index, lane)
+  // in a capped partition
+  const int n2 = pow2_ceil(m);
+  for (int j = tid; j < n2; j += kWinThreads) {
+    uint64_t key = ~0ull;
+    if (j < m) {
+      const int x = sm.s_idx[j], s = hash_set(x, g.epb, S), p = s % parts;
+      const uint64_t mid = sm.dense[p] ? (uint64_t)((uint32_t)x ^ 0x80000000u)
+                                       : (uint64_t)(s / parts);
+      key = (uint64_t)p << kPartShift | mid << kLaneBits | (uint64_t)j;
+    }
+    sm.keys[j] = key;
+  }
+  __syncthreads();
+  bitonic_sort(sm.keys, n2);
+  stretch_scan<kWinThreads>(
+      S, [&](int k) { return make_int2(sm.cnt[set_of_key(k, q, parts)], 0); },
+      [&](int k, int2 before, int2 x) {
+        sm.start[k] = before.x;
+        if (x.x > g.slots && !sm.dense[k / q]) sm.hot[atomicAdd(&nhot, 1)] = k;
+      });
+  if (tid == 0) sm.start[S] = m;
+  __syncthreads();
+  // walk the hash partitions' sets, the grain chosen from the histogram: a
+  // set of at most `slots` arrivals by one thread, a larger one by a warp
+  for (int k = tid; k < S; k += kWinThreads) {
+    const int len = sm.cnt[set_of_key(k, q, parts)];
+    if (len > 0 && len <= g.slots && !sm.dense[k / q])
+      sm.nflush[k] = walk_small_set<T, OP>(sm, sm.start[k], len, g.slots, sm.ndrain[k]);
+  }
+  uint32_t* ws = sm.walk + wid * 5 * kWarp;
+  const WalkScratch sh{ws, (int*)ws + kWarp, (int*)ws + 2 * kWarp, (int*)ws + 3 * kWarp,
+                       (int*)ws + 4 * kWarp};
+  for (;;) {
+    int i = lane == 0 ? atomicAdd(&queue, 1) : 0;
+    i = __shfl_sync(kFull, i, 0);
+    if (i >= nhot) break;
+    const int k = sm.hot[i];
+    const WindowSet src{sm.keys, sm.s_idx, sm.s_val, sm.b_lane, sm.mark, sm.start[k]};
+    int drained;
+    const int flushes =
+        walk_set<T, OP>(src, sm.cnt[set_of_key(k, q, parts)], g.slots, sh, drained);
+    if (lane == 0) {
+      sm.nflush[k] = flushes;
+      sm.ndrain[k] = drained;
+    }
+  }
+  // a capped partition (ref.dense_merge_ref): each run of equal indices
+  // folds into its first lane, in stream order
+  auto dense_head = [&](int r) {
+    const uint64_t key = sm.keys[r];
+    return sm.dense[key >> kPartShift] &&
+           (r == 0 || (sm.keys[r - 1] >> kLaneBits) != (key >> kLaneBits));
+  };
+  if (any_dense) {
+    for (int r = tid; r < m; r += kWinThreads) {
+      if (!dense_head(r)) continue;
+      const uint64_t key = sm.keys[r];
+      atomicAdd(&sm.heads[key >> kPartShift], 1);
+      const int head = (int)(key & kLaneMask);
+      T acc = from_bits<T>(sm.s_val[head]);
+      for (int r2 = r + 1; r2 < m && (sm.keys[r2] >> kLaneBits) == (key >> kLaneBits); ++r2) {
+        const int dup = (int)(sm.keys[r2] & kLaneMask);
+        sm.mark[dup] = kFiltered;
+        acc = combine<T, OP>(acc, from_bits<T>(sm.s_val[dup]));
+      }
+      sm.s_val[head] = to_bits(acc);
+    }
+  }
+  __syncthreads();
+  // drain offsets within each partition, and the partitions' fronts and tails
+  const int2 tot = stretch_scan<kWinThreads>(
+      S,
+      [&](int k) {
+        return sm.dense[k / q] ? make_int2(0, 0) : make_int2(sm.ndrain[k], sm.nflush[k]);
+      },
+      [&](int k, int2 before, int2) {
+        sm.drain_off[k] = before.x;
+        if (k % q == 0) {
+          sm.pd[k / q] = before.x;
+          sm.pf[k / q] = before.y;
+        }
+      });
+  if (tid == 0) {
+    sm.pd[parts] = tot.x;
+    sm.pf[parts] = tot.y;
+  }
+  __syncthreads();
+  for (int k = tid; k < S; k += kWinThreads) sm.drain_off[k] -= sm.pd[k / q];
+  if (tid == 0) {
+    int survivors = 0;
+    for (int p = 0; p < parts; ++p)
+      survivors += sm.dense[p] ? sm.heads[p]
+                               : (sm.pf[p + 1] - sm.pf[p]) * g.slots + sm.pd[p + 1] - sm.pd[p];
+    int front = 0, tail = 0, heads = 0;
+    for (int p = 0; p < parts; ++p) {
+      const int lanes = parts == 1 ? m : sm.pc[p];
+      const int kept = sm.dense[p]
+                           ? sm.heads[p]
+                           : (sm.pf[p + 1] - sm.pf[p]) * g.slots + sm.pd[p + 1] - sm.pd[p];
+      sm.pfront[p] = front;
+      sm.pfilt[p] = lanes - kept;
+      sm.ptail[p] = span - (m - survivors) + tail;
+      sm.phead[p] = heads;
+      front += kept;
+      tail += lanes - kept;
+      heads += sm.dense[p] ? sm.heads[p] : 0;
+    }
+    survivors_sh = survivors;
+  }
+  __syncthreads();
+  // a capped partition's survivors: its runs' first lanes, by index
+  if (any_dense)
+    stretch_scan<kWinThreads>(
+        m, [&](int r) { return make_int2(dense_head(r), 0); },
+        [&](int r, int2 before, int2 x) {
+          if (!x.x) return;
+          const uint64_t key = sm.keys[r];
+          const int p = (int)(key >> kPartShift), ln = (int)(key & kLaneMask);
+          const long long o = base + sm.pfront[p] + before.x - sm.phead[p];
+          out_idx[o] = sm.s_idx[ln];
+          out_val[o] = sm.s_val[ln];
+          out_pos[o] = (int)(base + ln);
+          out_act[o] = 1;
+        });
+  __syncthreads();  // the keys are free: the triggers' ranks take their place
+  int* trig_rank = reinterpret_cast<int*>(sm.keys);
+  // by partition, in stream order: each trigger's flush rank, and each
+  // filtered lane's tail slot (the first detected last)
+  for (int p = 0; p < parts; ++p)
+    stretch_scan<kWinThreads>(
+        m,
+        [&](int j) {
+          const uint8_t k = sm.mark[j];
+          if (k == kKept || (parts > 1 && hash_set(sm.s_idx[j], g.epb, S) % parts != p))
+            return make_int2(0, 0);
+          return make_int2(k == kTrigger, k == kFiltered);
+        },
+        [&](int j, int2 before, int2 x) {
+          if (x.x) trig_rank[j] = before.x;
+          if (x.y) {
+            const long long o = base + sm.ptail[p] + sm.pfilt[p] - 1 - before.y;
+            out_idx[o] = sm.s_idx[j];
+            out_val[o] = sm.s_val[j];
+            out_pos[o] = (int)(base + j);
+            out_act[o] = 0;
+          }
+        });
+  __syncthreads();
+  // the hash partitions' kept entries, one thread a binned slot
+  for (int r = tid; r < m; r += kWinThreads) {
+    int lo = 0, hi = S;  // last k with start[k] <= r
+    while (hi - lo > 1) {
+      const int mid = (lo + hi) / 2;
+      if (sm.start[mid] <= r) lo = mid; else hi = mid;
+    }
+    const int k = lo, p = k / q;
+    const int local = r - sm.start[k], nf = sm.nflush[k] * g.slots;
+    if (sm.dense[p] || local >= nf + sm.ndrain[k]) continue;
+    long long o = base + sm.pfront[p];
+    if (local < nf) {
+      const int trig = sm.b_lane[sm.start[k] + (local / g.slots) * g.slots + g.slots - 1];
+      o += (long long)trig_rank[trig] * g.slots + local % g.slots;
+    } else {
+      o += (long long)(sm.pf[p + 1] - sm.pf[p]) * g.slots + sm.drain_off[k] + (local - nf);
+    }
+    const int ln = sm.b_lane[r];
+    out_idx[o] = sm.s_idx[ln];
+    out_val[o] = sm.s_val[ln];
+    out_pos[o] = (int)(base + ln);
+    out_act[o] = 1;
+  }
+  // the dead lanes, between the fronts and the tails
+  for (int j = m + tid; j < span; j += kWinThreads) {
+    const long long o = base + survivors_sh + (j - m);
+    out_idx[o] = idx[base + j];
+    out_val[o] = val[base + j];
+    out_pos[o] = (int)(base + j);
+    out_act[o] = 0;
+  }
+}
+
+long long win_smem(int w, int num_sets, int nparts) {
+  return win_carve(nullptr, w, num_sets, nparts, nullptr);
+}
+
+template <typename T, int OP>
+int win_one(const int* idx, const uint32_t* val, const int* n_live, WinGeo g, int* out_idx,
+            uint32_t* out_val, int* out_pos, uint8_t* out_act, cudaStream_t st) {
+  const long long smem = win_smem(g.w, g.num_sets, g.nparts);
+  int e;
+  if ((e = (int)cudaFuncSetAttribute(win_reorder<T, OP>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
+    return e;
+  const long long windows = (g.n + g.w - 1) / g.w;
+  win_reorder<T, OP><<<(unsigned)windows, kWinThreads, (size_t)smem, st>>>(
+      idx, val, n_live, g, out_idx, out_val, out_pos, out_act);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int win_launch(int op, const int* idx, const uint32_t* val, const int* n_live, WinGeo g,
+               int* out_idx, uint32_t* out_val, int* out_pos, uint8_t* out_act, cudaStream_t st) {
+  switch (op) {
+    case kNone: return win_one<T, kNone>(idx, val, n_live, g, out_idx, out_val, out_pos, out_act, st);
+    case kAdd: return win_one<T, kAdd>(idx, val, n_live, g, out_idx, out_val, out_pos, out_act, st);
+    case kMin: return win_one<T, kMin>(idx, val, n_live, g, out_idx, out_val, out_pos, out_act, st);
+    case kMax: return win_one<T, kMax>(idx, val, n_live, g, out_idx, out_val, out_pos, out_act, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -705,28 +1301,29 @@ extern "C" {
 
 int iru_hash_reorder_max_sets(void) { return kMaxSets; }
 
-// bytes of the workspace iru_hash_reorder needs for n lanes and num_sets sets
-long long iru_hash_reorder_workspace(long long n, int num_sets) {
-  return carve(nullptr, n, num_sets, nullptr);
+// bytes of the workspace iru_hash_reorder needs for n lanes, num_sets sets
+// and nparts partitions
+long long iru_hash_reorder_workspace(long long n, int num_sets, int nparts) {
+  return carve(nullptr, n, num_sets, nparts, nullptr);
 }
 
 // dtype: 0 = float32, 1 = int32; op: 0 = none, 1 = add, 2 = min, 3 = max,
 // 4 = tagged (tag_table: ntags bytes on the device, nonzero = the add family;
-// null for other ops).
+// null for other ops).  nparts: partitions (num_sets % nparts == 0).
 // n_live: device pointer to one int32, or null for a padded stream.
 // Returns a cudaError_t code (0 on success).
 int iru_hash_reorder(const int* idx, const void* val, const int* n_live, const uint8_t* tag_table,
                      int ntags, int* out_idx, void* out_val, int* out_pos, uint8_t* out_act,
-                     void* workspace, long long n, int num_sets, int slots, int epb, int dtype,
-                     int op, void* stream) {
+                     void* workspace, long long n, int num_sets, int slots, int epb, int nparts,
+                     int dtype, int op, void* stream) {
   if (n <= 0) return 0;
   if (n >= INT_MAX || num_sets < 1 || num_sets > kMaxSets || slots < 1 || slots > kWarp ||
-      epb < 1 || op < kNone || op > kTagged ||
+      epb < 1 || nparts < 1 || num_sets % nparts != 0 || op < kNone || op > kTagged ||
       (op == kTagged) != (tag_table != nullptr && ntags > 0))
     return (int)cudaErrorInvalidValue;
   Work w;
-  carve((char*)workspace, n, num_sets, &w);
-  Geo g{n, num_sets, slots, epb, (int)((n + kChunk - 1) / kChunk),
+  carve((char*)workspace, n, num_sets, nparts, &w);
+  Geo g{n, num_sets, slots, epb, (int)((n + kChunk - 1) / kChunk), nparts,
         op == kTagged ? tag_table : nullptr, ntags};
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
@@ -735,6 +1332,42 @@ int iru_hash_reorder(const int* idx, const void* val, const int* n_live, const u
   if (dtype == 1)
     return run<int>(idx, (const int*)val, n_live, out_idx, (int*)out_val, out_pos, out_act, w,
                     g, op, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// bytes of shared memory the windowed body takes for a window of w lanes
+long long iru_win_reorder_smem(int w, int num_sets, int nparts) {
+  return win_smem(w, num_sets, nparts);
+}
+
+// bytes of shared memory a window's CTA may take
+long long iru_win_reorder_smem_limit(void) { return kWinMaxSmem; }
+
+// the largest window of the windowed body at this geometry (0: none)
+int iru_win_reorder_max_window(int num_sets, int nparts) {
+  int w = kMaxWindow;
+  while (w > 0 && win_smem(w, num_sets, nparts) > kWinMaxSmem) --w;
+  return w;
+}
+
+// The windowed body: independent windows of w lanes, one CTA each.  dtype
+// and n_live as above; op: 0-3; round_cap: 0 for none.  Payloads travel as
+// 32-bit words.
+int iru_win_reorder(const int* idx, const void* val, const int* n_live, int* out_idx,
+                    void* out_val, int* out_pos, uint8_t* out_act, long long n, int w,
+                    int num_sets, int slots, int epb, int nparts, int round_cap, int dtype, int op,
+                    void* stream) {
+  if (n <= 0) return 0;
+  if (n >= INT_MAX || w < 1 || w > kMaxWindow || num_sets < 1 || slots < 1 || slots > kWarp ||
+      epb < 1 || nparts < 1 || num_sets % nparts != 0 || round_cap < 0 || op < kNone ||
+      op > kMax || win_smem(w, num_sets, nparts) > kWinMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  const WinGeo g{n, w, num_sets, slots, epb, nparts, round_cap};
+  const uint32_t* v = (const uint32_t*)val;
+  uint32_t* ov = (uint32_t*)out_val;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0) return win_launch<float>(op, idx, v, n_live, g, out_idx, ov, out_pos, out_act, st);
+  if (dtype == 1) return win_launch<int>(op, idx, v, n_live, g, out_idx, ov, out_pos, out_act, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,14 +1,26 @@
 """Wrapper of kernel B3 (the IRU reordering hash): CUDA tensors launch the
-kernel, CPU tensors take the plain version (``batched.py``).
+kernel, CPU tensors take the plain versions (``batched.py``, ``banked.py``
+and the window loop ``core.iru._windowed_reorder``).
 
 Counterpart of ``repro.kernels.iru_reorder.ops.hash_reorder``.  The kernel
-carries the single-partition contract with ``n_live``: ``filter_op`` in
-{None, add, min, max, tagged} (tagged with a bool ``tag_table``, the fused
-min+add fold of the batched engine), an f32 or int32 ``[n]`` payload,
-``slots <= 32``.  On a CUDA tensor with ``kernels=True`` every other option
-raises, naming the slice that brings it; nothing quietly runs the plain
-version instead.  Launches count under ``iru_reorder`` or, tagged,
-``iru_reorder_tagged``.
+has two bodies:
+
+* the whole-stream body: ``filter_op`` in {None, add, min, max, tagged}
+  (tagged with a bool ``tag_table``, the fused min+add fold of the batched
+  engine), an f32 or int32 ``[n]`` payload, ``slots <= 32``, ``n_live``, and
+  ``n_partitions >= 1`` (the banked layout, its capacity bypass decided on
+  the device).  Launches count under ``iru_reorder_tagged`` when tagged,
+  else ``iru_reorder_banked`` with ``n_partitions > 1``, else
+  ``iru_reorder``;
+* the windowed body (``window_elems=w``): every window of ``w`` lanes in one
+  launch, one CTA a window, with ``n_partitions``, ``round_cap`` and
+  ``n_live``, for ``filter_op`` in {None, add, min, max}, f32 or int32
+  ``[n]`` payloads and ``slots <= 32``; ``w`` is bounded by the body's
+  shared memory (``_window_limit``).  Launches count under
+  ``iru_reorder_windowed``.
+
+On a CUDA tensor with ``kernels=True`` every other option raises, naming
+the slice that brings it; nothing quietly runs the plain version instead.
 """
 from __future__ import annotations
 
@@ -18,6 +30,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build, launch_counts
+from repro_torch.kernels.iru_reorder.banked import hash_reorder_banked
 from repro_torch.kernels.iru_reorder.batched import hash_reorder_batched
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -30,26 +43,53 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("iru_reorder")
     fn = lib.iru_hash_reorder
     fn.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _LL, _I, _I, _I,
-                   _I, _I, _P]
+                   _I, _I, _I, _P]
     fn.restype = _I
-    lib.iru_hash_reorder_workspace.argtypes = [_LL, _I]
+    lib.iru_hash_reorder_workspace.argtypes = [_LL, _I, _I]
     lib.iru_hash_reorder_workspace.restype = _LL
     lib.iru_hash_reorder_max_sets.restype = _I
+    win = lib.iru_win_reorder
+    win.argtypes = [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I,
+                    _I, _I, _P]
+    win.restype = _I
+    lib.iru_win_reorder_smem.argtypes = [_I, _I, _I]
+    lib.iru_win_reorder_smem.restype = _LL
+    lib.iru_win_reorder_smem_limit.restype = _LL
+    lib.iru_win_reorder_max_window.argtypes = [_I, _I]
+    lib.iru_win_reorder_max_window.restype = _I
     return lib
 
 
-def _refuse(secondary, *, num_sets, slots, epb, round_cap, n_live, tag_table,
-            device) -> None:
+def _window_limit(num_sets: int, n_partitions: int) -> tuple[int, int, int]:
+    """``(largest window, bytes of shared memory a window of it takes, bytes
+    a window's CTA may take)`` of B3's windowed body at this geometry."""
+    lib = _lib()
+    w = lib.iru_win_reorder_max_window(num_sets, n_partitions)
+    return (w, lib.iru_win_reorder_smem(w, num_sets, n_partitions),
+            lib.iru_win_reorder_smem_limit())
+
+
+def _refuse(secondary, *, num_sets, slots, epb, round_cap, n_partitions,
+            window_elems, n_live, tag_table, device) -> None:
     """What kernel B3 does not carry yet raises on CUDA."""
+    body = "B3's windowed body" if window_elems is not None else "kernel B3"
     if secondary.dim() != 1:
         raise NotImplementedError(
-            "kernel B3 carries [n] payloads only; [n, k] payloads come with "
-            "a later slice of the port; pass kernels=False for the plain "
-            "version")
-    if round_cap is not None:
+            f"{body} carries [n] payloads only; [n, k] payloads come with a "
+            f"later slice of the port (ROADMAP §B); pass kernels=False for "
+            f"the plain version")
+    if window_elems is not None and tag_table is not None:
         raise NotImplementedError(
-            "kernel B3 has no round_cap fallback yet (a later slice of the "
-            "port); pass kernels=False for the plain version")
+            "B3's windowed body has no tagged fold; tagged windows come with "
+            "a later slice of the port (ROADMAP §B); pass kernels=False for "
+            "the plain version")
+    if window_elems is None and round_cap is not None:
+        raise NotImplementedError(
+            "kernel B3 has no whole-stream round_cap fallback: a capped "
+            "partition of millions of lanes needs a sort plus B2, which "
+            "comes with a later slice of the port (ROADMAP §B); set "
+            "window_elems (the windowed body carries round_cap) or pass "
+            "kernels=False for the plain version")
     if slots > _WARP:
         raise NotImplementedError(
             f"kernel B3 keeps one slot per warp lane: slots={slots} > 32")
@@ -58,10 +98,24 @@ def _refuse(secondary, *, num_sets, slots, epb, round_cap, n_live, tag_table,
     if secondary.dtype not in _DTYPES:
         raise ValueError(f"kernel B3 takes float32 or int32 payloads, got "
                          f"{secondary.dtype}")
-    max_sets = _lib().iru_hash_reorder_max_sets()
-    if not 1 <= num_sets <= max_sets:
-        raise ValueError(f"kernel B3 takes 1 <= num_sets <= {max_sets}, "
-                         f"got {num_sets}")
+    if n_partitions < 1 or num_sets % n_partitions != 0:
+        raise ValueError(f"num_sets={num_sets} must divide evenly into "
+                         f"n_partitions={n_partitions}")
+    if window_elems is not None:
+        w_max, smem, limit = _window_limit(num_sets, n_partitions)
+        if not 1 <= window_elems <= w_max:
+            raise NotImplementedError(
+                f"window_elems={window_elems} is past B3's windowed body: at "
+                f"{num_sets} sets and {n_partitions} partitions a window "
+                f"holds at most {w_max} lanes ({smem} bytes of shared "
+                f"memory of the {limit} a block may use); larger windows "
+                f"come with a later slice of the port (ROADMAP §B); pass "
+                f"kernels=False for the plain version")
+    else:
+        max_sets = _lib().iru_hash_reorder_max_sets()
+        if not 1 <= num_sets <= max_sets:
+            raise ValueError(f"kernel B3 takes 1 <= num_sets <= {max_sets}, "
+                             f"got {num_sets}")
     if tag_table is not None and (tag_table.dim() != 1
                                   or tag_table.dtype != torch.bool
                                   or not 1 <= tag_table.numel() < 2**31):
@@ -83,23 +137,22 @@ def hash_reorder(
     filter_op: Optional[str] = None,
     round_cap: Optional[int] = None,
     n_partitions: int = 1,
+    window_elems: Optional[int] = None,
     n_live: torch.Tensor | int | None = None,
     tag_table: Optional[torch.Tensor] = None,
     kernels: bool = True,
 ):
     """Paper-faithful O(n) bounded reorder.  Returns an ``IRUStream``.
 
-    ``n_live`` (a 0-d tensor or int, never a shape) selects ragged
-    execution; the kernel reads it from device memory, so no host sync.
-    ``kernels=False`` runs the plain version on any device (the plain path
-    a card run is held against).
+    ``n_partitions > 1`` is the banked geometry (partition-major emission),
+    ``window_elems`` reorders independent windows of that many lanes (the
+    last one ragged).  ``n_live`` (a 0-d tensor or int, never a shape)
+    selects ragged execution; the kernel reads it from device memory, so no
+    host sync.  ``kernels=False`` runs the plain version on any device (the
+    plain path a card run is held against).
     """
     from repro_torch.core.iru import IRUStream  # late: core imports us
 
-    if n_partitions > 1:
-        raise NotImplementedError(
-            "n_partitions > 1 (the banked hash engine) comes with a later "
-            "slice of the port")
     if filter_op not in _OPS:
         raise ValueError(f"unknown filter op {filter_op!r}")
     if (filter_op == "tagged") != (tag_table is not None):
@@ -109,47 +162,97 @@ def hash_reorder(
     if secondary is None:
         secondary = torch.zeros(n, dtype=torch.float32, device=indices.device)
     if not (kernels and indices.is_cuda):
-        return IRUStream(*hash_reorder_batched(
-            indices, secondary, num_sets=num_sets, slots=slots,
-            elem_bytes=elem_bytes, block_bytes=block_bytes,
-            filter_op=filter_op, round_cap=round_cap, n_live=n_live,
-            tag_table=tag_table))
+        kw = dict(num_sets=num_sets, slots=slots, filter_op=filter_op,
+                  round_cap=round_cap)
+        if window_elems is not None:
+            from repro_torch.core.iru import IRUConfig, _windowed_reorder
+
+            cfg = IRUConfig(mode="hash", target_elem_bytes=elem_bytes,
+                            block_bytes=block_bytes, n_partitions=n_partitions,
+                            n_banks=1, window_elems=window_elems, **kw)
+            return _windowed_reorder(indices, secondary, cfg, n_live,
+                                     tag_table, kernels=False)
+        kw.update(elem_bytes=elem_bytes, block_bytes=block_bytes,
+                  n_live=n_live, tag_table=tag_table)
+        if n_partitions > 1:
+            return IRUStream(*hash_reorder_banked(
+                indices, secondary, n_partitions=n_partitions, **kw))
+        return IRUStream(*hash_reorder_batched(indices, secondary, **kw))
     epb = block_bytes // elem_bytes
     _refuse(secondary, num_sets=num_sets, slots=slots, epb=epb,
-            round_cap=round_cap, n_live=n_live, tag_table=tag_table,
+            round_cap=round_cap, n_partitions=n_partitions,
+            window_elems=window_elems, n_live=n_live, tag_table=tag_table,
             device=indices.device)
+    if window_elems is not None:
+        return IRUStream(*_launch_windowed(
+            indices, secondary, window_elems, num_sets, slots, epb,
+            n_partitions, round_cap, filter_op, n_live))
     return IRUStream(*_launch(indices, secondary, num_sets, slots, epb,
-                              filter_op, n_live, tag_table))
+                              n_partitions, filter_op, n_live, tag_table))
 
 
-def _launch(indices, secondary, num_sets, slots, epb, filter_op, n_live,
-            tag_table):
+def _outputs(indices, sec):
+    n = indices.shape[0]
+    dev = indices.device
+    return (torch.empty(n, dtype=torch.int32, device=dev),
+            torch.empty_like(sec),
+            torch.empty(n, dtype=torch.int32, device=dev),
+            torch.empty(n, dtype=torch.bool, device=dev))
+
+
+def _live(n_live, dev):
+    if n_live is None:
+        return None
+    return torch.as_tensor(n_live, device=dev).to(torch.int32).reshape(())
+
+
+def _launch_windowed(indices, secondary, w, num_sets, slots, epb,
+                     n_partitions, round_cap, filter_op, n_live):
     dev = indices.device
     n = indices.shape[0]
     idx = indices.contiguous()
     sec = secondary.contiguous()
-    out_idx = torch.empty(n, dtype=torch.int32, device=dev)
-    out_sec = torch.empty_like(sec)
-    out_pos = torch.empty(n, dtype=torch.int32, device=dev)
-    out_act = torch.empty(n, dtype=torch.bool, device=dev)
+    out = _outputs(idx, sec)
     if n == 0:
-        return out_idx, out_sec, out_pos, out_act
-    live = None
-    if n_live is not None:
-        live = torch.as_tensor(n_live, device=dev).to(torch.int32).reshape(())
+        return out
+    live = _live(n_live, dev)
+    lib = _lib()
+    code = lib.iru_win_reorder(
+        idx.data_ptr(), sec.data_ptr(),
+        None if live is None else live.data_ptr(),
+        *(o.data_ptr() for o in out), n, w, num_sets, slots, epb,
+        n_partitions, 0 if round_cap is None else min(round_cap, 2**31 - 1),
+        _DTYPES[sec.dtype], _OPS[filter_op],
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, code, "iru_reorder windowed")
+    launch_counts["iru_reorder_windowed"] += 1
+    return out
+
+
+def _launch(indices, secondary, num_sets, slots, epb, n_partitions,
+            filter_op, n_live, tag_table):
+    dev = indices.device
+    n = indices.shape[0]
+    idx = indices.contiguous()
+    sec = secondary.contiguous()
+    out = _outputs(idx, sec)
+    if n == 0:
+        return out
+    live = _live(n_live, dev)
     tags = None if tag_table is None else tag_table.contiguous()
     lib = _lib()
-    work = torch.empty(lib.iru_hash_reorder_workspace(n, num_sets),
+    work = torch.empty(lib.iru_hash_reorder_workspace(n, num_sets,
+                                                      n_partitions),
                        dtype=torch.uint8, device=dev)
     code = lib.iru_hash_reorder(
         idx.data_ptr(), sec.data_ptr(), None if live is None else
         live.data_ptr(), None if tags is None else tags.data_ptr(),
-        0 if tags is None else tags.numel(), out_idx.data_ptr(),
-        out_sec.data_ptr(), out_pos.data_ptr(), out_act.data_ptr(),
-        work.data_ptr(), n, num_sets,
-        slots, epb, _DTYPES[sec.dtype], _OPS[filter_op],
+        0 if tags is None else tags.numel(),
+        *(o.data_ptr() for o in out), work.data_ptr(), n, num_sets, slots,
+        epb, n_partitions, _DTYPES[sec.dtype], _OPS[filter_op],
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, code, "iru_reorder")
-    launch_counts["iru_reorder_tagged" if filter_op == "tagged"
-                  else "iru_reorder"] += 1
-    return out_idx, out_sec, out_pos, out_act
+    launch_counts["iru_reorder_tagged" if filter_op == "tagged" else
+                  "iru_reorder_banked" if n_partitions > 1 else
+                  "iru_reorder"] += 1
+    return out

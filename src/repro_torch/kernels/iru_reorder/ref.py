@@ -25,8 +25,12 @@ Semantics (paper §3.2-3.3):
 its batch-parallel twin (same outputs, fp add order included);
 ``hash_reorder_ref_flat`` adds the ``round_cap`` dense fallback
 (``dense_merge_ref``, decided by ``max_round_bound``); ``ragged_oracle``
-composes any of them with the ``n_live`` layout.  The banked and MoE oracles
-come with the slices that port those engines.
+composes any of them with the ``n_live`` layout.  ``hash_reorder_ref_banked``
+is the partitioned unit (paper §3.2: sets striped as ``set % n_partitions``,
+each partition's sub-stream reordered on its own with its own round-cap
+decision, partition-major emission, and the ``partition_capacity`` bypass
+through the flat oracle).  The MoE oracle comes with the slice that ports
+MoE dispatch.
 """
 from __future__ import annotations
 
@@ -282,6 +286,21 @@ def hash_reorder_ref_vec(
 # ---------------------------------------------------------------------------
 
 
+def partition_capacity(n: int, n_partitions: int) -> int:
+    """Static per-partition bank capacity for an n-element stream.
+
+    A balanced hash sends ~``n / P`` elements to each partition; the bank
+    buffer carries 25% headroom (at least 64 lanes) so benign skew never
+    trips the bypass.  Shared by the numpy oracle and the JAX banked engine
+    so the capacity-overflow decision is part of the semantics, not a
+    per-engine heuristic.
+    """
+    if n_partitions <= 1:
+        return n
+    per = -(-n // n_partitions)
+    return min(n, per + max(64, per // 4))
+
+
 def max_round_bound(
     indices: np.ndarray, *, num_sets: int, slots: int,
     elem_bytes: int = 4, block_bytes: int = 128,
@@ -436,3 +455,48 @@ def ragged_oracle(
         out_sec[n - t :] = osec[m - t :]
         out_pos[n - t :] = opos[m - t :]
     return out_idx, out_sec, out_pos, out_act
+
+
+def hash_reorder_ref_banked(
+    indices: np.ndarray,
+    secondary: np.ndarray,
+    *,
+    num_sets: int = 1024,
+    slots: int = 32,
+    elem_bytes: int = 4,
+    block_bytes: int = 128,
+    filter_op: str | None = None,
+    n_partitions: int = 4,
+    round_cap: int | None = None,
+):
+    """Partitioned oracle: ``set % n_partitions`` sharding, partition-major
+    emission, per-partition round-cap fallback, capacity bypass."""
+    indices = np.asarray(indices, np.int32)
+    secondary = np.asarray(secondary)
+    n = indices.shape[0]
+
+    def flat(idx, sec):
+        return hash_reorder_ref_flat(
+            idx, sec, num_sets=num_sets, slots=slots, elem_bytes=elem_bytes,
+            block_bytes=block_bytes, filter_op=filter_op, round_cap=round_cap)
+
+    if n_partitions <= 1 or n == 0:
+        return flat(indices, secondary)
+
+    epb = block_bytes // elem_bytes
+    part = hash_set(indices // np.int32(epb), num_sets) % n_partitions
+    counts = np.bincount(part, minlength=n_partitions)
+    if counts.max() > partition_capacity(n, n_partitions):
+        return flat(indices, secondary)          # bank capacity bypass
+
+    fronts, tails = [], []
+    for p in range(n_partitions):
+        sel = np.flatnonzero(part == p).astype(np.int32)
+        oi, osec, opos, oact = flat(indices[sel], secondary[sel])
+        opos = sel[opos]                          # local -> global positions
+        m = int(oact.sum())
+        fronts.append((oi[:m], osec[:m], opos[:m], oact[:m]))
+        tails.append((oi[m:], osec[m:], opos[m:], oact[m:]))
+    parts = fronts + tails
+    return tuple(np.concatenate([q[i] for q in parts], axis=0)
+                 for i in range(4))

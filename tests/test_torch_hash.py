@@ -197,9 +197,17 @@ def test_wrapper_takes_the_plain_version_on_the_cpu():
 
 
 def test_wrapper_refuses_banked_and_unknown_ops():
+    """The banked engine, once refused here, now runs its plain version
+    (``tests/test_torch_banked.py`` holds it against the reference); a
+    geometry that does not split over the partitions is refused."""
     idx = torch.arange(16, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="banked"):
-        ops.hash_reorder(idx, n_partitions=4)
+    banked = ops.hash_reorder(idx, n_partitions=4)
+    want = tref.hash_reorder_ref_banked(idx.numpy(), np.zeros(16, np.float32),
+                                        n_partitions=4)
+    for got, ref_field in zip(banked, want):
+        assert np.array_equal(got.numpy(), ref_field)
+    with pytest.raises(ValueError, match="n_partitions"):
+        ops.hash_reorder(idx, num_sets=30, n_partitions=4)
     with pytest.raises(ValueError, match="filter op"):
         ops.hash_reorder(idx, filter_op="mul")
     with pytest.raises(ValueError, match="tag_table"):

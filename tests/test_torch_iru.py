@@ -10,6 +10,7 @@ plain scatter reduction.
 """
 from __future__ import annotations
 
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -106,9 +107,18 @@ def test_merged_scatters_match_reference(fn):
     pytest.param(dict(window_elems=64), id="cfg2"),
     pytest.param(dict(mode="hash", window_elems=64), id="hash-window")])
 def test_later_slice_features_raise(cfg):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        iru.iru_reorder(torch.arange(8, dtype=torch.int32),
-                        config=iru.IRUConfig(**cfg))
+    """Streaming windows, once refused here for a later slice, now run: the
+    result is each 64-lane window reordered on its own, positions offset by
+    the window's start (``tests/test_torch_streaming.py`` holds them against
+    the reference)."""
+    rng = np.random.default_rng(2)
+    idx = t(rng.integers(0, 50, 150).astype(np.int32))
+    got = iru.iru_reorder(idx, config=iru.IRUConfig(**cfg))
+    whole = dataclasses.replace(iru.IRUConfig(**cfg), window_elems=None)
+    for s0 in range(0, 150, 64):
+        part = iru.iru_reorder(idx[s0:s0 + 64], config=whole)
+        assert torch.equal(got.indices[s0:s0 + 64], part.indices)
+        assert torch.equal(got.positions[s0:s0 + 64], part.positions + s0)
 
 
 @pytest.mark.parametrize("op", [None, "add", "min", "max"])
@@ -176,8 +186,11 @@ def test_tag_table_rules():
 
 
 @pytest.mark.parametrize("bad", [dict(round_cap=0), dict(num_sets=0),
-                                 dict(slots=0)])
+                                 dict(slots=0), dict(num_sets=1023),
+                                 dict(num_sets=30, n_partitions=4)])
 def test_config_checks(bad):
+    """As the reference: the default ``n_banks=2`` rejects an odd
+    ``num_sets``, which must split evenly into partitions x banks."""
     with pytest.raises(ValueError):
         iru.IRUConfig(**bad)
 

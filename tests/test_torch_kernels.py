@@ -413,3 +413,166 @@ def test_serving_engine_kernels_match_plain(cuda, mode):
         else:
             assert np.array_equal(a.result, b.result)
             assert np.array_equal(a.result, eng.solo_reference(a))
+
+
+def _same_set_stream(length, rng, *, num_sets, sets=1):
+    """Indices of ``4 * sets`` blocks that hash to ``sets`` sets (at most
+    four distinct blocks a set), shuffled: hot sets with long duplicate
+    runs, the round-cap and bank-bypass trips."""
+    blocks, b = [], 0
+    while len(blocks) < 4 * sets:
+        if int(hash_ref.hash_set(np.asarray(b), num_sets)) < sets:
+            blocks.append(b)
+        b += 1
+    return (rng.choice(np.asarray(blocks), length) * 32
+            + rng.integers(0, 32, length)).astype(np.int32)
+
+
+def _geo_stream(kind, length, rng, num_sets):
+    if kind == "one_set":
+        return _same_set_stream(length, rng, num_sets=num_sets)
+    if kind == "two_sets":
+        return _same_set_stream(length, rng, num_sets=num_sets, sets=2)
+    return _hash_stream(kind, length, rng)
+
+
+def _check_stream(got, plain, oracle, op, dtype):
+    """Exact against the oracle (payloads too: the kernel folds in stream
+    order, like the oracle); against the plain version exact but for float
+    add (rtol 1e-5, see the module docstring)."""
+    for k, field in enumerate(("indices", "secondary", "positions",
+                               "active")):
+        g = getattr(got, field)
+        assert np.array_equal(g.cpu().numpy(), oracle[k]), field
+        if field == "secondary" and op == "add" and dtype == "float32":
+            torch.testing.assert_close(g, plain.secondary, rtol=1e-5,
+                                       atol=1e-6)
+        else:
+            assert torch.equal(g, getattr(plain, field)), field
+
+
+# (geometry, stream, length, window): ragged last windows, n <= w (one
+# window), the paper's 8192-lane window, hot and one-set windows
+WINDOW_CASES = [((1024, 32), "wide", 20_000, 8192),
+                ((1024, 32), "kron", 65_536, 8192),
+                ((1024, 32), "wide", 3000, 8192),
+                ((1024, 32), "hot", 5000, 1000),
+                ((1024, 32), "one_set", 20_000, 4096),
+                ((16, 4), "wide", 3000, 256),
+                ((16, 4), "hot", 3000, 333),
+                ((16, 4), "two_sets", 4000, 512),
+                ((8, 2), "lanes", 3000, 1024)]
+
+
+@pytest.mark.parametrize("geometry,kind,length,w", WINDOW_CASES)
+@pytest.mark.parametrize("n_partitions", [1, 2, 4])
+@pytest.mark.parametrize("live", [None, 0, "part", "all"])
+@pytest.mark.parametrize("op,dtype,cap", [
+    ("add", "float32", None), ("add", "float32", "trip"),
+    ("min", "int32", "no_trip"), ("min", "int32", "trip"),
+    ("max", "float32", None), (None, "float32", "trip")])
+def test_windowed_body_matches_oracle_and_plain(cuda, geometry, kind, length,
+                                                w, n_partitions, live, op,
+                                                dtype, cap):
+    """B3's windowed body, every window against the numpy oracle (the
+    banked, cap-aware ``hash_ref`` of ``core.iru``) and the whole stream
+    against the plain window loop (``kernels=False``), in one launch."""
+    from repro_torch.core import iru
+
+    num_sets, slots = geometry
+    if num_sets % n_partitions:
+        pytest.skip("the geometry does not split over the partitions")
+    rng = np.random.default_rng(length + w + n_partitions)
+    idx = _geo_stream(kind, length, rng, num_sets)
+    vals = (rng.uniform(0.0, 1.0, length).astype(np.float32)
+            if dtype == "float32"
+            else rng.integers(-1000, 1000, length).astype(np.int32))
+    m = {None: length, 0: 0, "part": length * 3 // 5, "all": length}[live]
+    round_cap = {None: None, "trip": 2, "no_trip": 64}[cap]
+    cfg = iru.IRUConfig(mode="hash", num_sets=num_sets, slots=slots,
+                        n_partitions=n_partitions, n_banks=1, filter_op=op,
+                        round_cap=round_cap, window_elems=w)
+    n_live = (None if live is None
+              else torch.tensor(m, dtype=torch.int32, device=cuda))
+    before = dict(launch_counts)
+    got = iru.iru_reorder(t(idx, cuda), t(vals, cuda), config=cfg,
+                          n_live=n_live)
+    torch.cuda.synchronize()
+    assert launch_counts["iru_reorder_windowed"] == before.get(
+        "iru_reorder_windowed", 0) + 1
+    assert launch_counts["iru_reorder"] == before.get("iru_reorder", 0)
+    plain = iru.iru_reorder(t(idx, cuda), t(vals, cuda), config=cfg,
+                            n_live=n_live, kernels=False)
+    oracle = iru._hash_ref_host(idx, vals, cfg, None if live is None else m)
+    _check_stream(got, plain, oracle, op, dtype)
+
+
+BANKED_CASES = [((1024, 32), "wide", 20_000), ((1024, 32), "kron", 65_536),
+                ((1024, 32), "one_set", 20_000), ((1024, 32), "hot", 3000),
+                ((16, 4), "wide", 3000), ((16, 4), "two_sets", 3000),
+                ((8, 2), "lanes", 3000)]
+
+
+@pytest.mark.parametrize("geometry,kind,length", BANKED_CASES)
+@pytest.mark.parametrize("n_partitions", [2, 4])
+@pytest.mark.parametrize("live", [None, 0, "part"])
+@pytest.mark.parametrize("op,dtype", [("add", "float32"), ("min", "int32"),
+                                      ("max", "float32"), (None, "float32")])
+def test_banked_b3_matches_oracle_and_plain(cuda, geometry, kind, length,
+                                            n_partitions, live, op, dtype):
+    """Whole-stream B3 with the banked layout (its bypass decided on the
+    device) against ``ref.hash_reorder_ref_banked`` and the banked plain
+    version."""
+    num_sets, slots = geometry
+    if num_sets % n_partitions:
+        pytest.skip("the geometry does not split over the partitions")
+    rng = np.random.default_rng(length + 3 * n_partitions)
+    idx = _geo_stream(kind, length, rng, num_sets)
+    vals = (rng.uniform(0.0, 1.0, length).astype(np.float32)
+            if dtype == "float32"
+            else rng.integers(-1000, 1000, length).astype(np.int32))
+    m = {None: length, 0: 0, "part": length * 2 // 3}[live]
+    n_live = (None if live is None
+              else torch.tensor(m, dtype=torch.int32, device=cuda))
+    kw = dict(num_sets=num_sets, slots=slots, filter_op=op,
+              n_partitions=n_partitions, n_live=n_live)
+    before = dict(launch_counts)
+    got = hash_ops.hash_reorder(t(idx, cuda), t(vals, cuda), **kw)
+    torch.cuda.synchronize()
+    assert launch_counts["iru_reorder_banked"] == before.get(
+        "iru_reorder_banked", 0) + 1
+    assert launch_counts["iru_reorder"] == before.get("iru_reorder", 0)
+    plain = hash_ops.hash_reorder(t(idx, cuda), t(vals, cuda), kernels=False,
+                                  **kw)
+    oracle = hash_ref.ragged_oracle(
+        hash_ref.hash_reorder_ref_banked, idx, vals, m, num_sets=num_sets,
+        slots=slots, filter_op=op, n_partitions=n_partitions)
+    _check_stream(got, plain, oracle, op, dtype)
+
+
+@pytest.mark.parametrize("kw,err", [
+    (dict(window_elems=256, payload="2d"), NotImplementedError),
+    (dict(window_elems=256, filter_op="tagged", tag_table="bool"),
+     NotImplementedError),
+    (dict(window_elems=8193), NotImplementedError),
+    (dict(window_elems=8192, num_sets=8192, n_partitions=8),
+     NotImplementedError),
+    (dict(n_partitions=4, filter_op="min", round_cap=64),
+     NotImplementedError),
+    (dict(num_sets=30, n_partitions=4), ValueError),
+    (dict(window_elems=256, num_sets=30, n_partitions=4), ValueError),
+])
+def test_b3_bodies_refuse_what_they_lack(cuda, kw, err):
+    """Each refusal names the slice that brings it; nothing launches."""
+    kw = dict(kw)
+    idx = torch.arange(64, dtype=torch.int32, device=cuda)
+    vals = (torch.zeros(64, 2, device=cuda) if kw.pop("payload", None)
+            else torch.zeros(64, device=cuda))
+    if kw.get("tag_table") == "bool":
+        kw["tag_table"] = torch.zeros(66, dtype=torch.bool, device=cuda)
+    before = dict(launch_counts)
+    with pytest.raises(err) as info:
+        hash_ops.hash_reorder(idx, vals, **kw)
+    if err is NotImplementedError:
+        assert "slice" in str(info.value)
+    assert launch_counts == before
