@@ -58,7 +58,32 @@ Phases, in order (any failure exits non-zero and prints no result line):
                20 iterations.  The launch counts of each run are zeroed before
                it and read after it; a kernel of the path with no launch
                fails the run;
-  5. serving -- 12 queries (4 BFS, 4 SSSP, 4 PPR of 20 iterations, seeded
+  5. figures -- the paper's evaluation path.  (a) The figure harness
+               (repro_torch.figures) at its own scale (DATASET_KW): all 18
+               cells (BFS, SSSP, PageRank x six datasets) with the IRU traces
+               taken by the host apps through reorder_frontier with IRU_HASH
+               on the card (kernel B3's windowed body, one launch a
+               reorder), each held against the same cell through the numpy
+               oracle (engine="hash_ref"): every event's indices, active
+               mask and atomic flag and iru_elements equal, BFS/SSSP results
+               equal, PageRank bit for bit (else its largest difference is
+               printed and rtol 1e-6 holds); then the six figure drivers'
+               rows (Figs. 4, 11-15), per cell and MEAN: cost-model counts
+               of a GTX 980 model over traces taken on this card.  (b)
+               Figs. 14 and 15 at the size of the graphs the datasets
+               imitate (ca 1024^2, cond 40k, delaunay-1024, human 22k,
+               kron-20, msdoor 75^3), BFS/SSSP/PageRank (5 iterations)
+               through FrontierPipeline.run_instrumented in baseline and
+               with IRU_HASH (B1, B3 windowed; at least one launch a step,
+               B3 exactly one), each event reduced on the card as it
+               arrives: accesses per warp, improvement, filtered fraction,
+               trace wall seconds; each run equals the same pipeline's run()
+               (PageRank rtol 1e-5), the two modes agree, and on kron-20 and
+               delaunay-1024 BFS/SSSP equal the host oracles.  (c) bfs_jit
+               on both graphs against the BFS oracle exactly, and
+               pagerank_jit(use_iru=True) on kron-20 (20 iterations, B2
+               once an iteration) within rtol 1e-4, atol 1e-7 of it;
+  6. serving -- 12 queries (4 BFS, 4 SSSP, 4 PPR of 20 iterations, seeded
                sources of nonzero degree) through GraphServingEngine on
                tile_csr(kron-20, 8) with the default GraphServeConfig (8
                slots, so four queries wait): fused baseline (B1 and the
@@ -77,12 +102,12 @@ Phases, in order (any failure exits non-zero and prints no result line):
                stream and n_live of the tick with the fewest (B3's plain
                version takes time in proportion to live lanes times width),
                and B2's call on that tick is profiled kernel by kernel;
-  6. timings -- CUDA-event times after a warm-up for each kernel, its plain
+  7. timings -- CUDA-event times after a warm-up for each kernel, its plain
                version and one library call computing the same function (B2
                tagged and B3 have none), the bound (bytes over the card's
                3.35 TB/s), at PageRank's shape; B1 also at a BFS level's
                shape (the gappy quarter-node expansion) beside index_select;
-  7. profile -- device time by kernel and the device's busy share over short
+  8. profile -- device time by kernel and the device's busy share over short
                windows of PageRank on kron-20 (sort and hash), SSSP on
                delaunay-1024, three serving ticks (fused sort and fused
                hash), and B2's and B3's kernels in one call each at
@@ -455,6 +480,298 @@ def phase_apps(graphs, oracles):
               f"{f' (first {depth} iterations)' if depth else ''}, launches "
               f"{counts}, {kernel_pipe.n_hops} bucket hops, host oracle "
               f"agrees")
+    return totals
+
+
+# The paper's evaluation at the size users run: each generator at the size
+# of the graph it imitates (a name: that graph of make_graphs).
+FULL_SIZE = (("ca", dict(scale=1024), "roadNet-CA"),
+             ("cond", dict(n=40_000), "cond-mat-2005"),
+             ("delaunay", "delaunay1024", "delaunay_n20"),
+             ("human", dict(n=22_000), "human_gene1"),
+             ("kron", "kron20", "kron_g500-logn20"),
+             ("msdoor", dict(scale=75), "msdoor"))
+FIG_ROWS = {  # figure module -> the per-cell keys it prints
+    "fig4_overhead": ("iru_service_frac", "normalized_total"),
+    "fig11_accesses": ("l1_ratio", "l2_ratio"),
+    "fig12_noc": ("noc_ratio",),
+    "fig13_perf_energy": ("speedup", "energy_ratio"),
+    "fig14_coalescing": ("baseline_acc_per_warp", "iru_acc_per_warp",
+                         "improvement"),
+    "fig15_filter": ("filtered_frac",),
+}
+
+
+def same_trace(got, want) -> bool:
+    """Two TraceRecorders hold the same events and IRU element count."""
+    if got.iru_elements != want.iru_elements or len(got.events) != len(
+            want.events):
+        return False
+    for (gi, ga, gat), (wi, wa, wat) in zip(got.events, want.events):
+        if not (gi.dtype == wi.dtype and np.array_equal(gi, wi)
+                and np.array_equal(ga, wa) and gat == wat):
+            return False
+    return True
+
+
+def figures_at_harness_scale(dev):
+    """Part (a): all 18 cells of the figure harness (DATASET_KW) with the IRU
+    traces taken through kernel B3's windowed body (engine="hash"), each
+    held against the same cell through the numpy oracle (engine="hash_ref"),
+    then the six figures' rows.  Returns the launch counts."""
+    import importlib
+    import tempfile
+
+    from repro_torch.apps.trace import TraceRecorder
+    from repro_torch.figures import common
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    totals = {}
+    t0 = time.perf_counter()
+    for algo in common.ALGOS:
+        for ds in common.DATASET_KW:
+            g = common.make_dataset(ds, device=dev, **common.dataset_kw(ds))
+            rec, ref = TraceRecorder(), TraceRecorder()
+            reset_launch_counts()
+            got, secs = wall_s(lambda: common._run(algo, g, "iru", rec,
+                                                   engine="hash", device=dev))
+            counts = dict(launch_counts)
+            want = common._run(algo, g, "iru", ref, engine="hash_ref",
+                               device=dev)
+            check(counts.get("iru_reorder_windowed", 0) == len(rec.events),
+                  f"figure cell {algo}/{ds}: one B3 windowed launch a "
+                  f"reorder ({counts} for {len(rec.events)} events)")
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+            check(same_trace(rec, ref), f"figure cell {algo}/{ds}: the B3 "
+                  f"trace equals the oracle's (events, active, atomic, "
+                  f"iru_elements)")
+            note = "equal"
+            if algo == "pr" and not np.array_equal(got.view(np.int32),
+                                                   want.view(np.int32)):
+                diff = float(np.abs(got.astype(np.float64) - want).max())
+                note = f"max abs diff {diff:.3g} (rtol 1e-6)"
+                check(np.allclose(got, want, rtol=1e-6, atol=0.0),
+                      f"figure cell pr/{ds}: within rtol 1e-6 of the oracle")
+            elif algo != "pr":
+                check(np.array_equal(got, want),
+                      f"figure cell {algo}/{ds}: result equals the oracle's")
+            lanes = sum(len(i) for i, _, _ in rec.events)
+            print(f"figure cell {algo:4s} {ds:8s}: {g.n_nodes} nodes, "
+                  f"{g.n_edges} edges; B3 trace {len(rec.events)} events, "
+                  f"{lanes} lanes, {secs:.3f} s, launches {counts}; equal "
+                  f"to the hash_ref trace, result {note}")
+    t_traces = time.perf_counter() - t0
+    kept = common.RESULTS
+    with tempfile.TemporaryDirectory() as cache:
+        common.RESULTS = cache  # a fresh cache: every cell runs on the card
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            rows = {fig: importlib.import_module(
+                f"repro_torch.figures.{fig}").run(engine="hash", device=dev)
+                for fig in FIG_ROWS}
+        finally:
+            common.RESULTS = kept
+        t_rows = time.perf_counter() - t0
+    for k, v in launch_counts.items():
+        totals[k] = totals.get(k, 0) + v
+    check(launch_counts.get("iru_reorder_windowed", 0) > 0,
+          "the figure drivers' IRU traces launched B3's windowed body")
+    cells = {}
+    for fig, keys in FIG_ROWS.items():
+        for r in rows[fig]:
+            if not r["algo"].startswith("MEAN"):
+                cells.setdefault((r["algo"], r["dataset"]), []).append(
+                    f"{fig.split('_')[0]} " + " ".join(
+                        f"{k} {r[k]}" for k in keys))
+    for (algo, ds), parts in cells.items():
+        print(f"figure row {algo:4s} {ds:8s}: " + "; ".join(parts))
+    for fig, keys in FIG_ROWS.items():
+        for r in rows[fig]:
+            if r["algo"].startswith("MEAN"):
+                print(f"figure {fig} {r['algo']}: " + ", ".join(
+                    f"{k} {r[k]}" for k in keys))
+    print(f"figures (a): cost-model counts of a GTX 980 model over traces "
+          f"taken on this card, not measurements of it; traces and oracle "
+          f"checks {t_traces:.1f} s, the six drivers {t_rows:.1f} s")
+    return totals
+
+
+class CountingRecorder:
+    """A TraceRecorder that reduces each event on the card as it arrives
+    (Fig. 14's requests and warps, Fig. 15's lanes and active lanes) and
+    drops it: a full-size trace kept whole would not fit the host."""
+
+    def __init__(self):
+        self.requests = self.warps = self.lanes = self.active = 0
+        self.events = self.iru_elements = 0
+
+    def access(self, indices, active=None, atomic: bool = False) -> None:
+        from repro_torch.core.coalescing import accesses_per_group
+
+        per = accesses_per_group(indices, active)
+        act = (torch.ones_like(indices, dtype=torch.bool) if active is None
+               else active)
+        req, warps, live = torch.stack([per.sum(), (per > 0).sum(),
+                                        act.sum()]).tolist()
+        self.requests += req
+        self.warps += warps
+        self.active += live
+        self.lanes += indices.numel()
+        self.events += 1
+
+    def processed(self, n: int) -> None:
+        self.iru_elements += int(n)
+
+    @property
+    def per_warp(self) -> float:
+        return self.requests / max(self.warps, 1)
+
+
+def figures_at_full_size(graphs, oracles, dev):
+    """Part (b): Figs. 14 and 15 on the six datasets at the size of the
+    graphs they imitate, traced through FrontierPipeline.run_instrumented
+    (B1, and with IRU_HASH B3's windowed body) and counted on the card.
+    Returns the launch counts."""
+    from repro_torch.apps.bfs import BFS_APP
+    from repro_torch.apps.pagerank import pagerank_app
+    from repro_torch.apps.sssp import SSSP_APP
+    from repro_torch.core import CapacityPolicy, FrontierPipeline, IRUConfig
+    from repro_torch.figures.common import geomean
+    from repro_torch.graphs.generators import make_dataset
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    policy = CapacityPolicy(n_buckets=3)
+    cfg = IRUConfig(**IRU_HASH)
+    apps = (("bfs", lambda: BFS_APP, None), ("sssp", lambda: SSSP_APP, None),
+            ("pr", lambda: pagerank_app(5), 5))
+    totals, improvement, filtered = {}, {}, {}
+    for ds, kw, imitates in FULL_SIZE:
+        t0 = time.perf_counter()
+        own = isinstance(kw, str)
+        g = graphs[kw] if own else make_dataset(ds, device=dev, **kw)
+        t_gen = time.perf_counter() - t0
+        for algo, app, iters in apps:
+            recs, res, walls, launched = {}, {}, {}, {}
+            for mode in ("baseline", "hash"):
+                pipe = FrontierPipeline(g, app(), mode=mode,
+                                        iru_config=cfg if mode == "hash"
+                                        else None, capacity_policy=policy,
+                                        max_iters=iters, device=dev)
+                rec = CountingRecorder()
+                reset_launch_counts()
+                res[mode], walls[mode] = wall_s(
+                    lambda: pipe.run_instrumented(0, recorder=rec))
+                counts = dict(launch_counts)
+                for k, v in counts.items():
+                    totals[k] = totals.get(k, 0) + v
+                path = ("coalesced_gather",) + (
+                    ("iru_reorder_windowed",) if mode == "hash" else ())
+                for k in path:
+                    check(counts.get(k, 0) >= rec.events,
+                          f"figure {algo}/{ds} {mode}: {k} launched at least "
+                          f"once a step ({counts}, {rec.events} steps)")
+                if mode == "hash":
+                    check(counts.get("iru_reorder_windowed", 0) == rec.events,
+                          f"figure {algo}/{ds}: one B3 windowed launch a step")
+                    check(rec.iru_elements == rec.lanes,
+                          f"figure {algo}/{ds}: iru_elements equals the "
+                          f"steps' live edges")
+                whole = pipe.run(0)
+                if algo == "pr":
+                    check(torch.allclose(res[mode], whole, rtol=1e-5,
+                                         atol=0.0),
+                          f"figure pr/{ds} {mode}: instrumented within rtol "
+                          f"1e-5 of run()")
+                else:
+                    check(torch.equal(res[mode], whole),
+                          f"figure {algo}/{ds} {mode}: instrumented equals "
+                          f"run()")
+                recs[mode], launched[mode] = rec, counts
+            base, iru = recs["baseline"], recs["hash"]
+            check(base.lanes == iru.lanes and base.events == iru.events,
+                  f"figure {algo}/{ds}: the IRU trace has the baseline's "
+                  f"steps and lanes")
+            if algo == "pr":
+                check(torch.allclose(res["hash"], res["baseline"], rtol=1e-5,
+                                     atol=0.0),
+                      f"figure pr/{ds}: hash within rtol 1e-5 of baseline")
+            else:
+                check(torch.equal(res["hash"], res["baseline"]),
+                      f"figure {algo}/{ds}: hash equals baseline")
+                if own:
+                    host = host_oracle(oracles, algo, kw, g)
+                    check(torch.equal(res["hash"], host),
+                          f"figure {algo}/{ds}: equals the host oracle")
+            imp = base.per_warp / max(iru.per_warp, 1e-9)
+            frac = 1.0 - iru.active / max(iru.lanes, 1)
+            improvement[algo, ds], filtered[algo, ds] = imp, frac
+            print(f"figure full {algo:4s} {ds:8s} ({imitates}): "
+                  f"{g.n_nodes} nodes, {g.n_edges} edges, {iru.events} "
+                  f"iterations; accesses per warp baseline "
+                  f"{base.per_warp:.4f}, IRU {iru.per_warp:.4f}, improvement"
+                  f" {imp:.4f}, filtered {frac:.4f}; trace wall baseline "
+                  f"{walls['baseline']:.3f} s, IRU {walls['hash']:.3f} s; "
+                  f"launches baseline {launched['baseline']}, IRU "
+                  f"{launched['hash']}"
+                  + (f"; graph built in {t_gen:.1f} s" if algo == "bfs"
+                     else ""))
+    merged = [v for (a, _), v in improvement.items() if a != "bfs"]
+    print(f"figure full fig14 MEAN: improvement geomean "
+          f"{geomean(list(improvement.values())):.4f} over all 18 cells, "
+          f"{geomean(merged):.4f} over SSSP and PageRank")
+    print(f"figure full fig15 MEAN: filtered "
+          f"{np.mean([v for (a, _), v in filtered.items() if a != 'bfs']):.4f}"
+          f" over SSSP and PageRank")
+    print("figures (b): measured from traces taken on this card; the "
+          "pipeline's BFS merges duplicate destinations (filter_op='min'), "
+          "the harness's host BFS does not, so (b)'s BFS rows are not "
+          "comparable cell by cell with (a)'s")
+    return totals
+
+
+def phase_figures(graphs, oracles):
+    """The paper's evaluation path: (a) the six figure drivers at their own
+    scale with B3's traces held against the oracle's, (b) Figs. 14 and 15
+    at full size through the instrumented pipeline, (c) the dense
+    whole-run apps.  Returns the launch counts."""
+    from repro_torch.apps.bfs import bfs_jit
+    from repro_torch.apps.pagerank import pagerank_jit
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    dev = graphs["kron20"].device
+    t0 = time.perf_counter()
+    totals = figures_at_harness_scale(dev)
+    t_a = time.perf_counter() - t0
+    for k, v in figures_at_full_size(graphs, oracles, dev).items():
+        totals[k] = totals.get(k, 0) + v
+    t_b = time.perf_counter() - t0 - t_a
+    for gname in ("kron20", "delaunay1024"):
+        g = graphs[gname]
+        label, secs = wall_s(lambda: bfs_jit(g, 0, device=dev))
+        check(torch.equal(label, host_oracle(oracles, "bfs", gname, g)),
+              f"bfs_jit on {gname} equals the host oracle")
+        print(f"bfs_jit {gname}: {secs:.3f} s, equals the host oracle")
+    g = graphs["kron20"]
+    reset_launch_counts()
+    rank, secs = wall_s(lambda: pagerank_jit(
+        g.edge_sources(), g.col_idx, g.degrees(), g.n_nodes, iters=20,
+        use_iru=True, device=dev))
+    counts = dict(launch_counts)
+    check(counts.get("segment_merge", 0) >= 20,
+          f"pagerank_jit launched B2 once an iteration ({counts})")
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
+    host = host_oracle(oracles, "pagerank", "kron20", g, 20)
+    check(torch.allclose(rank, host, rtol=1e-4, atol=1e-7),
+          "pagerank_jit (use_iru) within rtol 1e-4, atol 1e-7 of the host "
+          "oracle")
+    print(f"pagerank_jit kron20 (20 iterations, use_iru): {secs:.3f} s, "
+          f"launches {counts}, max abs diff from the host oracle "
+          f"{max_abs_err(rank, host):.3g}")
+    print(f"phase figures: (a) {t_a:.1f} s, (b) {t_b:.1f} s, total "
+          f"{time.perf_counter() - t0:.1f} s")
     return totals
 
 
@@ -1169,6 +1486,8 @@ def main() -> int:
     oracles = {}
     win_launches, win_errors, win_rows = phase_windowed(graphs, oracles)
     launches = phase_apps(graphs, oracles)
+    for k, v in phase_figures(graphs, oracles).items():
+        launches[k] = launches.get(k, 0) + v
     served, serving_errors = phase_serving(graphs["kron20"])
     for k, v in served.items():
         launches[k] = launches.get(k, 0) + v

@@ -1,8 +1,11 @@
 """Single-Source Shortest Paths, workfront Bellman-Ford (paper Fig. 9).
 
-Counterpart of ``repro.apps.sssp``: ``SSSP_APP`` is the min-merged
-relaxation scatter with an improved-distance frontier; ``sssp`` is a numpy
-copy of the reference's host oracle.
+Counterpart of ``repro.apps.sssp``.  The irregular access is
+``atomicMin(&label[edge], weight)``; the IRU merges duplicate destinations
+with min at insert time, so merged-out lanes never issue their atomic.
+``sssp`` is the host (numpy) parity oracle, with the IRU's reorder in
+``"iru"`` mode; ``SSSP_APP`` is the min-merged relaxation scatter with an
+improved-distance frontier for ``core.pipeline.FrontierPipeline``.
 """
 from __future__ import annotations
 
@@ -11,7 +14,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core.iru import IRUConfig
+from repro_torch.apps.trace import TraceRecorder
+from repro_torch.core.iru import IRUConfig, reorder_frontier
 from repro_torch.core.pipeline import (CapacityPolicy, FrontierApp,
                                        FrontierPipeline)
 from repro_torch.graphs.csr import CSRGraph
@@ -29,15 +33,24 @@ def _expand_offsets(row_ptr: np.ndarray, frontier: np.ndarray) -> np.ndarray:
         np.arange(total) - np.repeat(np.cumsum(counts) - counts, counts))
 
 
-def sssp(graph: CSRGraph, source: int = 0, *,
-         max_rounds: int = 10_000) -> np.ndarray:
-    """Host (numpy) workfront Bellman-Ford; float32 distances."""
+def sssp(graph: CSRGraph, source: int = 0, *, mode: str = "baseline",
+         iru_config: Optional[IRUConfig] = None,
+         recorder: Optional[TraceRecorder] = None, max_rounds: int = 10_000,
+         device: str | torch.device | None = None) -> np.ndarray:
+    """Host (numpy) workfront Bellman-Ford; float32 distances.
+
+    ``mode="iru"`` reorders and min-merges each round's relaxations through
+    ``reorder_frontier(config=iru_config)`` on ``device`` (the card when
+    None; ``hash_ref`` stays on the host) and records the merged atomicMin
+    stream.
+    """
     row_ptr = graph.row_ptr.cpu().numpy()
     col_idx = graph.col_idx.cpu().numpy()
     weights = graph.weights.cpu().numpy().astype(np.float32)
     dist = np.full(graph.n_nodes, INF, np.float32)
     dist[source] = 0.0
     frontier = np.array([source], np.int32)
+    cfg = iru_config or IRUConfig(filter_op="min")
     rounds = 0
     while frontier.size and rounds < max_rounds:
         rounds += 1
@@ -48,9 +61,21 @@ def sssp(graph: CSRGraph, source: int = 0, *,
         srcs = np.repeat(frontier, counts)
         dsts = col_idx[offs]
         cand = dist[srcs] + weights[offs]
+        if mode == "iru":
+            sidx, scand, _, sact = reorder_frontier(dsts, cand, config=cfg,
+                                                    device=device)
+            if recorder is not None:
+                recorder.processed(dsts.size)
+                recorder.access(sidx, sact, atomic=True)  # merged atomicMin
+            sidx, scand = sidx[sact], scand[sact]
+        else:
+            sidx, scand = dsts, cand
+            if recorder is not None:
+                recorder.access(sidx, atomic=True)
+        # atomicMin relaxation; next frontier = nodes whose distance dropped
         old = dist.copy()
-        np.minimum.at(dist, dsts, cand)
-        frontier = np.unique(dsts[dist[dsts] < old[dsts]]).astype(np.int32)
+        np.minimum.at(dist, sidx, scand)
+        frontier = np.unique(sidx[dist[sidx] < old[sidx]]).astype(np.int32)
     return dist
 
 
@@ -85,6 +110,7 @@ SSSP_APP = FrontierApp(
     update=_sssp_update,
     cond=lambda state, mask: mask.any(),
     result=lambda state: state["dist"],
+    atomic=True,
     needs_weights=True,
 )
 
@@ -96,6 +122,7 @@ def sssp_pipeline(
     mode: str = "baseline",
     iru_config: Optional[IRUConfig] = None,
     capacity_policy: Optional[CapacityPolicy] = None,
+    recorder: Optional[TraceRecorder] = None,
     max_rounds: int = 10_000,
     device: str | torch.device | None = None,
     **pipeline_kw,
@@ -103,10 +130,13 @@ def sssp_pipeline(
     """Workfront Bellman-Ford through ``FrontierPipeline``.
 
     ``mode`` is the pipeline's reorder stage: ``"baseline"``, ``"sort"`` or
-    ``"hash"`` (the paper's IRU hash, kernel B3 on the card).
+    ``"hash"`` (the paper's IRU hash, kernel B3 on the card).  With a
+    ``recorder`` the run is ``run_instrumented``.
     """
     pipe = FrontierPipeline(graph, SSSP_APP, mode=mode, iru_config=iru_config,
                             capacity_policy=capacity_policy,
                             max_iters=max_rounds, device=device,
                             **pipeline_kw)
+    if recorder is not None:
+        return pipe.run_instrumented(source, recorder=recorder)
     return pipe.run(source)

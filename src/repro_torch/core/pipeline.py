@@ -226,6 +226,9 @@ class FrontierApp:
     * ``update(state, new_target, graph)`` -> ``(state, mask)``;
     * ``cond(state, mask)`` -> bool 0-d tensor: keep iterating?
     * ``result(state)`` -> the app's output tensor;
+    * ``atomic``: whether the recorded irregular access is an atomic
+      (SSSP/PR scatters) or a plain load (BFS label lookups); only
+      :meth:`FrontierPipeline.run_instrumented` reads it;
     * ``needs_weights``: expansion co-gathers edge weights into ``ef.weights``;
     * ``tag_table(state, graph)`` (required iff ``filter_op == "tagged"``)
       -> bool ``[n_nodes + 1]``: each destination index's merge family
@@ -242,6 +245,7 @@ class FrontierApp:
                      tuple[State, torch.Tensor]]
     cond: Callable[[State, torch.Tensor], torch.Tensor]
     result: Callable[[State], torch.Tensor]
+    atomic: bool = True
     needs_weights: bool = False
     tag_table: Optional[Callable[[State, CSRGraph], torch.Tensor]] = None
 
@@ -387,3 +391,31 @@ class FrontierPipeline:
                 return StepResult(state, mask, out[2], out[3], out[4],
                                   out[5], True, b)
             b += 1
+
+    def run_instrumented(self, source: int = 0, *,
+                         recorder=None) -> torch.Tensor:
+        """Host-stepped traversal that feeds a ``apps.trace.TraceRecorder``
+        one event a step: the single instrumentation point for baseline,
+        sort and hash measurement.
+
+        Every step goes through :meth:`step`, so its rung is the smallest
+        that fits that step's frontier (``run``'s down-hop hysteresis is not
+        kept, as in the reference).  Each event is cropped to the real
+        lanes, so it carries exactly the accesses the traversal issues
+        (capacity padding is free), and hands the recorder tensors on the
+        pipeline's device with the app's access kind (``app.atomic``);
+        outside ``baseline`` the step's live edge count goes to
+        ``recorder.processed``.
+        """
+        state, mask = self.init(source)
+        it = 0
+        while it < self.max_iters and bool(self.app.cond(state, mask)):
+            r = self.step(state, mask)
+            state, mask = r.state, r.mask
+            it += 1
+            if recorder is not None:
+                if self.mode != "baseline":
+                    recorder.processed(int(r.n_edges))
+                recorder.access(r.idx[r.real], r.act[r.real],
+                                atomic=self.app.atomic)
+        return self.app.result(state)

@@ -111,6 +111,40 @@ print("ok")
     assert r.stdout.strip() == "ok"
 
 
+def test_figure_harness_runs_without_jax_or_repro(tmp_path):
+    """The figure slice (generators, host apps with a recorder, the
+    instrumented pipeline, the coalescing counts, the cost model and one
+    harness cell) on the CPU, with ``jax`` and ``repro`` blocked; the cell's
+    cache goes to ``tmp_path``."""
+    code = f"""
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import torch
+from repro_torch.apps import BFS_APP, TraceRecorder, bfs_jit, pagerank_jit
+from repro_torch.core import FrontierPipeline
+from repro_torch.figures import common, fig15_filter
+common.RESULTS = {str(tmp_path)!r}
+common.set_quick(True)
+cell = common.run_pair("sssp", "kron", engine="hash_ref", device="cpu")
+assert cell["iru"]["iru_elements"] > 0 and 0 < cell["filtered_frac"] < 1
+g = common.make_dataset("kron", scale=6, device="cpu")
+rec = TraceRecorder()
+label = FrontierPipeline(g, BFS_APP, mode="hash", device="cpu"
+                         ).run_instrumented(0, recorder=rec)
+assert torch.equal(label, bfs_jit(g, 0, device="cpu")) and rec.events
+rank = pagerank_jit(g.edge_sources(), g.col_idx, g.degrees(), g.n_nodes,
+                    iters=3, device="cpu")
+assert bool(torch.isfinite(rank).all())
+print("ok")
+"""
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+    assert [p.name for p in tmp_path.iterdir()] == [
+        "sssp__kron__hash_ref__quick.json"]
+
+
 def test_entry_points_need_cuda_unless_cpu_is_asked():
     code = """
 import torch
@@ -119,14 +153,20 @@ from repro_torch.apps import (bfs_pipeline, pagerank_pipeline, ppr_pipeline,
 from repro_torch.core import FrontierPipeline
 from repro_torch.serve import GraphServingEngine
 from repro_torch.apps.bfs import BFS_APP
-from repro_torch.graphs.generators import kron
+from repro_torch.graphs.generators import kron, make_dataset
+from repro_torch.apps import bfs, bfs_jit, pagerank_jit
+from repro_torch.figures.common import run_pair
 assert not torch.cuda.is_available()
 g = kron(scale=6, device="cpu")
 calls = [lambda: FrontierPipeline(g, BFS_APP), lambda: bfs_pipeline(g),
          lambda: FrontierPipeline(g, BFS_APP, mode="hash"),
          lambda: sssp_pipeline(g), lambda: pagerank_pipeline(g, iters=2),
          lambda: ppr_pipeline(g, iters=2), lambda: GraphServingEngine(g),
-         lambda: kron(scale=4)]
+         lambda: kron(scale=4), lambda: make_dataset("human", n=100),
+         lambda: bfs(g, 0, mode="iru"), lambda: bfs_jit(g),
+         lambda: pagerank_jit(g.edge_sources(), g.col_idx, g.degrees(),
+                              g.n_nodes, iters=1),
+         lambda: run_pair("bfs", "kron", force=True)]
 for call in calls:
     try:
         call()
