@@ -102,12 +102,38 @@ Phases, in order (any failure exits non-zero and prints no result line):
                stream and n_live of the tick with the fewest (B3's plain
                version takes time in proportion to live lanes times width),
                and B2's call on that tick is profiled kernel by kernel;
-  7. timings -- CUDA-event times after a warm-up for each kernel, its plain
+  7. partitioned -- the edge-partitioned pipeline (repro_torch.dist): four
+               shards of one graph held on the card and stepped in turn,
+               kernels B1, B2 and B3 launched per shard, the boundary
+               exchange between scatter and update.  On partition_csr(
+               kron-20, 4), BFS, SSSP and PageRank (20 iterations) in
+               baseline, sort and hash mode, each with the exact codec and
+               with compress=True (BFS: flag, PageRank: int8_ef, SSSP stays
+               exact), and PageRank once with IRU_HASH (B3's windowed body
+               per shard): BFS and SSSP equal the single-device pipeline of
+               the same mode and the host oracle bit for bit, PageRank is
+               within rtol = atol = 1e-4 of single-device with the exact
+               codec (and rtol 1e-4 with atol 0) and 2e-3 with int8_ef (the
+               reference's tolerances; max abs, max relative and L1 relative
+               errors printed).  BFS on partition_csr(delaunay-1024, 4) in
+               hash mode with compress=True under a 3-rung CapacityPolicy,
+               bit-identical, hopping rungs.  Then the 12-query serving mix
+               through the engine on partition_csr(tile_csr(kron-20, 8), 4)
+               in fused hash and fused sort, and on the same composite at
+               P=3 in fused hash (P=4 puts whole tenants on each shard, P=3
+               cuts two of them, so the tagged exchange runs): BFS/SSSP
+               equal phase 6's single-device run of the same mode, PPR
+               within rtol 1e-5 of it.  Each line prints supersteps, bucket
+               hops, wall seconds beside single-device, boundary bytes per
+               superstep (raw and on the wire) and each shard's launches,
+               every one of which must include the kernels its mode needs;
+               each partition's build seconds and device bytes are printed;
+  8. timings -- CUDA-event times after a warm-up for each kernel, its plain
                version and one library call computing the same function (B2
                tagged and B3 have none), the bound (bytes over the card's
                3.35 TB/s), at PageRank's shape; B1 also at a BFS level's
                shape (the gappy quarter-node expansion) beside index_select;
-  8. profile -- device time by kernel and the device's busy share over short
+  9. profile -- device time by kernel and the device's busy share over short
                windows of PageRank on kron-20 (sort and hash), SSSP on
                delaunay-1024, three serving ticks (fused sort and fused
                hash), and B2's and B3's kernels in one call each at
@@ -908,8 +934,9 @@ def phase_serving_kernels(view, g):
 def phase_serving(g):
     """Multi-tenant serving on tile_csr(kron-20, 8) in five runs (see the
     module docstring), then the tagged kernels on a serving tick's streams.
-    Returns the launch counts summed over the five runs and the tagged
-    kernels' largest errors there."""
+    Returns the launch counts summed over the five runs, the tagged
+    kernels' largest errors there and the fused sort and hash runs'
+    queries."""
     from repro_torch.apps import bfs, sssp
     from repro_torch.graphs.csr import tile_csr
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -985,12 +1012,246 @@ def phase_serving(g):
     print("serving: every query done; BFS/SSSP equal solo runs (and the "
           "host oracles), PPR within rtol 1e-5 of solo; fused sort equals "
           "its plain twin")
+    fused = {k: results[k] for k in ("fused sort", "fused hash")}
     del results, qs
     torch.cuda.empty_cache()
     errors = phase_serving_kernels(view, g)
     del view
     torch.cuda.empty_cache()
-    return totals, errors
+    return totals, errors, fused
+
+
+# the kernels a partitioned run must launch on every shard, by mode
+SHARD_PATH = {"baseline": ("coalesced_gather",),
+              "sort": ("coalesced_gather", "segment_merge"),
+              "hash": ("coalesced_gather", "iru_reorder"),
+              "IRU_HASH": ("coalesced_gather", "iru_reorder_windowed"),
+              "fused sort": ("coalesced_gather", "segment_merge_tagged"),
+              "fused hash": ("coalesced_gather", "iru_reorder_tagged")}
+
+
+class ShardLaunches:
+    """Launch counts split by shard: wraps the partitioned superstep's
+    per-shard ``frontier_scatter`` and charges each call's new launches to
+    its shard (shards numbered in the order first seen)."""
+
+    def __init__(self):
+        from repro_torch.dist import graph_partition
+        from repro_torch.kernels import launch_counts
+
+        self.module, self.counts = graph_partition, launch_counts
+        self.scatter = graph_partition.frontier_scatter
+        self.shard: dict[int, int] = {}
+        self.per_shard: list[dict] = []
+
+    def __enter__(self):
+        def spy(g, *args, **kw):
+            before = dict(self.counts)
+            out = self.scatter(g, *args, **kw)
+            if id(g) not in self.shard:
+                self.shard[id(g)] = len(self.per_shard)
+                self.per_shard.append({})
+            mine = self.per_shard[self.shard[id(g)]]
+            for k, v in self.counts.items():
+                if v != before.get(k, 0):
+                    mine[k] = mine.get(k, 0) + v - before.get(k, 0)
+            return out
+
+        self.module.frontier_scatter = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module.frontier_scatter = self.scatter
+
+    def check(self, need, n_parts: int, what: str) -> list[dict]:
+        check(len(self.per_shard) == n_parts,
+              f"{what}: {len(self.per_shard)} of {n_parts} shards stepped")
+        for p, counts in enumerate(self.per_shard):
+            for k in need:
+                check(counts.get(k, 0) > 0,
+                      f"{what}: shard {p} launched {k}")
+        return self.per_shard
+
+
+def build_partition(g, n_parts: int, label: str):
+    from repro_torch.graphs.csr import partition_csr
+
+    out, t_build = wall_s(lambda: partition_csr(g, n_parts))
+    part = getattr(out, "part", out)
+    print(f"partition {label} P={n_parts}: built on the card in "
+          f"{t_build:.3f} s, {part.nbytes() / 2**30:.3f} GiB on the device; "
+          f"block {part.block}, ghost_cap {part.ghost_cap}, lane_cap "
+          f"{part.lane_cap}, edge_cap {part.edge_cap}")
+    return out
+
+
+def phase_partitioned(graphs, oracles, served):
+    """The edge-partitioned pipeline and partitioned serving, every shard on
+    the card, stepped in turn (see the module docstring).  ``served`` maps
+    phase 6's fused serving labels to their queries, the single-device
+    results partitioned serving must equal.  Returns the launch counts."""
+    from repro_torch.apps.bfs import BFS_APP
+    from repro_torch.apps.pagerank import pagerank_app
+    from repro_torch.apps.sssp import SSSP_APP
+    from repro_torch.core import CapacityPolicy, FrontierPipeline, IRUConfig
+    from repro_torch.dist import (PartitionedFrontierPipeline,
+                                  partitioned_bfs_app,
+                                  partitioned_pagerank_app,
+                                  partitioned_sssp_app)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    totals: dict = {}
+
+    def count(what, shards, need, n_parts):
+        counts = shards.check(need, n_parts, what)
+        for k, v in launch_counts.items():
+            totals[k] = totals.get(k, 0) + v
+        return counts
+
+    g = graphs["kron20"]
+    part = build_partition(g, 4, "kron20")
+    apps = {"bfs": (BFS_APP, partitioned_bfs_app, {}),
+            "sssp": (SSSP_APP, partitioned_sssp_app, {}),
+            "pagerank": (pagerank_app(20), partitioned_pagerank_app,
+                         {"iters": 20})}
+    runs = [(name, mode, compress) for name in apps
+            for mode in ("baseline", "sort", "hash")
+            for compress in (False, True)] + [("pagerank", "IRU_HASH", False)]
+    single = {}
+    for name, mode, compress in runs:
+        app, make, kw = apps[name]
+        cfg = IRUConfig(**IRU_HASH) if mode == "IRU_HASH" else None
+        pmode = "hash" if mode == "IRU_HASH" else mode
+        iters = kw.get("iters")
+        if (name, mode) not in single:
+            single[(name, mode)] = wall_s(lambda: FrontierPipeline(
+                g, app, mode=pmode, iru_config=cfg, max_iters=iters).run(0))
+        want, t_single = single[(name, mode)]
+        pipe = PartitionedFrontierPipeline(
+            part, make(part, **kw), mode=pmode, iru_config=cfg,
+            compress=compress, max_iters=iters)
+        reset_launch_counts()
+        with ShardLaunches() as shards:
+            got, wall = wall_s(lambda: pipe.run(0))
+        what = (f"partitioned kron20 {name} {mode} compress={compress} "
+                f"(codec {pipe.codec})")
+        shard_counts = count(what, shards, SHARD_PATH[mode], 4)
+        extra = ""
+        if name == "pagerank":
+            tol = 2e-3 if pipe.codec == "int8_ef" else 1e-4
+            err = (got - want).abs()
+            rel = rel_err(got.cpu().numpy(), want.cpu().numpy())
+            l1 = (err.sum() / want.abs().sum()).item()
+            check(torch.allclose(got, want, rtol=tol, atol=tol),
+                  f"{what}: within rtol = atol = {tol} of single-device")
+            if pipe.codec == "exact":
+                check(torch.allclose(got, want, rtol=tol, atol=0.0),
+                      f"{what}: within rtol {tol} (atol 0) of single-device")
+            check(bool(torch.isfinite(got).all()), f"{what}: finite ranks")
+            extra = (f"; against single-device max abs err "
+                     f"{err.max().item():.3g}, max rel err {rel:.3g}, L1 "
+                     f"rel err {l1:.3g} (mean rank {1 / g.n_nodes:.3g})")
+        else:
+            check(torch.equal(got, want), f"{what}: equals single-device")
+            check(torch.equal(got, host_oracle(oracles, name, "kron20", g)),
+                  f"{what}: equals the host oracle")
+            extra = "; equals single-device and the host oracle"
+        traffic = pipe.boundary_traffic()
+        print(f"{what}: {pipe.supersteps} supersteps, {pipe.n_hops} hops, "
+              f"{wall:.3f} s (single-device {t_single:.3f} s), boundary "
+              f"raw {traffic['raw_bytes_per_superstep']} B / wire "
+              f"{traffic['wire_bytes_per_superstep']} B per superstep, "
+              f"launches per shard {shard_counts}{extra}")
+    del single
+    torch.cuda.empty_cache()
+
+    # delaunay-1024: a thousand supersteps hopping the rungs
+    gd = graphs["delaunay1024"]
+    dpart = build_partition(gd, 4, "delaunay1024")
+    policy = CapacityPolicy(n_buckets=3)
+    want, t_single = wall_s(lambda: FrontierPipeline(
+        gd, BFS_APP, mode="hash", capacity_policy=policy).run(0))
+    pipe = PartitionedFrontierPipeline(
+        dpart, partitioned_bfs_app(dpart), mode="hash", compress=True,
+        capacity_policy=policy)
+    reset_launch_counts()
+    with ShardLaunches() as shards:
+        got, wall = wall_s(lambda: pipe.run(0))
+    what = "partitioned delaunay1024 bfs hash compress=True (codec flag)"
+    shard_counts = count(what, shards, SHARD_PATH["hash"], 4)
+    check(torch.equal(got, want), f"{what}: equals single-device")
+    check(torch.equal(got, host_oracle(oracles, "bfs", "delaunay1024", gd)),
+          f"{what}: equals the host oracle")
+    check(pipe.n_hops > 1, f"{what}: hopped rungs ({pipe.n_hops} hops)")
+    traffic = pipe.boundary_traffic()
+    print(f"{what} (3-rung CapacityPolicy): {pipe.supersteps} supersteps, "
+          f"{pipe.n_hops} hops, {wall:.3f} s (single-device "
+          f"{t_single:.3f} s), boundary raw "
+          f"{traffic['raw_bytes_per_superstep']} B / wire "
+          f"{traffic['wire_bytes_per_superstep']} B per superstep, "
+          f"launches per shard {shard_counts}; equals single-device and the "
+          f"host oracle")
+    del dpart, pipe, got, want
+    torch.cuda.empty_cache()
+
+    # P = 4 puts two whole tenants on each shard (no boundary lanes); P = 3
+    # cuts tenants 2 and 5, so the tagged exchange runs as well
+    from repro_torch.graphs.csr import tile_csr
+
+    view = tile_csr(g, 8)
+    for n_parts, labels in ((4, ("fused hash", "fused sort")),
+                            (3, ("fused hash",))):
+        pview = build_partition(view, n_parts, "tile_csr(kron20, 8)")
+        for label in labels:
+            for k, v in phase_partitioned_serving(
+                    g, pview, label, served[label]).items():
+                totals[k] = totals.get(k, 0) + v
+        del pview
+        torch.cuda.empty_cache()
+    return totals
+
+
+def phase_partitioned_serving(g, pview, label, solo_qs):
+    """The 12-query mix through the engine on ``pview``, a partitioned
+    ``tile_csr(kron-20, 8)``, held against phase 6's single-device run of
+    the same fused mode (``solo_qs``).  Returns the run's launch counts."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import GraphServeConfig, GraphServingEngine
+
+    n_parts = pview.n_parts
+    eng = GraphServingEngine(pview, GraphServeConfig(
+        mode=label.split()[-1]))
+    qs = serving_queries(g)
+    for q in qs:
+        eng.submit(q)
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with ShardLaunches() as shards:
+        _, wall = wall_s(lambda: eng.run_to_completion(1000))
+    what = f"partitioned serving {label} P={n_parts}"
+    shard_counts = shards.check(SHARD_PATH[label], n_parts, what)
+    counts = dict(launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    worst = 0.0
+    for q, solo in zip(qs, solo_qs):
+        check(q.status == "done", f"{what}: query {q.qid} ({q.kind}) done, "
+              f"got {q.status} ({q.error})")
+        if q.kind == "ppr":
+            worst = max(worst, rel_err(q.result, solo.result))
+            check(np.allclose(q.result, solo.result, rtol=1e-5, atol=0.0),
+                  f"{what}: ppr {q.qid} within rtol 1e-5 of single-device "
+                  f"(max relative error {rel_err(q.result, solo.result):.3g})")
+        else:
+            check(np.array_equal(q.result, solo.result),
+                  f"{what}: {q.kind} {q.qid} equals single-device")
+    print(f"{what}: {len(qs)} queries in {wall:.3f} s ({len(qs) / wall:.4g} "
+          f"queries/s), {eng.tick_no} ticks, {eng.overflow_events} overflow "
+          f"events, lane_cap {pview.part.lane_cap}, launches per shard "
+          f"{shard_counts}, peak device memory {peak / 2**30:.2f} GiB; "
+          f"BFS/SSSP equal single-device, PPR max relative error {worst:.3g}")
+    del eng
+    torch.cuda.empty_cache()
+    return counts
 
 
 # the paper's IRU geometry (benchmarks/common.py's IRU_HASH): 1024 x 32 sets
@@ -1488,9 +1749,14 @@ def main() -> int:
     launches = phase_apps(graphs, oracles)
     for k, v in phase_figures(graphs, oracles).items():
         launches[k] = launches.get(k, 0) + v
-    served, serving_errors = phase_serving(graphs["kron20"])
+    served, serving_errors, fused = phase_serving(graphs["kron20"])
     for k, v in served.items():
         launches[k] = launches.get(k, 0) + v
+    t_part = time.perf_counter()
+    for k, v in phase_partitioned(graphs, oracles, fused).items():
+        launches[k] = launches.get(k, 0) + v
+    print(f"partitioned phase: {time.perf_counter() - t_part:.1f} s")
+    del fused
     for k, v in serving_errors.items():
         errors[k] = max(errors[k], v)
     timings = phase_timings(graphs["kron20"], dsts, contrib, sparse)

@@ -11,7 +11,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.graphs.csr import CSRGraph, GraphView
+from repro_torch.graphs.csr import (CSRGraph, GraphPartition, GraphView,
+                                    PartitionedGraphView)
 
 
 def graph_from_numpy(row_ptr, col_idx, weights,
@@ -41,3 +42,27 @@ def state_from_numpy(state: dict, device: str | torch.device | None = None
     scalars become 0-d tensors)."""
     dev = resolve_device(device)
     return {k: torch.from_numpy(np.array(v)).to(dev) for k, v in state.items()}
+
+
+_PARTITION_GEOMETRY = ("n_nodes", "n_edges", "n_parts", "block", "ghost_cap",
+                       "lane_cap", "edge_cap")
+
+
+def partition_from_numpy(part, device: str | torch.device | None = None):
+    """The reference's ``GraphPartition`` (its arrays as array-likes, its
+    static geometry as ints) -> :class:`GraphPartition`; a reference
+    ``PartitionedGraphView`` (``part`` and ``view``) ->
+    :class:`PartitionedGraphView`.  Dtypes are kept."""
+    dev = resolve_device(device)
+    if hasattr(part, "view"):
+        v = part.view
+        return PartitionedGraphView(
+            part=partition_from_numpy(part.part, dev),
+            view=view_from_numpy(v.row_ptr, v.col_idx, v.weights,
+                                 n_tenants=v.n_tenants,
+                                 base_nodes=v.base_nodes,
+                                 base_edges=v.base_edges, device=dev))
+    tensors = {k: torch.from_numpy(np.array(getattr(part, k))).to(dev)
+               for k in GraphPartition._TENSORS}
+    return GraphPartition(**tensors, **{
+        k: int(getattr(part, k)) for k in _PARTITION_GEOMETRY})

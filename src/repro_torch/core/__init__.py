@@ -8,10 +8,11 @@ from repro_torch.core.iru import (IRUConfig, IRUStream, iru_reorder,
                                   load_iru_gather, reorder_frontier)
 from repro_torch.core.pipeline import (CapacityPolicy, FrontierApp,
                                        FrontierPipeline, StepResult,
-                                       frontier_step)
+                                       frontier_scatter, frontier_step)
 
 __all__ = ["BLOCK_BYTES", "CapacityPolicy", "FrontierApp", "FrontierPipeline",
            "IRUConfig", "IRUStream", "StepResult", "block_ids", "compact",
-           "elems_per_block", "filter_rate", "frontier_step", "iru_reorder",
+           "elems_per_block", "filter_rate", "frontier_scatter",
+           "frontier_step", "iru_reorder",
            "iru_scatter_add", "iru_scatter_min", "load_iru_gather",
            "merge_sorted", "reorder_frontier", "run_starts", "segment_ids"]

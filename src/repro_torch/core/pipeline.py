@@ -133,7 +133,16 @@ class CapacityPolicy:
             for ec in caps)
 
 
-def frontier_step(
+def _host_bucket(buckets, need: int, count: int) -> int:
+    """The smallest rung holding ``need`` edge lanes and ``count`` nodes
+    (the top rung when none does)."""
+    for i, (e_cap, f_cap) in enumerate(buckets):
+        if need <= e_cap and count <= f_cap:
+            return i
+    return len(buckets) - 1
+
+
+def frontier_scatter(
     g: CSRGraph,
     app: "FrontierApp",
     state: State,
@@ -145,15 +154,20 @@ def frontier_step(
     kernels: bool = True,
     ragged: bool = True,
 ):
-    """One expand -> candidate -> reorder -> merge-scatter -> update step at
-    one capacity rung ``(e_cap, f_cap)``.
+    """The first half of a step at one capacity rung ``(e_cap, f_cap)``:
+    expand -> candidate -> reorder -> merged scatter, up to the point where
+    the reference's step calls its ``exchange`` hook
+    (``repro.core.pipeline.frontier_step``).  The partitioned pipeline
+    (``dist.graph_partition``) runs it per shard, exchanges the ghost slots
+    of the new targets, then runs ``app.update`` per shard.
 
     Apps with ``filter_op == "tagged"`` (the fused min+add datapath) must
     declare a ``tag_table``; the table is built once a step and rides the
     reorder engines, which re-derive lane tags from their own index frames,
     so every duplicate run is uniform-tag.
 
-    Returns ``(state, mask, idx, act, real, n_edges, overflow)``.
+    Returns ``(new_target, idx, act, real, n_edges, overflow)``; nothing
+    given is changed in place.
     """
     n = g.n_nodes
     tag_tab = None
@@ -193,8 +207,19 @@ def frontier_step(
         real = stream.positions < n_edges
     new_target = _scatter(state[app.target], idx, svals, act, app.filter_op,
                           None if tag_tab is None else _lane_tags(tag_tab, idx))
+    return new_target, idx, act, real, n_edges, ef.overflow
+
+
+def frontier_step(g: CSRGraph, app: "FrontierApp", state: State,
+                  mask: torch.Tensor, **kw):
+    """One expand -> candidate -> reorder -> merge-scatter -> update step:
+    :func:`frontier_scatter` (same keywords) followed by ``app.update``.
+
+    Returns ``(state, mask, idx, act, real, n_edges, overflow)``.
+    """
+    new_target, *rest = frontier_scatter(g, app, state, mask, **kw)
     state, mask = app.update(state, new_target, g)
-    return state, mask, idx, act, real, n_edges, ef.overflow
+    return (state, mask, *rest)
 
 
 class StepResult(NamedTuple):
@@ -310,12 +335,6 @@ class FrontierPipeline:
         need, count = both.tolist()
         return need, count
 
-    def _host_bucket(self, need: int, count: int) -> int:
-        for i, (e_cap, f_cap) in enumerate(self.buckets):
-            if need <= e_cap and count <= f_cap:
-                return i
-        return len(self.buckets) - 1
-
     def _stays(self, bucket: int, need: int, count: int) -> bool:
         """The reference's in-loop rule for keeping the current rung: the
         frontier still fits it, and (below the top) it does not yet fit the
@@ -363,7 +382,7 @@ class FrontierPipeline:
                             f"frontier degree sum {need} overflows the "
                             f"shrunk edge_capacity={self.edge_capacity}: "
                             f"edges would be dropped -- raise edge_capacity")
-                    bucket = self._host_bucket(need, count)
+                    bucket = _host_bucket(self.buckets, need, count)
                     self.n_hops += 1
                     entered = True
             state, mask, *_ = self._step_impl(state, mask, bucket)
@@ -376,7 +395,7 @@ class FrontierPipeline:
         overflow (reachable only with a caller-shrunk ``edge_capacity``)."""
         if len(self.buckets) == 1 and self.edge_capacity >= self.graph.n_edges:
             return StepResult(*self._step_impl(state, mask, 0)[:-1], False, 0)
-        b = self._host_bucket(*self._predict(mask))
+        b = _host_bucket(self.buckets, *self._predict(mask))
         while True:
             out = self._step_impl(state, mask, b)
             if not bool(out[-1]):  # overflow flag

@@ -2,8 +2,11 @@
 
 Counterpart of ``repro.graphs.csr`` (``CSRGraph``, ``from_edges``,
 ``EdgeFrontier``, ``frontier_from_mask``, ``frontier_degree_sum``,
-``expand_frontier``, and the serving stack's ``GraphView`` / ``tile_csr``).  Arrays are torch tensors on one device: int32 ids and
-offsets, float32 weights, as in the reference (x64 off).
+``expand_frontier``, the serving stack's ``GraphView`` / ``tile_csr``, and
+the edge-partitioned layout ``GraphPartition`` / ``PartitionedGraphView`` /
+``partition_csr`` / ``suggest_partitions``).  Arrays are torch tensors on
+one device: int32 ids and offsets, float32 weights, as in the reference
+(x64 off).
 
 :func:`expand_frontier` keeps the reference's fixed output shapes (every
 output is ``[edge_capacity]``; padding lanes carry ``valid=False``), so a
@@ -308,3 +311,240 @@ def from_edges(
         col_idx=torch.from_numpy(dst.astype(np.int32)).to(dev),
         weights=torch.from_numpy(weights).to(dev),
     )
+
+
+# -- edge-partitioned layout -------------------------------------------------
+#
+# A 1-D block vertex partition with halo (ghost) slots: shard ``p`` owns the
+# vertex block [p*block, (p+1)*block) and every edge sourced there, so its
+# local CSR is a row-range crop of the global one.  Remote destinations are
+# renumbered into sorted ghost slots appended after the owned block (local
+# node space: [0, block) owned ++ [block, block + ghost_cap) ghosts), and the
+# expansion's padding sentinel (the local node count) lands past the ghosts.
+# The boundary exchange (``dist.graph_partition``) ships ghost-slot values to
+# their owners along the static (slot, owner-local id) maps built here.
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphPartition:
+    """Stacked per-shard CSR slices and static boundary maps (``[P, ...]``).
+
+    Counterpart of ``repro.graphs.csr.GraphPartition``: the same fields,
+    dtypes and pads, as torch tensors on one device.
+    """
+
+    # per-shard local CSR (leading dim = shard)
+    row_ptr: torch.Tensor    # int32[P, local_nodes + 1] (ghost rows degree 0)
+    col_idx: torch.Tensor    # int32[P, edge_cap] local dsts; pad local_nodes
+    weights: torch.Tensor    # float32[P, edge_cap]
+    # ghost directory
+    ghost_ids: torch.Tensor  # int32[P, ghost_cap] global id per slot; pad -1
+    n_ghosts: torch.Tensor   # int32[P]
+    n_local_edges: torch.Tensor  # int32[P] true (unpadded) local edge count
+    # boundary maps: lane k of the (shard, owner) pair
+    send_slot: torch.Tensor  # int32[P, P, lane_cap] ghost slot; pad
+    #                          local_nodes
+    send_mask: torch.Tensor  # bool[P, P, lane_cap]
+    recv_id: torch.Tensor    # int32[P, P, lane_cap] owner-local id; pad block
+    recv_mask: torch.Tensor  # bool[P, P, lane_cap]
+    # static geometry
+    n_nodes: int = 0
+    n_edges: int = 0
+    n_parts: int = 1
+    block: int = 0
+    ghost_cap: int = 0
+    lane_cap: int = 0
+    edge_cap: int = 0
+
+    _TENSORS = ("row_ptr", "col_idx", "weights", "ghost_ids", "n_ghosts",
+                "n_local_edges", "send_slot", "send_mask", "recv_id",
+                "recv_mask")
+
+    @property
+    def local_nodes(self) -> int:
+        """Per-shard local node-space size (owned block + ghost slots)."""
+        return self.block + self.ghost_cap
+
+    @property
+    def device(self) -> torch.device:
+        return self.row_ptr.device
+
+    def shard_graph(self, p: int) -> CSRGraph:
+        """Local ``CSRGraph`` of shard ``p`` (views of the stacked arrays)."""
+        return CSRGraph(row_ptr=self.row_ptr[p], col_idx=self.col_idx[p],
+                        weights=self.weights[p])
+
+    def to(self, device: str | torch.device) -> "GraphPartition":
+        return dataclasses.replace(self, **{
+            k: getattr(self, k).to(device) for k in self._TENSORS})
+
+    def nbytes(self) -> int:
+        """Bytes of the stacked arrays (what the partition holds on its
+        device)."""
+        return sum(getattr(self, k).nbytes for k in self._TENSORS)
+
+
+@dataclasses.dataclass(frozen=True)
+class PartitionedGraphView:
+    """A sharded multi-tenant composite: ``partition_csr(tile_csr(g, Q), P)``.
+
+    ``part`` is the ordinary partition of the composite id space (boundary
+    maps over composite ids, so ghosts dedupe per tenant) and ``view``
+    carries the tenant geometry the partition flattened away.
+    """
+
+    part: GraphPartition
+    view: GraphView
+
+    @property
+    def n_nodes(self) -> int:
+        return self.part.n_nodes
+
+    @property
+    def n_edges(self) -> int:
+        return self.part.n_edges
+
+    @property
+    def n_parts(self) -> int:
+        return self.part.n_parts
+
+    @property
+    def n_tenants(self) -> int:
+        return self.view.n_tenants
+
+    @property
+    def base_nodes(self) -> int:
+        return self.view.base_nodes
+
+
+def partition_csr(graph: CSRGraph, n_parts: int, *, edge_align: int = 8):
+    """Block-partition ``graph`` into ``n_parts`` halo'd CSR slices.
+
+    Every edge lands once, on the shard owning its source; destinations
+    outside the owned block become sorted ghost slots.  All shards pad to
+    common capacities (most local edges rounded up to ``edge_align``, most
+    ghosts, most boundary lanes of one (shard, owner) pair), so the result
+    stacks into ``[P, ...]`` tensors: the reference's arrays exactly.
+
+    Unlike the reference (numpy on the host) this runs in torch ops on the
+    graph's own device; it reads a handful of scalars on the host.  A
+    ``GraphView`` (a ``tile_csr`` composite) gives a
+    :class:`PartitionedGraphView`; a plain ``CSRGraph`` the bare
+    :class:`GraphPartition`.
+    """
+    if isinstance(graph, GraphView):
+        base = CSRGraph(graph.row_ptr, graph.col_idx, graph.weights)
+        return PartitionedGraphView(
+            part=partition_csr(base, n_parts, edge_align=edge_align),
+            view=graph)
+    n_parts = int(n_parts)
+    if n_parts < 1:
+        raise ValueError(f"partition_csr: n_parts must be >= 1, got {n_parts}")
+    n, m = graph.n_nodes, graph.n_edges
+    if n_parts > max(n, 1):
+        raise ValueError(
+            f"partition_csr: n_parts={n_parts} exceeds n_nodes={n} -- shards "
+            f"would own no vertices")
+    dev, P = graph.device, n_parts
+    i32, i64 = torch.int32, torch.int64
+    block = -(-n // P) if n else 1
+    rp = graph.row_ptr.to(i64)
+    shards = torch.arange(P, device=dev)
+    lo = (shards * block).clamp(max=n)
+    hi = (lo + block).clamp(max=n)
+    e0 = rp[lo]
+    n_local = rp[hi] - e0
+
+    # every edge's shard (its source's owner) and local position
+    src = graph.edge_sources().to(i64)
+    dst = graph.col_idx.to(i64)
+    shard = src // block
+    lane = torch.arange(m, device=dev) - e0[shard]
+    owned = (dst // block) == shard
+    # ghosts: (shard, dst) keys of remote edges, sorted, so each shard's
+    # ghosts are contiguous and ascending, and within a shard each owner's
+    ghost_key, ghost_of_edge = torch.unique(
+        shard[~owned] * max(n, 1) + dst[~owned], sorted=True,
+        return_inverse=True)
+    g_shard = ghost_key // max(n, 1)
+    g_id = ghost_key % max(n, 1)
+    g_owner = g_id // block
+    n_ghosts = torch.bincount(g_shard, minlength=P)
+    g_slot = (torch.arange(ghost_key.numel(), device=dev)
+              - (torch.cumsum(n_ghosts, 0) - n_ghosts)[g_shard])
+    pair = torch.bincount(g_shard * P + g_owner, minlength=P * P)
+    g_lane = (torch.arange(ghost_key.numel(), device=dev)
+              - (torch.cumsum(pair, 0) - pair)[g_shard * P + g_owner])
+
+    # the static capacities: one host read
+    ghost_cap, edge_cap, lane_cap = torch.stack(
+        [n_ghosts.max(), n_local.max(), pair.max()]).tolist()
+    edge_cap = max(edge_align, -(-max(edge_cap, 1) // edge_align) * edge_align)
+    local_nodes = block + ghost_cap
+
+    # local row pointers: row r of shard p is global row min(lo + r, hi)
+    r = torch.arange(local_nodes + 1, device=dev)
+    row_ptr = (rp[torch.minimum(lo[:, None] + r, hi[:, None])]
+               - e0[:, None]).to(i32)
+    local_dst = dst - lo[shard]
+    local_dst[~owned] = block + g_slot[ghost_of_edge]
+    flat = shard * edge_cap + lane
+    col_idx = torch.full((P * edge_cap,), local_nodes, dtype=i32, device=dev)
+    col_idx[flat] = local_dst.to(i32)
+    weights = torch.zeros(P * edge_cap, dtype=graph.weights.dtype,
+                          device=dev)
+    weights[flat] = graph.weights
+    ghost_ids = torch.full((P * ghost_cap,), -1, dtype=i32, device=dev)
+    ghost_ids[g_shard * ghost_cap + g_slot] = g_id.to(i32)
+
+    send_slot = torch.full((P * P * lane_cap,), local_nodes, dtype=i32,
+                           device=dev)
+    send_mask = torch.zeros(P * P * lane_cap, dtype=torch.bool, device=dev)
+    recv_id = torch.full((P * P * lane_cap,), block, dtype=i32, device=dev)
+    recv_mask = torch.zeros(P * P * lane_cap, dtype=torch.bool, device=dev)
+    send_at = (g_shard * P + g_owner) * lane_cap + g_lane
+    recv_at = (g_owner * P + g_shard) * lane_cap + g_lane
+    send_slot[send_at] = (block + g_slot).to(i32)
+    send_mask[send_at] = True
+    recv_id[recv_at] = (g_id - g_owner * block).to(i32)
+    recv_mask[recv_at] = True
+
+    return GraphPartition(
+        row_ptr=row_ptr, col_idx=col_idx.reshape(P, edge_cap),
+        weights=weights.reshape(P, edge_cap),
+        ghost_ids=ghost_ids.reshape(P, ghost_cap),
+        n_ghosts=n_ghosts.to(i32), n_local_edges=n_local.to(i32),
+        send_slot=send_slot.reshape(P, P, lane_cap),
+        send_mask=send_mask.reshape(P, P, lane_cap),
+        recv_id=recv_id.reshape(P, P, lane_cap),
+        recv_mask=recv_mask.reshape(P, P, lane_cap),
+        n_nodes=n, n_edges=m, n_parts=P, block=block, ghost_cap=ghost_cap,
+        lane_cap=lane_cap, edge_cap=edge_cap)
+
+
+def suggest_partitions(graph: CSRGraph, *, vmem_bytes: int = 50 * 2 ** 20,
+                       state_arrays: int = 2, max_parts: int = 256) -> int:
+    """Smallest power-of-two shard count whose working set fits the budget.
+
+    GraphCage's segment-size-to-cache rule: a shard's resident set is its
+    CSR slice (row_ptr + col_idx + weights), ``state_arrays`` node-payload
+    arrays over the local node space, and one edge-frontier lane set (ids +
+    payload); ghosts are bounded above by min(local edges, remote nodes).
+    The reference's arithmetic and parameters; its budget was the TPU's 16
+    MiB of VMEM, and the default here is the H100's 50 MiB L2 cache.
+    """
+    n, m = graph.n_nodes, graph.n_edges
+    p = 1
+    while p < max_parts:
+        b = -(-n // p)
+        m_p = -(-m // p)
+        ghost = min(m_p, max(n - b, 0))
+        local = b + ghost
+        bytes_p = ((local + 1) * 4          # row_ptr slice
+                   + m_p * 8                # col_idx + weights
+                   + local * 4 * state_arrays
+                   + m_p * 8)               # expansion lanes (ids + payload)
+        if bytes_p <= vmem_bytes:
+            break
+        p *= 2
+    return p

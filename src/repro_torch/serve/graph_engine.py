@@ -11,8 +11,8 @@ composite replica view (``graphs.csr.tile_csr`` -> ``GraphView``): query
 frontier is one stream of ``(query, node)`` ids that expansion, degree-sum
 prediction, the capacity ladder, the reorder and the merge consume
 unchanged, and merging only ever combines lanes within one query.  The
-engine takes a plain ``CSRGraph`` (and tiles it) or a ``GraphView`` whose
-``n_tenants`` equals ``query_slots``.
+engine takes a plain ``CSRGraph`` (and tiles it), a ``GraphView`` whose
+``n_tenants`` equals ``query_slots``, or a ``PartitionedGraphView`` of one.
 
 **Merge families.**  BFS and SSSP share the ``min`` family (BFS runs as
 unit-weight shortest paths in f32, turned back into int32 hop labels on
@@ -37,8 +37,14 @@ Differences from the reference: ``GraphServeConfig.kernels`` is the port's
 one switch between the kernels and their plain versions (the reference's
 ``gather``); the engine state is updated in place (the reference's
 ``.at[].set``); each tick reads the host once for the per-slot loads and
-once for the finished slots.  A ``PartitionedGraphView`` (sharded serving
-across cards) comes with the partitioned multi-GPU slice of the port.
+once for the finished slots.
+
+**Partitioned serving.**  A ``PartitionedGraphView``
+(``partition_csr(tile_csr(g, Q), P)``) with ``fused=True`` runs every tick
+over its ``P`` shards (``_PartitionedFusedRuntime``), stitched by the tagged
+boundary exchange; the reference runs them under ``shard_map`` on ``P``
+devices, the port steps them in turn on one card.  ``fused=False`` refuses
+it, as the reference does.
 
 Min-family results are bit-identical to solo runs in every mode; PPR sums
 may reassociate within f32 tolerance (the merge grouping depends on the
@@ -59,11 +65,15 @@ from repro_torch.apps.ppr import ppr_app
 from repro_torch.apps.sssp import SSSP_APP
 from repro_torch.core.iru import IRUConfig
 from repro_torch.core.pipeline import (CapacityPolicy, FrontierApp,
-                                       FrontierPipeline)
+                                       FrontierPipeline, StepResult,
+                                       _host_bucket)
 from repro_torch.device import resolve_device
+from repro_torch.dist.graph_partition import (_boundary_exchange, _predict,
+                                              partitioned_superstep)
 from repro_torch.ft.failures import QueryFaultInjector, QueryFaultPlan
 from repro_torch.ft.supervisor import StragglerClock, backoff_delay
-from repro_torch.graphs.csr import CSRGraph, GraphView, tile_csr
+from repro_torch.graphs.csr import (CSRGraph, GraphView, PartitionedGraphView,
+                                    tile_csr)
 
 _F32 = torch.float32
 _ACC = torch.float64  # the PPR accumulators (``pipeline._scatter``)
@@ -292,6 +302,191 @@ def _fused_family_app(Q: int, n: int) -> FrontierApp:
 
 
 # ---------------------------------------------------------------------------
+# the partitioned fused runtime
+# ---------------------------------------------------------------------------
+
+def _pad1(per_slot: torch.Tensor) -> torch.Tensor:
+    """Per-slot values plus a zero entry at slot Q (padding rows' slot)."""
+    return torch.cat([per_slot, per_slot.new_zeros(1)])
+
+
+def _partitioned_fused_app(Q: int) -> FrontierApp:
+    """The fused composite app over ONE shard's local node space.
+
+    Local geometry rides in the state: ``slot`` (int32[local_nodes], the
+    slot of each local node, owned and ghost; padding rows carry Q) and
+    ``own`` (bool[local_nodes], owned real composite nodes).  Per-slot
+    scalars are the same on every shard.  The PPR dangling leak is a
+    per-slot sum over every shard's owned nodes (``leak_q``, the
+    reference's ``psum``), computed before any shard updates.  ``tgt`` is
+    float64, as in the single-device fused app.
+    """
+
+    def init(graph, source):
+        raise TypeError(
+            "partitioned fused app: state is laid out by the runtime")
+
+    def tag_table(state, graph: CSRGraph):
+        # bool[local_nodes + 1]: family per local node (ghosts carry their
+        # composite id's family); the last entry is the padding sentinel
+        return _pad1(_pad1(state["tag"])[state["slot"]])
+
+    def candidate(state, graph: CSRGraph, ef):
+        srcs = ef.srcs.clamp(0, state["slot"].shape[0] - 1)
+        slot_row = state["slot"][srcs]
+        w = torch.where(_pad1(state["unit"])[slot_row], 1.0, ef.weights)
+        deg = graph.degrees().clamp(min=1).to(_F32)
+        return torch.where(_pad1(state["tag"])[slot_row],
+                           (state["val"] / deg)[srcs], state["val"][srcs] + w)
+
+    def update(state, tgt64, graph: CSRGraph):
+        new_tgt = tgt64.to(_F32)  # min rows hold f32 values exactly
+        slot, own = state["slot"], state["own"]
+        trow = _pad1(state["tag"])[slot]
+        live_row = _pad1(state["live"])[slot] & own
+        d = _pad1(state["damp"])[slot]
+        leak = _pad1(state["leak_q"])[slot]
+        new_rank = (1 - d) * state["src"] + d * new_tgt + d * leak * state[
+            "src"]
+        val = torch.where(trow, torch.where(live_row, new_rank, state["val"]),
+                          new_tgt)
+        mask = torch.where(trow, live_row, new_tgt < state["val"])
+        state = {k: v for k, v in state.items() if k != "leak_q"}
+        state.update(val=val, tgt=torch.where(trow, 0.0, val).to(_ACC))
+        return state, mask
+
+    return FrontierApp(
+        name="mq_fused_part", filter_op="tagged", target="tgt",
+        init=init, candidate=candidate, update=update,
+        cond=lambda state, mask: mask.any(),
+        result=lambda state: state["val"],
+        needs_weights=True, tag_table=tag_table)
+
+
+class _PartitionedFusedRuntime:
+    """``FrontierPipeline``'s ``step`` for the fused tick over a
+    ``PartitionedGraphView``: every shard on this runtime's device, stepped
+    in turn, with the tagged boundary exchange (exact codec) between the
+    scatter and the update.
+
+    The engine keeps its fused state in the global single-device layout;
+    each step lays it out over the shards (owned blocks, ghost slots at
+    their family's identity), runs one superstep and gathers the owned
+    blocks back into new global tensors.  The engine's state is never
+    written, so an overflowed step is rerun from it at the next rung.
+    """
+
+    def __init__(self, pview: PartitionedGraphView, *, mode: str,
+                 iru_config: Optional[IRUConfig], kernels: bool,
+                 capacity_policy: Optional[CapacityPolicy], ragged: bool,
+                 device: torch.device):
+        part = pview.part.to(device)
+        self.part = part
+        self.Q, self.n = pview.n_tenants, pview.base_nodes
+        self.app = _partitioned_fused_app(self.Q)
+        self.iru_config = None if mode == "baseline" else dataclasses.replace(
+            iru_config or IRUConfig(), mode=mode, filter_op="tagged")
+        self.kernels = kernels
+        self.ragged = ragged
+        self.capacity_policy = capacity_policy or CapacityPolicy()
+        # per-shard rungs over the LOCAL capacities; the top rung holds any
+        # shard's whole edge set
+        self.buckets = self.capacity_policy.ladder(
+            max(part.edge_cap, 1), part.local_nodes)
+        self.graphs = [part.shard_graph(p) for p in range(part.n_parts)]
+        self._degrees = torch.stack([g.degrees() for g in self.graphs])
+        # id-space maps [P, local_nodes]: global composite id (owned, then
+        # the ghosts'), slot (padding -> Q) and the owned-real mask
+        Qn, block = self.Q * self.n, part.block
+        owned = (torch.arange(part.n_parts, device=device)[:, None] * block
+                 + torch.arange(block, device=device))
+        gid = torch.cat([torch.where(owned < Qn, owned, -1),
+                         part.ghost_ids.long()], 1)
+        self._slot = torch.where(gid >= 0, gid // max(self.n, 1), self.Q)
+        self._own = torch.zeros_like(gid, dtype=torch.bool)
+        self._own[:, :block] = gid[:, :block] >= 0
+        self._gid = gid.clamp(0, max(Qn - 1, 0))
+
+    # -- global <-> stacked relayout -----------------------------------------
+    def _to_stacked(self, state_g, mask_g):
+        gid, own, slot = self._gid, self._own, self._slot
+        ident = torch.where(_pad1(state_g["tag"])[slot], 0.0, _INF).to(_ACC)
+        val = torch.where(own, state_g["val"][gid], _INF)
+        tgt = torch.where(own, state_g["tgt"][gid], ident)
+        src = torch.where(own, state_g["src"][gid], 0.0)
+        shared = {k: state_g[k] for k in ("tag", "unit", "live", "damp")}
+        states = [dict(shared, val=val[p], tgt=tgt[p], src=src[p],
+                       slot=slot[p], own=own[p])
+                  for p in range(self.part.n_parts)]
+        return states, own & mask_g[gid]
+
+    def _from_stacked(self, states, mask_st):
+        Qn, block = self.Q * self.n, self.part.block
+
+        def take(a):
+            return a[:, :block].reshape(-1)[:Qn]
+
+        state = {k: take(torch.stack([s[k] for s in states]))
+                 for k in ("val", "tgt", "src")}
+        state.update({k: states[0][k] for k in ("tag", "unit", "live",
+                                                "damp")})
+        return state, take(mask_st)
+
+    # -- one superstep --------------------------------------------------------
+    def _shared(self, states, graphs):
+        """Per-slot dangling PPR mass summed over every shard's owned
+        nodes (the reference's ``psum`` of ``leak_q``)."""
+        leak = states[0]["val"].new_zeros(self.Q + 1)
+        for s, g in zip(states, graphs):
+            dangling = s["own"] & (g.degrees() == 0)
+            leak = leak.index_add(0, s["slot"],
+                                  torch.where(dangling, s["val"], 0.0))
+        return {"leak_q": leak[:self.Q]}
+
+    def _exchange(self, target, states):
+        tags = torch.stack([_pad1(s["tag"])[s["slot"]] for s in states])
+        out, _ = _boundary_exchange(target, None, part=self.part,
+                                    op="tagged", codec="exact", tags=tags)
+        return out
+
+    def _superstep(self, states, mask, bucket: int):
+        part = self.part
+        e_cap, f_cap = self.buckets[bucket]
+        exchange = (self._exchange if part.n_parts > 1 and part.lane_cap > 0
+                    else None)
+        return partitioned_superstep(
+            self.graphs, self.app, states, mask, e_cap=e_cap, f_cap=f_cap,
+            exchange=exchange, shared=self._shared,
+            iru_config=self.iru_config, kernels=self.kernels,
+            ragged=self.ragged)
+
+    # -- the host-dispatched step (the engine's pipe.step contract) -----------
+    def step(self, state, mask, *, raise_on_overflow: bool = True
+             ) -> StepResult:
+        """One superstep at the smallest rung holding the largest shard's
+        working set, re-dispatched upward on overflow.  On overflow at the
+        top (``raise_on_overflow=False``) the given state comes back."""
+        states, mk = self._to_stacked(state, mask)
+        b = (_host_bucket(self.buckets, *_predict(self._degrees, mk))
+             if len(self.buckets) > 1 else 0)
+        none = mk.new_zeros(0, dtype=torch.int32)
+        zero = mk.new_zeros((), dtype=torch.int32)
+        while True:
+            out_states, out_mask, ovf = self._superstep(states, mk, b)
+            if not bool(ovf):
+                gs, gm = self._from_stacked(out_states, out_mask)
+                return StepResult(gs, gm, none, none, none, zero, False, b)
+            if b == len(self.buckets) - 1:
+                if raise_on_overflow:
+                    raise RuntimeError(
+                        "partitioned fused step overflowed the top bucket "
+                        f"{self.buckets[b]} -- raise edge capacities")
+                return StepResult(state, mask, none, none, none, zero, True,
+                                  b)
+            b += 1
+
+
+# ---------------------------------------------------------------------------
 # the engine
 # ---------------------------------------------------------------------------
 
@@ -313,12 +508,16 @@ class GraphServingEngine:
         self.cfg = cfg = config or GraphServeConfig()
         if cfg.query_slots < 1:
             raise ValueError(f"query_slots must be >= 1, got {cfg.query_slots}")
-        if not isinstance(graph, CSRGraph):
-            raise NotImplementedError(
-                f"GraphServingEngine takes a CSRGraph or a GraphView, got "
-                f"{type(graph).__name__}: sharded serving over a "
-                f"PartitionedGraphView comes with the partitioned multi-GPU "
-                f"slice of the port")
+        # a plain CSRGraph (tiled here), a composed GraphView, or a
+        # PartitionedGraphView (the fused tick runs over its shards)
+        self.part_view: Optional[PartitionedGraphView] = None
+        if isinstance(graph, PartitionedGraphView):
+            if not cfg.fused:
+                raise ValueError(
+                    "PartitionedGraphView serving requires fused=True "
+                    "(the split per-family engine is single-device only)")
+            self.part_view = graph
+            graph = graph.view
         self.device = resolve_device(device)
         view = graph if isinstance(graph, GraphView) else None
         if view is not None:
@@ -389,19 +588,30 @@ class GraphServingEngine:
             self._masks[fam] = mask
         return self._pipes[fam]
 
-    def _fused_pipe(self) -> FrontierPipeline:
-        """The single tagged-datapath runtime, shared by both families."""
+    def _fused_pipe(self):
+        """The single tagged-datapath runtime, shared by both families: a
+        ``FrontierPipeline`` over the composite view, or the partitioned
+        runtime when serving a ``PartitionedGraphView``."""
         if "fused" not in self._pipes:
+            cfg = self.cfg
             app = _fused_family_app(self.Q, self.n)
-            self._pipes["fused"] = self._pipeline(
-                self.cgraph, app, edge_capacity=self._edge_budget)
+            if self.part_view is not None:
+                self._pipes["fused"] = _PartitionedFusedRuntime(
+                    self.part_view, mode=cfg.mode, iru_config=cfg.iru_config,
+                    kernels=cfg.kernels, capacity_policy=cfg.capacity_policy,
+                    ragged=cfg.ragged, device=self.device)
+            else:
+                self._pipes["fused"] = self._pipeline(
+                    self.cgraph, app, edge_capacity=self._edge_budget)
             self._fstate, self._fmask = app.init(self.cgraph, 0)
             self._fused_loads = None
         return self._pipes["fused"]
 
     def _family_top_cap(self, fam: str) -> int:
         if self.cfg.fused:
-            return self._edge_budget  # one shared budget gates both families
+            # one shared budget gates both families (the partitioned
+            # runtime's rungs are per shard: the global budget gates there)
+            return self._edge_budget
         return self._family(fam).buckets[-1][0]
 
     # -- submission / admission -------------------------------------------

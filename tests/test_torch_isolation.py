@@ -111,6 +111,45 @@ print("ok")
     assert r.stdout.strip() == "ok"
 
 
+def test_partitioned_path_runs_without_jax_or_repro():
+    """The partitioned slice (``partition_csr``, ``repro_torch.dist``, the
+    codecs and the engine on a partitioned view) on the CPU, with ``jax``
+    and ``repro`` blocked."""
+    code = """
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import numpy as np, torch
+import repro_torch.dist as dist
+from repro_torch.apps import bfs, pagerank
+from repro_torch.graphs.csr import partition_csr, tile_csr
+from repro_torch.graphs.generators import kron
+from repro_torch.serve import GraphQuery, GraphServeConfig, GraphServingEngine
+g = kron(scale=6, device="cpu")
+part = partition_csr(g, 2)
+label = dist.bfs_partitioned(part, 0, mode="hash", compress=True,
+                             device="cpu")
+assert np.array_equal(label.numpy(), bfs(g, 0))
+rank = dist.pagerank_partitioned(part, iters=3, compress=True, device="cpu")
+assert np.allclose(rank.numpy(), pagerank(g, iters=3), rtol=2e-3, atol=2e-3)
+q, s = dist.quantize_rows_i8(torch.ones(2, 130))
+assert q.dtype == torch.int8 and s.shape == (2, 2)
+eng = GraphServingEngine(partition_csr(tile_csr(g, 3), 2),
+                         GraphServeConfig(query_slots=3, mode="sort"),
+                         device="cpu")
+qs = [GraphQuery("bfs", 0), GraphQuery("ppr", 1, iters=3)]
+for x in qs:
+    eng.submit(x)
+eng.run_to_completion(500)
+assert all(x.done for x in qs)
+assert np.array_equal(qs[0].result, bfs(g, 0))
+print("ok")
+"""
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
 def test_figure_harness_runs_without_jax_or_repro(tmp_path):
     """The figure slice (generators, host apps with a recorder, the
     instrumented pipeline, the coalescing counts, the cost model and one
@@ -156,8 +195,12 @@ from repro_torch.apps.bfs import BFS_APP
 from repro_torch.graphs.generators import kron, make_dataset
 from repro_torch.apps import bfs, bfs_jit, pagerank_jit
 from repro_torch.figures.common import run_pair
+from repro_torch.dist import (PartitionedFrontierPipeline, bfs_partitioned,
+                              partitioned_bfs_app)
+from repro_torch.graphs.csr import partition_csr, tile_csr
 assert not torch.cuda.is_available()
 g = kron(scale=6, device="cpu")
+part = partition_csr(g, 2)
 calls = [lambda: FrontierPipeline(g, BFS_APP), lambda: bfs_pipeline(g),
          lambda: FrontierPipeline(g, BFS_APP, mode="hash"),
          lambda: sssp_pipeline(g), lambda: pagerank_pipeline(g, iters=2),
@@ -166,7 +209,10 @@ calls = [lambda: FrontierPipeline(g, BFS_APP), lambda: bfs_pipeline(g),
          lambda: bfs(g, 0, mode="iru"), lambda: bfs_jit(g),
          lambda: pagerank_jit(g.edge_sources(), g.col_idx, g.degrees(),
                               g.n_nodes, iters=1),
-         lambda: run_pair("bfs", "kron", force=True)]
+         lambda: run_pair("bfs", "kron", force=True),
+         lambda: PartitionedFrontierPipeline(part, partitioned_bfs_app(part)),
+         lambda: bfs_partitioned(g, n_parts=2),
+         lambda: GraphServingEngine(partition_csr(tile_csr(g, 8), 2))]
 for call in calls:
     try:
         call()

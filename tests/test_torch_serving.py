@@ -24,7 +24,7 @@ from repro.graphs.generators import delaunay as jdelaunay
 from repro.graphs.generators import kron as jkron
 from repro_torch import ft as tft
 from repro_torch import serve as tserve
-from repro_torch.convert import view_from_numpy
+from repro_torch.convert import partition_from_numpy, view_from_numpy
 from repro_torch.core.pipeline import CapacityPolicy as TPolicy
 from repro_torch.graphs import csr as tcsr
 from repro_torch.graphs.generators import delaunay as tdelaunay
@@ -209,11 +209,25 @@ def test_fused_engine_accepts_composed_view(gk):
 
 
 def test_partitioned_view_waits_for_its_slice(gk):
-    pview = jcsr.partition_csr(jcsr.tile_csr(gk[0], 2), 1)
-    for fused in (True, False):
-        with pytest.raises(NotImplementedError, match="partitioned"):
-            tserve.GraphServingEngine(pview, tserve.GraphServeConfig(
-                query_slots=2, fused=fused), device="cpu")
+    """Its slice has come: a ``PartitionedGraphView`` serves with
+    ``fused=True`` and is refused with ``fused=False``, with the
+    reference's message (``tests/test_torch_partition_serving.py`` holds
+    the partitioned engine's results)."""
+    jview = jcsr.partition_csr(jcsr.tile_csr(gk[0], 2), 1)
+    pview = partition_from_numpy(jview, "cpu")
+    eng = tserve.GraphServingEngine(pview, tserve.GraphServeConfig(
+        query_slots=2), device="cpu")
+    q = tserve.GraphQuery("bfs", 0)
+    eng.submit(q)
+    eng.run_to_completion(500)
+    assert q.done and np.array_equal(q.result, eng.solo_reference(q))
+    with pytest.raises(ValueError) as want:
+        jserve.GraphServingEngine(jview, jserve.GraphServeConfig(
+            query_slots=2, fused=False))
+    with pytest.raises(ValueError) as got:
+        tserve.GraphServingEngine(pview, tserve.GraphServeConfig(
+            query_slots=2, fused=False), device="cpu")
+    assert str(got.value) == str(want.value)
 
 
 def test_config_has_one_kernels_switch():
