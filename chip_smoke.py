@@ -128,12 +128,39 @@ Phases, in order (any failure exits non-zero and prints no result line):
                superstep (raw and on the wire) and each shard's launches,
                every one of which must include the kernels its mode needs;
                each partition's build seconds and device bytes are printed;
-  8. timings -- CUDA-event times after a warm-up for each kernel, its plain
+  8. moe     -- MoE expert dispatch (repro_torch.moe, plain torch: the path
+               reaches no hand-written kernel) at deepseek-v2-lite's width
+               (DEEPSEEK_V2_LITE_MOE: d_model 2048, 64 experts, top-6, expert
+               d_ff 1408, 2 shared experts, swiglu, capacity factor 1.25;
+               random init from a seeded generator).  (a) In f32 with TF32
+               off at T = 4096: plan_dispatch equals moe_dispatch_ref bit
+               for bit at capacity factors 1.25 and 0.5 (which must drop
+               lanes); moe_sorted and moe_dense agree with moe_hash at rtol
+               1e-4 and an atol of 1e-5 of the output's largest magnitude,
+               with equal aux losses, at both factors; moe_hash with
+               n_live = 3000 (a device tensor) runs under
+               set_sync_debug_mode("error"), gives zero rows past it and
+               its live prefix equals the truncated run at the same
+               capacity (rtol 1e-5, atol 1e-6 of the largest); moe_hash_ep
+               at 4 shards and 8 partitions equals moe_hash exact (rtol
+               1e-5, atol 1e-6 of the largest) and within 0.05 max|y| +
+               1e-3 with the int8 combine; one backward of sum(y^2) +
+               0.01 aux is finite with nonzero router and wi gradients.  Each
+               comparison also prints its verdict at the plain absolute
+               atol.  (b) In bf16 (f32 router): the CUDA-event median of 10
+               calls of moe_hash, moe_sorted and moe_dense at T = 4096 and
+               of moe_hash and moe_sorted at 16384 (the dense engine's (T,
+               k, E, C) f32 tensor would be 48 GB there), plan_dispatch
+               alone at both, moe_hash_ep (4 shards, int8 and exact) at
+               4096: ms, tokens/s, peak memory, dropped share, the expert
+               FFN's flop; a profile of moe_hash and of plan_dispatch at
+               16384 and the planner's share of moe_hash;
+  9. timings -- CUDA-event times after a warm-up for each kernel, its plain
                version and one library call computing the same function (B2
                tagged and B3 have none), the bound (bytes over the card's
                3.35 TB/s), at PageRank's shape; B1 also at a BFS level's
                shape (the gappy quarter-node expansion) beside index_select;
-  9. profile -- device time by kernel and the device's busy share over short
+  10. profile -- device time by kernel and the device's busy share over short
                windows of PageRank on kron-20 (sort and hash), SSSP on
                delaunay-1024, three serving ticks (fused sort and fused
                hash), and B2's and B3's kernels in one call each at
@@ -1536,6 +1563,221 @@ def phase_windowed(graphs, oracles):
     return totals, errors, rows
 
 
+# deepseek-v2-lite's MoE layer (src/repro/configs/deepseek_v2_lite_16b.py:9,
+# 19-26) at full width; random init.  Capacity is 512 at T = 4096 and 1920 at
+# T = 16384.
+DEEPSEEK_V2_LITE_MOE = dict(d_model=2048, ffn_type="swiglu", n_experts=64,
+                            top_k=6, d_ff=1408, n_shared_experts=2,
+                            capacity_factor=1.25)
+MOE_TOKENS = (4096, 16384)
+
+
+def event_median_ms(fn, reps: int = 10) -> float:
+    """Median CUDA-event time of ``fn`` over ``reps`` calls, after a
+    warm-up; the calls are queued back to back and read after one sync."""
+    fn()
+    torch.cuda.synchronize()
+    marks = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+             for _ in range(reps)]
+    for start, end in marks:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in marks]))
+
+
+def moe_close(got, want, what: str, rtol: float, atol: float) -> None:
+    """Check ``got`` against ``want`` at ``rtol`` and an atol of ``atol``
+    times ``want``'s largest magnitude, and print the largest error beside
+    the verdict at the plain ``atol``.  On the card the engines' f32 sums
+    differ in order (atomics, cuBLAS kernels) by about an ulp of the
+    output's largest terms (|y| reaches about 3e2 at this width), so an
+    absolute atol would fail on entries near zero whatever the engine
+    does."""
+    got, want = got.float(), want.float()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    ok = torch.allclose(got, want, rtol=rtol, atol=atol * scale)
+    plain = torch.allclose(got, want, rtol=rtol, atol=atol)
+    print(f"  {what}: max abs error {err:.3e} (max |y| {scale:.4g}); "
+          f"rtol {rtol:g}, atol {atol:g} x max|y|: {ok}; "
+          f"with atol {atol:g} alone: {plain}")
+    check(ok, f"{what} within rtol {rtol:g}, atol {atol:g} x max|y|")
+
+
+def phase_moe():
+    """Phase 8: MoE expert dispatch at deepseek-v2-lite's width (plain
+    torch; the path reaches no hand-written kernel).  (a) in f32 with TF32
+    off: plans equal the numpy oracle, the three engines agree, the ragged
+    planned path runs with no host sync, the expert-parallel executor agrees
+    with the planner, one backward is finite; (b) in bf16 (f32 router):
+    each engine's CUDA-event median, the planner alone, and a profile of
+    the planned engine at T = 16384."""
+    import dataclasses
+
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.kernels.iru_reorder.ref import moe_dispatch_ref
+    from repro_torch.models.common import Initializer
+    from repro_torch.models.moe import init_moe, moe_ffn
+    from repro_torch.moe import (capacity, moe_dense, moe_hash, moe_hash_ep,
+                                 moe_sorted, plan_dispatch)
+    from repro_torch.moe.dispatch import _route, execute_plan
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    cfg = DEEPSEEK_V2_LITE_MOE
+    D, ffn = cfg["d_model"], cfg["ffn_type"]
+    moe = MoEConfig(**{k: v for k, v in cfg.items()
+                       if k not in ("d_model", "ffn_type")},
+                    dispatch="iru_hash")
+    E, k, F = moe.n_experts, moe.top_k, moe.d_ff
+    check([capacity(t, moe) for t in MOE_TOKENS] == [512, 1920],
+          "deepseek-v2-lite capacities 512 and 1920")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    T = MOE_TOKENS[0]
+
+    # (a) checks, f32, TF32 off
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        it = Initializer(gen, torch.float32, dev)
+        init_moe(it, D, moe, ffn)
+        p32 = it.params
+        x = torch.randn(T, D, generator=gen, device=dev)
+        gates, experts, _ = _route(p32, x, moe)
+        experts_np = experts.cpu().numpy()
+        for cf in (1.25, 0.5):
+            C = capacity(T, dataclasses.replace(moe, capacity_factor=cf))
+            plan = plan_dispatch(experts, gates, C, E)
+            want = moe_dispatch_ref(experts_np, C, E)
+            got = (plan.rank, plan.keep, plan.counts, plan.dropped)
+            check(all(np.array_equal(g.cpu().numpy(), w)
+                      for g, w in zip(got, want)),
+                  f"moe plan at cf {cf} equals moe_dispatch_ref")
+            n_drop = int(want[3].sum())
+            if cf == 0.5:
+                check(n_drop > 0, "capacity binds at cf 0.5")
+            print(f"moe plan T={T} cf {cf}: C {C}, {n_drop} of {T * k} "
+                  f"lanes dropped; rank, keep, counts, dropped equal "
+                  f"moe_dispatch_ref bit for bit")
+        for cf in (1.25, 0.5):
+            m_cf = dataclasses.replace(moe, capacity_factor=cf)
+            y0, a0 = moe_hash(p32, x, m_cf, ffn)
+            for name, fn in (("moe_sorted", moe_sorted),
+                             ("moe_dense", moe_dense)):
+                y, a = fn(p32, x, m_cf, ffn)
+                moe_close(y, y0, f"{name} vs moe_hash, cf {cf}",
+                          1e-4, 1e-5)
+                check(torch.equal(a, a0), f"{name} aux equals moe_hash's")
+            del y, y0
+        # ragged: the live prefix through the planned path, no host sync
+        m = 3000
+        n_live = torch.tensor(m, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yr, _ = moe_hash(p32, x, moe, ffn, n_live=n_live)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        check(not bool(yr[m:].any()), "ragged moe_hash: rows past n_live "
+              "are zero")
+        C = capacity(T, moe)
+        g_m, e_m, _ = _route(p32, x[:m], moe)
+        y_m = execute_plan(p32, x[:m], plan_dispatch(e_m, g_m, C, E), C, ffn)
+        moe_close(yr[:m], y_m, f"ragged moe_hash (n_live {m}, no host "
+                  f"sync) vs the truncated run at C {C}", 1e-5, 1e-6)
+        # expert parallel: 4 shards, 8 partitions
+        yh, ah = moe_hash(p32, x, moe, ffn)
+        ye, ae = moe_hash_ep(p32, x, moe, ffn, n_shards=4, n_partitions=8,
+                             compress=False)
+        moe_close(ye, yh, "moe_hash_ep n_shards 4, exact, vs moe_hash",
+                  1e-5, 1e-6)
+        check(torch.equal(ae, ah), "moe_hash_ep aux equals moe_hash's")
+        yc, _ = moe_hash_ep(p32, x, moe, ffn, n_shards=4, n_partitions=8)
+        err = float((yc - yh).abs().max())
+        bound = 0.05 * float(yh.abs().max()) + 1e-3
+        print(f"  moe_hash_ep n_shards 4, int8-compressed: max abs error "
+              f"{err:.4g} against 0.05 max|y| + 1e-3 = {bound:.4g}")
+        check(err <= bound, "compressed expert-parallel combine within "
+              "0.05 max|y| + 1e-3")
+        del yr, y_m, yh, ye, yc
+        # one backward
+        pg = {key: v.detach().clone().requires_grad_()
+              for key, v in p32.items()}
+        y, aux = moe_ffn(pg, x, moe, ffn)
+        ((y ** 2).sum() + 0.01 * aux).backward()
+        finite = all(bool(torch.isfinite(v.grad).all()) for v in pg.values())
+        gmax = {key: float(pg[key].grad.abs().max()) for key in ("router",
+                                                                 "wi")}
+        print(f"  backward of sum(y^2) + 0.01 aux: finite {finite}, max "
+              f"|grad| router {gmax['router']:.4g}, wi {gmax['wi']:.4g}")
+        check(finite and gmax["router"] > 0 and gmax["wi"] > 0,
+              "finite gradients, nonzero for router and wi")
+        del pg, y, aux, p32, it, x
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+    print(f"moe checks: {time.perf_counter() - t0:.1f} s")
+
+    # (b) timings, bf16 with an f32 router
+    it = Initializer(gen, torch.bfloat16, dev)
+    init_moe(it, D, moe, ffn)
+    pb = it.params
+    medians = {}
+    for T in MOE_TOKENS:
+        x = torch.randn(T, D, generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        C = capacity(T, moe)
+        gates, experts, _ = _route(pb, x, moe)
+        plan = plan_dispatch(experts, gates, C, E)
+        dropped = int(plan.dropped.sum()) / (T * k)
+        expert_flop = 2 * E * C * D * F * 3
+        shared_flop = 2 * T * D * moe.n_shared_experts * F * 3
+        runs = [("moe_hash", lambda: moe_hash(pb, x, moe, ffn)),
+                ("moe_sorted", lambda: moe_sorted(pb, x, moe, ffn))]
+        if T == MOE_TOKENS[0]:  # (T, k, E, C) f32 is 48 GB at T = 16384
+            runs.append(("moe_dense", lambda: moe_dense(pb, x, moe, ffn)))
+        runs.append(("plan_dispatch",
+                     lambda: plan_dispatch(experts, gates, C, E)))
+        if T == MOE_TOKENS[0]:
+            runs += [("moe_hash_ep n_shards=4 int8",
+                      lambda: moe_hash_ep(pb, x, moe, ffn, n_shards=4)),
+                     ("moe_hash_ep n_shards=4 exact",
+                      lambda: moe_hash_ep(pb, x, moe, ffn, n_shards=4,
+                                          compress=False))]
+        for name, fn in runs:
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ms = event_median_ms(fn)
+            peak = torch.cuda.max_memory_allocated() - held
+            medians[(name, T)] = ms
+            rate = ("" if name == "plan_dispatch" else
+                    f" ({expert_flop / ms / 1e9:.1f} TFLOP/s of it)")
+            print(f"moe {name} T={T} C={C} bf16: {ms:.4f} ms (median of "
+                  f"10), {T / ms * 1e3:.0f} tokens/s, peak "
+                  f"{peak / 2**30:.3f} GiB above {held / 2**30:.3f} held, "
+                  f"dropped share {dropped:.6f}, expert FFN "
+                  f"{expert_flop:.4g} flop{rate}, shared experts "
+                  f"{shared_flop:.4g} flop (not in this call)")
+        if T == MOE_TOKENS[-1]:
+            profile_window(f"moe_hash T={T} bf16, one call",
+                           lambda: moe_hash(pb, x, moe, ffn), top=14)
+            profile_window(f"plan_dispatch T={T}, one call",
+                           lambda: plan_dispatch(experts, gates, C, E),
+                           top=14)
+        del x, gates, experts, plan
+    for T in MOE_TOKENS:
+        share = medians[("plan_dispatch", T)] / medians[("moe_hash", T)]
+        print(f"moe planner share T={T}: plan_dispatch "
+              f"{medians[('plan_dispatch', T)]:.4f} ms of moe_hash "
+              f"{medians[('moe_hash', T)]:.4f} ms ({share:.3f})")
+    del pb, it
+    torch.cuda.empty_cache()
+    print(f"moe phase: {time.perf_counter() - t0:.1f} s")
+
+
 def phase_timings(g, dsts, contrib, sparse):
     from repro_torch.kernels.coalesced_gather import ops as gather_ops
     from repro_torch.kernels.coalesced_gather.ref import coalesced_gather_ref
@@ -1690,9 +1932,10 @@ def phase_profile(graphs, dsts, contrib):
         profile_window(label, fn)
 
 
-def profile_window(label, fn):
+def profile_window(label, fn, top: int = 8):
     """Print the device time by kernel of one call of ``fn`` (after a
-    warm-up call) and the device's busy share of its wall time."""
+    warm-up call), its ``top`` rows, and the device's busy share of its
+    wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -1720,7 +1963,7 @@ def profile_window(label, fn):
     share = busy_ms / (wall * 1e3)
     print(f"profile {label}: wall {wall * 1e3:.1f} ms, device busy "
           f"{busy_ms:.3f} ms ({share:.3f} of wall)")
-    for dev_us, count, key in rows[:8]:
+    for dev_us, count, key in rows[:top]:
         print(f"  {dev_us / 1e3:9.4f} ms  x{count:<6d} {key[:100]}")
 
 
@@ -1757,6 +2000,7 @@ def main() -> int:
         launches[k] = launches.get(k, 0) + v
     print(f"partitioned phase: {time.perf_counter() - t_part:.1f} s")
     del fused
+    phase_moe()
     for k, v in serving_errors.items():
         errors[k] = max(errors[k], v)
     timings = phase_timings(graphs["kron20"], dsts, contrib, sparse)

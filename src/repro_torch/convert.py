@@ -1,9 +1,10 @@
-"""Carry a graph and app state across from the JAX package.
+"""Carry graphs, app state and model params across from the JAX package.
 
 The tests run both packages on the same inputs: they hand the reference's
 arrays over as numpy (``np.asarray(g.row_ptr)`` ...), and these helpers put
-them on a torch device with the reference's dtypes.  This system has no
-weights; the graph and the app state are what cross.
+them on a torch device with the reference's dtypes.  The graph paths have
+no weights; the MoE layer's random params cross through
+:func:`params_from_numpy`.
 """
 from __future__ import annotations
 
@@ -66,3 +67,20 @@ def partition_from_numpy(part, device: str | torch.device | None = None):
                for k in GraphPartition._TENSORS}
     return GraphPartition(**tensors, **{
         k: int(getattr(part, k)) for k in _PARTITION_GEOMETRY})
+
+
+def _tensor_from_array(value, dev: torch.device) -> torch.Tensor:
+    a = np.asarray(value)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bf16: carry the bits
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
+def params_from_numpy(tree, device: str | torch.device | None = None):
+    """A nested dict of array-likes (the reference's params) -> the same
+    nesting of tensors, dtypes kept; bf16 crosses bit for bit."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, dev) for k, v in tree.items()}
+    return _tensor_from_array(tree, dev)

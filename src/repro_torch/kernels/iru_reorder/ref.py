@@ -29,8 +29,9 @@ composes any of them with the ``n_live`` layout.  ``hash_reorder_ref_banked``
 is the partitioned unit (paper §3.2: sets striped as ``set % n_partitions``,
 each partition's sub-stream reordered on its own with its own round-cap
 decision, partition-major emission, and the ``partition_capacity`` bypass
-through the flat oracle).  The MoE oracle comes with the slice that ports
-MoE dispatch.
+through the flat oracle).  ``moe_dispatch_ref`` is the MoE dispatch plan's
+oracle (identity-keyed occupancy: arrival ranks, capacity survival, load and
+drop counts).
 """
 from __future__ import annotations
 
@@ -500,3 +501,38 @@ def hash_reorder_ref_banked(
     parts = fronts + tails
     return tuple(np.concatenate([q[i] for q in parts], axis=0)
                  for i in range(4))
+
+
+def moe_dispatch_ref(
+    experts,
+    cap: int,
+    n_experts: int,
+    n_live: int | None = None,
+):
+    """Numpy oracle for the MoE dispatch plan (identity-keyed hash occupancy).
+
+    ``experts``: int (T, k) routed expert ids, flattened token-major into the
+    (token, expert) lane stream.  ``cap`` is the per-expert capacity (the
+    hash engine's ``slots`` bound), ``n_live`` the live *token* prefix.
+    Returns ``(rank, keep, counts, dropped)``: per-lane arrival rank within
+    the lane's expert, the capacity survival mask (live and rank < cap),
+    the per-expert live arrival counts and overflow drop counts -- the exact
+    integers the planner (``repro_torch.moe.dispatch.plan_dispatch``) must
+    emit.
+    """
+    experts = np.asarray(experts, np.int64)
+    T, k = experts.shape
+    flat = experts.reshape(-1)
+    lanes = flat.shape[0]
+    live_lanes = lanes if n_live is None else max(0, min(int(n_live), T)) * k
+
+    rank = np.zeros(lanes, np.int32)
+    counts = np.zeros(n_experts, np.int64)
+    for i in range(live_lanes):                    # arrival order, one pass
+        e = int(flat[i])
+        rank[i] = counts[e]
+        counts[e] += 1
+    keep = np.zeros(lanes, bool)
+    keep[:live_lanes] = rank[:live_lanes] < cap
+    dropped = counts - np.minimum(counts, cap)
+    return rank, keep, counts.astype(np.int32), dropped.astype(np.int32)

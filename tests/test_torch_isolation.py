@@ -184,6 +184,54 @@ print("ok")
         "sssp__kron__hash_ref__quick.json"]
 
 
+def test_moe_path_runs_without_jax_or_repro():
+    """The MoE slice (config, oracle, planner, the three engines, stats,
+    shared experts, expert parallel, the int8 collectives) on the CPU, with
+    ``jax`` and ``repro`` blocked."""
+    code = """
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import numpy as np, torch
+from repro_torch.configs import MoEConfig
+from repro_torch.dist import allreduce_int8, compress_grads_int8_ef
+from repro_torch.kernels.iru_reorder.ref import moe_dispatch_ref
+from repro_torch.models.common import Initializer
+from repro_torch.models.moe import init_moe, moe_ffn
+from repro_torch.moe import (capacity, dispatch_stats, format_stats,
+                             moe_hash, moe_hash_ep, plan_dispatch)
+from repro_torch.moe.dispatch import _route
+moe = MoEConfig(n_experts=4, top_k=2, d_ff=24, n_shared_experts=1,
+                capacity_factor=0.5)
+it = Initializer(torch.Generator().manual_seed(0), torch.float32, "cpu")
+init_moe(it, 16, moe, "swiglu")
+x = torch.randn(256, 16, generator=torch.Generator().manual_seed(1))
+ys = {e: moe_ffn(it.params, x, moe, "swiglu", dispatch=e)[0]
+      for e in ("iru_hash", "iru_sorted", "dense")}
+for y in ys.values():
+    assert torch.allclose(y, ys["iru_hash"], rtol=1e-4, atol=1e-5)
+gates, experts, _ = _route(it.params, x, moe)
+C = capacity(256, moe)
+plan = plan_dispatch(experts, gates, C, 4)
+rank, keep, counts, dropped = moe_dispatch_ref(experts.numpy(), C, 4)
+assert np.array_equal(plan.keep.numpy(), keep) and dropped.sum() > 0
+assert "drop_rate" in format_stats(dispatch_stats(plan))
+y, _ = moe_hash(it.params, x, moe, "swiglu", n_live=torch.tensor(100))
+assert not y[100:].any()
+ye, _ = moe_hash_ep(it.params, x, moe, "swiglu", n_shards=2,
+                    compress=False)
+yh, _ = moe_hash(it.params, x, moe, "swiglu")
+assert torch.allclose(ye, yh, rtol=1e-5, atol=1e-6)
+assert allreduce_int8(torch.ones(4, 3), 2).shape == (3,)
+deq, ef = compress_grads_int8_ef({"w": x}, {"w": torch.zeros_like(x)})
+assert torch.equal(deq["w"] + ef["w"], x)
+print("ok")
+"""
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
 def test_entry_points_need_cuda_unless_cpu_is_asked():
     code = """
 import torch
@@ -198,8 +246,12 @@ from repro_torch.figures.common import run_pair
 from repro_torch.dist import (PartitionedFrontierPipeline, bfs_partitioned,
                               partitioned_bfs_app)
 from repro_torch.graphs.csr import partition_csr, tile_csr
+from repro_torch.configs import MoEConfig
+from repro_torch.models.common import Initializer
+from repro_torch.models.moe import init_moe
 assert not torch.cuda.is_available()
 g = kron(scale=6, device="cpu")
+moe = MoEConfig(n_experts=4, top_k=2, d_ff=8)
 part = partition_csr(g, 2)
 calls = [lambda: FrontierPipeline(g, BFS_APP), lambda: bfs_pipeline(g),
          lambda: FrontierPipeline(g, BFS_APP, mode="hash"),
@@ -212,7 +264,10 @@ calls = [lambda: FrontierPipeline(g, BFS_APP), lambda: bfs_pipeline(g),
          lambda: run_pair("bfs", "kron", force=True),
          lambda: PartitionedFrontierPipeline(part, partitioned_bfs_app(part)),
          lambda: bfs_partitioned(g, n_parts=2),
-         lambda: GraphServingEngine(partition_csr(tile_csr(g, 8), 2))]
+         lambda: GraphServingEngine(partition_csr(tile_csr(g, 8), 2)),
+         lambda: Initializer(torch.Generator()),
+         lambda: init_moe(Initializer(torch.Generator(), torch.float32), 8,
+                          moe, "swiglu")]
 for call in calls:
     try:
         call()
@@ -222,6 +277,9 @@ for call in calls:
         raise AssertionError("ran without CUDA and without device='cpu'")
 label = bfs_pipeline(g, device="cpu")
 assert label.device.type == "cpu" and int(label[0]) == 0
+it = Initializer(torch.Generator(), device="cpu")
+init_moe(it, 8, moe, "swiglu")
+assert it.params["wi"].device.type == "cpu"
 print("ok")
 """
     r = _run(code, CUDA_VISIBLE_DEVICES="")
