@@ -155,12 +155,42 @@ Phases, in order (any failure exits non-zero and prints no result line):
                4096: ms, tokens/s, peak memory, dropped share, the expert
                FFN's flop; a profile of moe_hash and of plan_dispatch at
                16384 and the planner's share of moe_hash;
-  9. timings -- CUDA-event times after a warm-up for each kernel, its plain
+  9. lm      -- the LM substrate's model half (repro_torch.configs and
+               repro_torch.models: the IRU embedding, GQA/MLA attention,
+               Mamba-2, the stack's forward_train, prefill and decode_step;
+               plain torch, the path reaches no hand-written kernel).  (a)
+               In f32 with TF32 off at full width: deepseek-v2-lite-16b and
+               qwen3-32b cut to 2 layers (deepseek: the dense layer 0 and
+               one MoE layer, at capacity factor E / k so that no lane is
+               dropped; qwen3: GQA with qk-norm) and mamba2-130m whole
+               (SSD): a 300-token prompt (ragged over the 128-token attention
+               chunk) through prefill then 3 decode_steps at B = 2 match
+               forward_train's softmax at the same positions within atol
+               2e-3 (the reference's own check) and its logits within 1e-3
+               of the largest, and embed(iru=True) equals embed(iru=False)
+               bit for bit.  (b) In bf16: deepseek-v2-lite-16b whole (27
+               layers, full width, dispatch "iru_sorted"), built on the card
+               from a seeded generator: its parameter count (abstract_params
+               on meta) beside params_billions(), the build seconds and GiB
+               held; prefill at B = 2, S = 4096 (CUDA-event median of 5, ms,
+               prompt tokens/s, peak memory); 32 greedy decode steps at B =
+               8 after a 4096-token prompt (cache 4128; ms a step, tokens/s;
+               one more step under set_sync_debug_mode("error"));
+               one profiled prefill and one profiled decode step, split by
+               layer kind (attention, MoE, dense FFN, norms, embedding,
+               logits: the profiler's device time under a range around each
+               call, and CUDA-event spans) with the top 10 ops; then
+               mamba2-130m whole the same way
+               (prefill at B = 8, S = 4096).
+               The shapes are cut from LM_SHAPES: prefill_32k (S 32768, B
+               32) to B = 2, S = 4096 and decode_32k to B = 8 on a 4128
+               cache.  Every line carries the card's name and power limit;
+  10. timings -- CUDA-event times after a warm-up for each kernel, its plain
                version and one library call computing the same function (B2
                tagged and B3 have none), the bound (bytes over the card's
                3.35 TB/s), at PageRank's shape; B1 also at a BFS level's
                shape (the gappy quarter-node expansion) beside index_select;
-  10. profile -- device time by kernel and the device's busy share over short
+  11. profile -- device time by kernel and the device's busy share over short
                windows of PageRank on kron-20 (sort and hash), SSSP on
                delaunay-1024, three serving ticks (fused sort and fused
                hash), and B2's and B3's kernels in one call each at
@@ -1778,6 +1808,287 @@ def phase_moe():
     print(f"moe phase: {time.perf_counter() - t0:.1f} s")
 
 
+# The LM substrate's model half (phase 9).  (a) checks at full width in f32:
+# deepseek-v2-lite-16b and qwen3-32b cut to 2 layers (deepseek's dense layer
+# 0 and one MoE layer), mamba2-130m whole.  (b) timings in bf16 with
+# deepseek-v2-lite-16b whole (27 layers, full width) and mamba2-130m whole.
+# The shapes are cut from the configs' own LM_SHAPES to keep the phase near
+# two minutes: prefill_32k (S 32768, B 32) to B = 2, S = 4096; decode_32k
+# (B 128 on a 32k cache) to B = 8 on a 4128-long cache (a 4096-token prompt
+# and 32 steps).
+LM_CHECKS = (("deepseek-v2-lite-16b", 2), ("qwen3-32b", 2),
+             ("mamba2-130m", None))
+LM_CHECK_TOKENS = (2, 300, 3)      # B, prompt (ragged over the 128 chunk), steps
+LM_PREFILL = {"deepseek-v2-lite-16b": (2, 4096),  # B, S
+              "mamba2-130m": (8, 4096)}
+LM_DECODE = (8, 4096, 32)          # B, prompt, steps (cache 4096 + 32)
+LM_GROUPS = (  # profile group -> (module, functions the stack calls)
+    ("attention", "transformer", ("mla_forward", "gqa_forward")),
+    ("mamba", "transformer", ("mamba_forward",)),
+    ("moe", "transformer", ("moe_ffn",)),
+    ("dense ffn", "transformer", ("ffn",)),
+    ("norms", "transformer", ("rms_norm",)),
+    ("embedding", "embedding", ("embed",)),
+    ("logits", "embedding", ("logits",)),
+)
+
+
+def lm_check_arch(arch: str, depth, card: str) -> None:
+    """Prefill then decode steps against the full forward (the reference's
+    own check, tests/test_models.py:66-88), f32, at full width."""
+    import dataclasses
+
+    from repro_torch.configs import ParallelConfig, get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.embedding import embed
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=depth or cfg.n_layers,
+                              dtype=torch.float32)
+    if cfg.moe is not None:
+        # capacity factor E / k: C >= T, so no lane is dropped and the full
+        # forward and a 2-token decode step route alike (at 1.25 the
+        # 606-token forward drops lanes a decode step keeps: capacity
+        # semantics, not an error)
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    pcfg = ParallelConfig(attn_chunk=128)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    B, S, extra = LM_CHECK_TOKENS
+    with torch.inference_mode():
+        params, _ = T.init_params(cfg, pcfg, gen, dev)
+        toks = torch.randint(0, cfg.vocab_size, (B, S + extra), generator=gen,
+                             device=dev)
+        full, _ = T.forward_train(params, cfg, pcfg, {"tokens": toks})
+        cache = T.init_cache(cfg, pcfg, B, S + extra, device=dev)
+        lg, cache = T.prefill(params, cfg, pcfg, {"tokens": toks[:, :S]},
+                              cache)
+        steps = [(lg[:, -1], full[:, S - 1])]
+        for t in range(extra):
+            lg, cache = T.decode_step(params, cfg, pcfg,
+                                      toks[:, S + t:S + t + 1], cache, S + t)
+            steps.append((lg[:, 0], full[:, S + t]))
+        scale = float(full.abs().max())
+        soft = max(float((torch.softmax(a, -1) - torch.softmax(b, -1))
+                         .abs().max()) for a, b in steps)
+        err = max(float((a - b).abs().max()) for a, b in steps)
+        same = torch.equal(embed(params["embed"], toks, iru=True),
+                           embed(params["embed"], toks, iru=False))
+    print(f"lm check {arch} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"f32, TF32 off): prefill {S} + {extra} decode steps at B={B} vs "
+          f"forward_train: max softmax diff {soft:.3e} (atol 2e-3), max "
+          f"logit diff {err:.3e} of max |logit| {scale:.4g} "
+          f"({err / scale:.3e}, limit 1e-3); embed iru == plain bit for "
+          f"bit: {same}  [{card}]")
+    check(soft <= 2e-3, f"{arch}: prefill/decode softmax within 2e-3")
+    check(err <= 1e-3 * scale, f"{arch}: prefill/decode logits within 1e-3 "
+          "of max |logit|")
+    check(same, f"{arch}: embed(iru=True) equals embed(iru=False)")
+
+
+class _Ranges:
+    """Wrap the stack's calls (``LM_GROUPS``) in a profiler range and a
+    pair of CUDA events each, to split a run's device time by layer kind;
+    the functions are restored on exit."""
+
+    def __init__(self):
+        from repro_torch.models import embedding, transformer
+
+        self.mods = {"transformer": transformer, "embedding": embedding}
+        self.spans: dict[str, list] = {g: [] for g, _, _ in LM_GROUPS}
+        self.saved = []
+
+    def __enter__(self):
+        from torch.profiler import record_function
+
+        for group, mod, names in LM_GROUPS:
+            m = self.mods[mod]
+            for name in names:
+                fn = getattr(m, name)
+                self.saved.append((m, name, fn))
+
+                def wrapped(*a, _fn=fn, _g=group, **kw):
+                    ev = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(2)]
+                    with record_function(f"lm::{_g}"):
+                        ev[0].record()
+                        out = _fn(*a, **kw)
+                        ev[1].record()
+                    self.spans[_g].append(ev)
+                    return out
+
+                setattr(m, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for m, name, fn in self.saved:
+            setattr(m, name, fn)
+
+    def span_ms(self) -> dict[str, float]:
+        torch.cuda.synchronize()
+        return {g: sum(s.elapsed_time(e) for s, e in ev)
+                for g, ev in self.spans.items()}
+
+
+def lm_profile(label: str, fn, card: str, top: int = 10) -> None:
+    """One torch.profiler pass of ``fn`` (after a warm-up, as
+    ``profile_window``): device time by layer kind (the profiler's device
+    total under each ``lm::`` range, and the CUDA-event spans of the same
+    calls) and the top ops."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()  # warm-up
+    for _ in range(3):  # a session sometimes records no device event
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            wall_s(fn)
+            prof.step()
+            with _Ranges() as ranges:
+                _, wall = wall_s(fn)
+            spans = ranges.span_ms()
+        rows = []  # device-side events only (kernels, copies, memsets)
+        for e in prof.key_averages():
+            if (e.device_type == DeviceType.CUDA
+                    and e.self_device_time_total > 0
+                    and not e.key.startswith(("lm::", "ProfilerStep"))):
+                rows.append((e.self_device_time_total, e.count, e.key))
+        if rows:
+            break
+    groups = {g: 0.0 for g, _, _ in LM_GROUPS}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith("lm::"):
+            groups[e.name[4:]] += e.device_time_total / 1e3
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows) / 1e3
+    print(f"lm profile {label}: wall {wall * 1e3:.1f} ms, device busy "
+          f"{busy:.3f} ms ({busy / (wall * 1e3):.3f} of wall)  [{card}]")
+    for g, _, _ in LM_GROUPS:
+        if spans[g] or groups[g]:
+            print(f"  {g:<10} profiler {groups[g]:9.3f} ms "
+                  f"({groups[g] / max(busy, 1e-9):.3f} of busy), event "
+                  f"spans {spans[g]:9.3f} ms")
+    print(f"  other      profiler {busy - sum(groups.values()):9.3f} ms")
+    for dev_us, count, key in rows[:top]:
+        print(f"  {dev_us / 1e3:9.4f} ms  x{count:<6d} {key[:100]}")
+
+
+def lm_timings(arch: str, card: str, profile: bool) -> None:
+    """Build ``arch`` whole in bf16 on the card, then time prefill
+    (``LM_PREFILL[arch]``), decode (``LM_DECODE``) and profile one
+    prefill."""
+    from repro_torch.configs import ParallelConfig, get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.measure import tree_leaves
+
+    dev = torch.device("cuda", 0)
+    cfg, pcfg = get_config(arch), ParallelConfig()
+    meta, _ = T.abstract_params(cfg, pcfg)
+    count = sum(v.numel() for v in tree_leaves(meta))
+    print(f"lm {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"vocab {pcfg.padded_vocab(cfg.vocab_size)}: "
+          f"{count / 1e9:.4f} B params (abstract_params on meta) against "
+          f"params_billions() {cfg.params_billions():.4f} B")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.synchronize()
+    held0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        (params, _), build = wall_s(lambda: T.init_params(cfg, pcfg, gen, dev))
+        held = torch.cuda.memory_allocated() - held0
+        peak = torch.cuda.max_memory_allocated() - held0
+        print(f"lm {arch} build: {build:.3f} s, {held / 2**30:.3f} GiB held "
+              f"(peak {peak / 2**30:.3f} GiB while building), bf16  [{card}]")
+        check(count == sum(v.numel() for v in tree_leaves(params)),
+              f"{arch}: built params match abstract_params")
+
+        B, S = LM_PREFILL[arch]
+        toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                             device=dev)
+        cache = T.init_cache(cfg, pcfg, B, S, device=dev)
+        run = lambda: T.prefill(params, cfg, pcfg, {"tokens": toks}, cache)  # noqa: E731
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = event_median_ms(run, reps=5)
+        peak = torch.cuda.max_memory_allocated() - base
+        lg, _ = run()
+        check(lg.shape == (B, 1, pcfg.padded_vocab(cfg.vocab_size))
+              and bool(torch.isfinite(lg).all()), f"{arch}: finite prefill")
+        print(f"lm {arch} prefill B={B} S={S} bf16: {ms:.4f} ms (median of "
+              f"5), {B * S / ms * 1e3:.0f} prompt tokens/s, peak "
+              f"{peak / 2**30:.3f} GiB above {base / 2**30:.3f} held  "
+              f"[{card}]")
+        if profile:
+            lm_profile(f"{arch} prefill B={B} S={S} bf16, one call", run,
+                       card)
+        del cache, run, lg
+
+        B, S, steps = LM_DECODE
+        cache = T.init_cache(cfg, pcfg, B, S + steps, device=dev)
+        toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                             device=dev)
+        lg, cache = T.prefill(params, cfg, pcfg, {"tokens": toks}, cache)
+        tok = lg[:, -1].argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        marks = []
+        pos = torch.full((), S, dtype=torch.int32, device=dev)
+        for _ in range(steps):  # greedy: each step feeds the last argmax
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            lg, cache = T.decode_step(params, cfg, pcfg, tok, cache, pos)
+            tok = lg[:, 0].argmax(-1, keepdim=True)
+            pos = pos + 1  # on the card: no host copy a step
+            ev[1].record()
+            marks.append(ev)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        step_ms = [s.elapsed_time(e) for s, e in marks]
+        med = float(np.median(step_ms[1:]))  # the first step warms up
+        check(bool(torch.isfinite(lg).all()), f"{arch}: finite decode")
+        print(f"lm {arch} decode B={B} cache {S + steps} bf16: {med:.4f} ms "
+              f"a step (median of steps 2-{steps}; first {step_ms[0]:.4f}), "
+              f"{B / med * 1e3:.0f} tokens/s, peak {peak / 2**30:.3f} GiB "
+              f"above {base / 2**30:.3f} held  [{card}]")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:  # the step reads nothing on the host with a device pos
+            T.decode_step(params, cfg, pcfg, tok, cache, pos)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        print(f"lm {arch} decode_step with a device pos ran under "
+              f"set_sync_debug_mode('error'): no host sync")
+        if profile:
+            lm_profile(f"{arch} decode step B={B} cache {S + steps} bf16",
+                       lambda: T.decode_step(params, cfg, pcfg, tok, cache,
+                                             pos), card)
+        del params, cache, lg, tok, toks
+    torch.cuda.empty_cache()
+
+
+def phase_lm(card: str) -> None:
+    """Phase 9 (``lm`` lines): the LM's model half (configs, the IRU embedding, GQA/MLA
+    attention, Mamba-2, the stack's forward, prefill and decode; plain
+    torch, no hand-written kernel).  (a) f32 checks at full width; (b) bf16
+    timings with deepseek-v2-lite-16b whole and mamba2-130m whole."""
+    t0 = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for arch, depth in LM_CHECKS:
+            lm_check_arch(arch, depth, card)
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    print(f"lm checks: {time.perf_counter() - t0:.1f} s")
+    lm_timings("deepseek-v2-lite-16b", card, profile=True)
+    lm_timings("mamba2-130m", card, profile=True)
+    print(f"lm phase: {time.perf_counter() - t0:.1f} s")
+
+
 def phase_timings(g, dsts, contrib, sparse):
     from repro_torch.kernels.coalesced_gather import ops as gather_ops
     from repro_torch.kernels.coalesced_gather.ref import coalesced_gather_ref
@@ -2001,6 +2312,7 @@ def main() -> int:
     print(f"partitioned phase: {time.perf_counter() - t_part:.1f} s")
     del fused
     phase_moe()
+    phase_lm(card)
     for k, v in serving_errors.items():
         errors[k] = max(errors[k], v)
     timings = phase_timings(graphs["kron20"], dsts, contrib, sparse)

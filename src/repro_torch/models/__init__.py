@@ -1,2 +1,3 @@
-"""Model building blocks (counterpart of ``repro.models``): so far the
-parameter factory, the dense FFN and the MoE layer."""
+"""Model building blocks (counterpart of ``repro.models``): the parameter
+factory and norms, the IRU embedding, GQA/MLA attention, Mamba-2, the dense
+FFN, the MoE layer and the transformer stack (forward, prefill, decode)."""

@@ -1,21 +1,25 @@
-"""Shared model building blocks: the param factory with logical axes, FFN.
+"""Shared model building blocks: the param factory with logical axes,
+norms, FFN.
 
 Counterpart of ``repro.models.common``.  Every parameter is created through
 :class:`Initializer`, which builds two parallel nested dicts -- the tensors
 and their *logical axis names* -- so a sharding layer can later derive its
 layouts without a second source of truth.  Randomness comes from an
 explicit ``torch.Generator``; a child scope shares its parent's generator.
+The reference's ``constrain`` (a sharding constraint under a mesh) is not
+carried over: one process has no mesh.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.models.measure import tree_leaves, tree_map
 
 Params = dict
 Specs = dict
@@ -26,11 +30,13 @@ class Initializer:
     """Scoped factory producing (params, logical_axis_specs) in lockstep.
 
     ``device=None`` is the card (raises without one); pass ``device="cpu"``
-    to build on the CPU.  Random weights are drawn on the generator's
-    device, then moved to ``device``.
+    to build on the CPU.  Random weights are drawn in f32 on the
+    generator's device, then cast and moved to ``device``.  On the ``meta``
+    device nothing is drawn (``generator`` may be None): the tree holds
+    shapes and dtypes only.
     """
 
-    generator: torch.Generator
+    generator: Optional[torch.Generator]
     dtype: torch.dtype = torch.bfloat16
     device: Optional[str | torch.device] = None
     params: Params = dataclasses.field(default_factory=dict)
@@ -57,7 +63,9 @@ class Initializer:
     ) -> None:
         assert len(shape) == len(axes), (name, shape, axes)
         dt = dtype or self.dtype
-        if init == "zeros":
+        if self.device.type == "meta":
+            arr = torch.empty(shape, dtype=dt, device=self.device)
+        elif init == "zeros":
             arr = torch.zeros(shape, dtype=dt, device=self.device)
         elif init == "ones":
             arr = torch.ones(shape, dtype=dt, device=self.device)
@@ -70,6 +78,44 @@ class Initializer:
             arr = arr.to(device=self.device, dtype=dt)
         self.params[name] = arr
         self.specs[name] = axes
+
+    def vmap_unit(self, name: str, n: int,
+                  build: Callable[["Initializer"], None]) -> None:
+        """Create ``n`` stacked copies of a unit (for the loop over layers).
+
+        The build function sees a scoped Initializer; resulting tensors gain
+        a leading ``layers`` axis.  Each leaf is one preallocated ``[n, ...]``
+        tensor filled one copy at a time, so the peak is the stack plus one
+        unit (and one leaf's f32 draw), never two stacks.
+        """
+        stacked = None
+        for i in range(n):
+            it = Initializer(self.generator, self.dtype, self.device)
+            build(it)
+            if stacked is None:
+                stacked = tree_map(lambda v: v.new_empty((n,) + v.shape),
+                                   it.params)
+                self.specs[name] = _prefix_axes(it.specs)
+            for dst, src in zip(tree_leaves(stacked), tree_leaves(it.params)):
+                dst[i].copy_(src)
+            if self.device.type == "meta":
+                break  # no values to fill
+        self.params[name] = stacked
+
+
+def _prefix_axes(specs: dict) -> dict:
+    return {k: (_prefix_axes(v) if isinstance(v, dict)
+                else ("layers",) + tuple(v))
+            for k, v in specs.items()}
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """f32 statistics, cast back to ``x.dtype``, *then* the gain (the
+    reference's order: in bf16 the product rounds once, in bf16)."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * gamma
 
 
 def init_ffn(it: Initializer, d_model: int, d_ff: int, ffn_type: str) -> None:

@@ -232,6 +232,42 @@ print("ok")
     assert r.stdout.strip() == "ok"
 
 
+def test_lm_path_runs_without_jax_or_repro():
+    """The LM slice (configs, the IRU embedding, GQA/MLA attention, Mamba-2,
+    the stack's forward, prefill and decode) on the CPU, with ``jax`` and
+    ``repro`` blocked: a smoke deepseek and a smoke mamba2."""
+    code = """
+import dataclasses, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import torch
+from repro_torch.configs import ParallelConfig, get_config, smoke_config
+from repro_torch.models import transformer as T
+from repro_torch.models.embedding import embed
+pcfg = ParallelConfig(attn_chunk=16)
+assert abs(get_config("deepseek-v2-lite-16b").params_billions() - 15.65) < 0.01
+for arch in ("deepseek-v2-lite-16b", "mamba2-130m"):
+    cfg = dataclasses.replace(smoke_config(arch), dtype=torch.float32)
+    params, _ = T.init_params(cfg, pcfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 24),
+                         generator=torch.Generator().manual_seed(1))
+    full, _ = T.forward_train(params, cfg, pcfg, {"tokens": toks})
+    cache = T.init_cache(cfg, pcfg, 2, 24, device="cpu")
+    lg, cache = T.prefill(params, cfg, pcfg, {"tokens": toks[:, :20]}, cache)
+    assert torch.allclose(lg[:, 0], full[:, 19], rtol=1e-4, atol=1e-4)
+    for t in range(20, 24):
+        lg, cache = T.decode_step(params, cfg, pcfg, toks[:, t:t + 1], cache, t)
+        assert torch.allclose(lg[:, 0], full[:, t], rtol=1e-4, atol=1e-4)
+    assert torch.equal(embed(params["embed"], toks, iru=True),
+                       embed(params["embed"], toks, iru=False))
+print("ok")
+"""
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
 def test_entry_points_need_cuda_unless_cpu_is_asked():
     code = """
 import torch
@@ -249,7 +285,10 @@ from repro_torch.graphs.csr import partition_csr, tile_csr
 from repro_torch.configs import MoEConfig
 from repro_torch.models.common import Initializer
 from repro_torch.models.moe import init_moe
+from repro_torch.configs import ParallelConfig, smoke_config
+from repro_torch.models import transformer as T
 assert not torch.cuda.is_available()
+lm = smoke_config("deepseek-v2-lite-16b")
 g = kron(scale=6, device="cpu")
 moe = MoEConfig(n_experts=4, top_k=2, d_ff=8)
 part = partition_csr(g, 2)
@@ -267,7 +306,11 @@ calls = [lambda: FrontierPipeline(g, BFS_APP), lambda: bfs_pipeline(g),
          lambda: GraphServingEngine(partition_csr(tile_csr(g, 8), 2)),
          lambda: Initializer(torch.Generator()),
          lambda: init_moe(Initializer(torch.Generator(), torch.float32), 8,
-                          moe, "swiglu")]
+                          moe, "swiglu"),
+         lambda: T.init_params(lm, ParallelConfig(), torch.Generator()),
+         lambda: T.init_cache(lm, ParallelConfig(), 2, 8),
+         lambda: Initializer(torch.Generator()).vmap_unit(
+             "s", 2, lambda it: it.weight("w", (2,), (None,)))]
 for call in calls:
     try:
         call()
