@@ -185,12 +185,41 @@ Phases, in order (any failure exits non-zero and prints no result line):
                The shapes are cut from LM_SHAPES: prefill_32k (S 32768, B
                32) to B = 2, S = 4096 and decode_32k to B = 8 on a 4128
                cache.  Every line carries the card's name and power limit;
-  10. timings -- CUDA-event times after a warm-up for each kernel, its plain
+  10. train  -- LM training (repro_torch.optim, .train, .data, .ckpt, .ft
+               and .launch.train; plain torch, the path reaches no
+               hand-written kernel).  (a) In f32 with TF32 off at full
+               width: deepseek-v2-lite-16b cut to 2 layers (iru_hash, at
+               capacity factor E / k so no lane drops; B = 2, S = 512,
+               aux_weight 0): the grads and loss of make_grad_fn with remat
+               "full" equal remat "none", and microbatches 2 equal 1, the
+               loss within 1e-6 relative and every grad within 1e-5 of its
+               leaf's largest; mamba2-130m whole, 8 steps uninterrupted
+               against a Supervisor run that dies at step 6 and resumes
+               from the step-4 checkpoint (under build/, with torch's
+               deterministic algorithms): losses within rtol 1e-5, one
+               restart, the last checkpoint restoring bit for bit; 20 steps
+               on one batch with int8 moments within rtol 0.5 of fp32's,
+               both falling.  (b) In bf16, remat full, on the Zipf stream:
+               deepseek-v2-lite-16b at its published widths cut to 4
+               layers (iru_hash, capacity factor 1.25, B = 2, S = 4096) and
+               mamba2-130m whole (B = 8, S = 4096), each with fp32 then
+               int8 moments: the parameter count (abstract_state on meta),
+               build seconds, GiB held (params, moments), the step's
+               CUDA-event median over steps 3-7 of 10, tokens/s, peak
+               memory, the 10 losses (which must fall), the MoE drop rate
+               and load imbalance; one profiled deepseek step split into
+               forward, loss, backward (with the remat recompute) and
+               optimizer by CUDA-event spans, with the device busy share.
+               (c) python -m repro_torch.launch.train --arch mamba2-130m
+               --steps 30 --batch 8 --seq 1024 --ckpt build/train_smoke
+               --ckpt-every 10 --inject-faults as a subprocess: exit 0 and a
+               train_summary.json of 30 steps, 1 restart, 1 NaN event;
+  11. timings -- CUDA-event times after a warm-up for each kernel, its plain
                version and one library call computing the same function (B2
                tagged and B3 have none), the bound (bytes over the card's
                3.35 TB/s), at PageRank's shape; B1 also at a BFS level's
                shape (the gappy quarter-node expansion) beside index_select;
-  11. profile -- device time by kernel and the device's busy share over short
+  12. profile -- device time by kernel and the device's busy share over short
                windows of PageRank on kron-20 (sort and hash), SSSP on
                delaunay-1024, three serving ticks (fused sort and fused
                hash), and B2's and B3's kernels in one call each at
@@ -1823,13 +1852,14 @@ LM_PREFILL = {"deepseek-v2-lite-16b": (2, 4096),  # B, S
               "mamba2-130m": (8, 4096)}
 LM_DECODE = (8, 4096, 32)          # B, prompt, steps (cache 4096 + 32)
 LM_GROUPS = (  # profile group -> (module, functions the stack calls)
-    ("attention", "transformer", ("mla_forward", "gqa_forward")),
-    ("mamba", "transformer", ("mamba_forward",)),
-    ("moe", "transformer", ("moe_ffn",)),
-    ("dense ffn", "transformer", ("ffn",)),
-    ("norms", "transformer", ("rms_norm",)),
-    ("embedding", "embedding", ("embed",)),
-    ("logits", "embedding", ("logits",)),
+    ("attention", "repro_torch.models.transformer",
+     ("mla_forward", "gqa_forward")),
+    ("mamba", "repro_torch.models.transformer", ("mamba_forward",)),
+    ("moe", "repro_torch.models.transformer", ("moe_ffn",)),
+    ("dense ffn", "repro_torch.models.transformer", ("ffn",)),
+    ("norms", "repro_torch.models.transformer", ("rms_norm",)),
+    ("embedding", "repro_torch.models.embedding", ("embed",)),
+    ("logits", "repro_torch.models.embedding", ("logits",)),
 )
 
 
@@ -1888,22 +1918,23 @@ def lm_check_arch(arch: str, depth, card: str) -> None:
 
 
 class _Ranges:
-    """Wrap the stack's calls (``LM_GROUPS``) in a profiler range and a
-    pair of CUDA events each, to split a run's device time by layer kind;
-    the functions are restored on exit."""
+    """Wrap the calls of ``groups`` (group, module, function names) in a
+    profiler range and a pair of CUDA events each, to split a run's device
+    time by group (the stack's layer kinds, or a train step's phases); the
+    functions are restored on exit."""
 
-    def __init__(self):
-        from repro_torch.models import embedding, transformer
-
-        self.mods = {"transformer": transformer, "embedding": embedding}
-        self.spans: dict[str, list] = {g: [] for g, _, _ in LM_GROUPS}
+    def __init__(self, groups=LM_GROUPS):
+        self.groups = groups
+        self.spans: dict[str, list] = {g: [] for g, _, _ in groups}
         self.saved = []
 
     def __enter__(self):
+        import importlib
+
         from torch.profiler import record_function
 
-        for group, mod, names in LM_GROUPS:
-            m = self.mods[mod]
+        for group, mod, names in self.groups:
+            m = importlib.import_module(mod)
             for name in names:
                 fn = getattr(m, name)
                 self.saved.append((m, name, fn))
@@ -1931,7 +1962,8 @@ class _Ranges:
                 for g, ev in self.spans.items()}
 
 
-def lm_profile(label: str, fn, card: str, top: int = 10) -> None:
+def lm_profile(label: str, fn, card: str, top: int = 10,
+               groups=LM_GROUPS) -> None:
     """One torch.profiler pass of ``fn`` (after a warm-up, as
     ``profile_window``): device time by layer kind (the profiler's device
     total under each ``lm::`` range, and the CUDA-event spans of the same
@@ -1945,7 +1977,7 @@ def lm_profile(label: str, fn, card: str, top: int = 10) -> None:
                      schedule=schedule(wait=0, warmup=1, active=1)) as prof:
             wall_s(fn)
             prof.step()
-            with _Ranges() as ranges:
+            with _Ranges(groups) as ranges:
                 _, wall = wall_s(fn)
             spans = ranges.span_ms()
         rows = []  # device-side events only (kernels, copies, memsets)
@@ -1956,20 +1988,20 @@ def lm_profile(label: str, fn, card: str, top: int = 10) -> None:
                 rows.append((e.self_device_time_total, e.count, e.key))
         if rows:
             break
-    groups = {g: 0.0 for g, _, _ in LM_GROUPS}
+    totals = {g: 0.0 for g, _, _ in groups}
     for e in prof.events():
         if e.device_type == DeviceType.CPU and e.name.startswith("lm::"):
-            groups[e.name[4:]] += e.device_time_total / 1e3
+            totals[e.name[4:]] += e.device_time_total / 1e3
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e3
     print(f"lm profile {label}: wall {wall * 1e3:.1f} ms, device busy "
           f"{busy:.3f} ms ({busy / (wall * 1e3):.3f} of wall)  [{card}]")
-    for g, _, _ in LM_GROUPS:
-        if spans[g] or groups[g]:
-            print(f"  {g:<10} profiler {groups[g]:9.3f} ms "
-                  f"({groups[g] / max(busy, 1e-9):.3f} of busy), event "
+    for g, _, _ in groups:
+        if spans[g] or totals[g]:
+            print(f"  {g:<10} profiler {totals[g]:9.3f} ms "
+                  f"({totals[g] / max(busy, 1e-9):.3f} of busy), event "
                   f"spans {spans[g]:9.3f} ms")
-    print(f"  other      profiler {busy - sum(groups.values()):9.3f} ms")
+    print(f"  other      profiler {busy - sum(totals.values()):9.3f} ms")
     for dev_us, count, key in rows[:top]:
         print(f"  {dev_us / 1e3:9.4f} ms  x{count:<6d} {key[:100]}")
 
@@ -2087,6 +2119,341 @@ def phase_lm(card: str) -> None:
     lm_timings("deepseek-v2-lite-16b", card, profile=True)
     lm_timings("mamba2-130m", card, profile=True)
     print(f"lm phase: {time.perf_counter() - t0:.1f} s")
+
+
+# LM training (phase 10).  The deepseek cut to 4 layers is forced by the
+# card: 27 layers hold 15.7 B params, whose bf16 params and grads alone are
+# 63 GB before any moment; 4 layers (the dense layer 0 and 3 MoE layers)
+# hold 2.2550 B.  B = 2 of train_4k's 256 at its S = 4096.
+TRAIN_CHECK = ("deepseek-v2-lite-16b", 2, 2, 512)  # arch, layers, B, S (f32)
+TRAIN_SMALL = (2, 512)              # B, S of mamba2-130m's f32 checks
+TRAIN_RESUME = (8, 6, 4)            # steps, die_at, ckpt_every
+TRAIN_TRACK_STEPS = 20              # int8 against fp32 on a fixed batch
+TRAIN_TIMED = {"deepseek-v2-lite-16b": (4, 2, 4096),  # layers, B, S (bf16)
+               "mamba2-130m": (None, 8, 4096)}
+TRAIN_STEPS = (2, 5, 10)            # warm-up, timed (median), steps in all
+TRAIN_GROUPS = (  # profile group -> (module, functions a train step calls)
+    ("forward", "repro_torch.models.transformer", ("forward_train",)),
+    ("loss", "repro_torch.train.trainer", ("softmax_xent",)),
+    ("backward", "torch.autograd", ("grad",)),
+    ("optimizer", "repro_torch.train.trainer", ("adamw_update",)),
+)
+TRAIN_LAUNCH = ("--arch", "mamba2-130m", "--steps", "30", "--batch", "8",
+                "--seq", "1024", "--ckpt", "build/train_smoke",
+                "--ckpt-every", "10", "--inject-faults")
+
+
+def _train_cfg(arch: str, layers=None, *, dtype=None, no_drop=False):
+    """``arch`` at its published widths, cut to ``layers``, with the
+    planned dispatch (whose stats the trainer logs)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=layers or cfg.n_layers,
+                              dtype=dtype or cfg.dtype)
+    if cfg.moe is not None:
+        cf = cfg.moe.n_experts / cfg.moe.top_k if no_drop else 1.25
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, dispatch="iru_hash", capacity_factor=cf))
+    return cfg
+
+
+def _max_leaf_err(got: dict, want: dict) -> float:
+    """Largest |got - want| over the leaves, each over its leaf's largest
+    |want|."""
+    from repro_torch.models.measure import tree_leaves
+
+    return max(float((g.float() - w.float()).abs().max())
+               / max(float(w.float().abs().max()), 1e-30)
+               for g, w in zip(tree_leaves(got), tree_leaves(want)))
+
+
+def train_checks(card: str) -> None:
+    """Phase 10 (a): f32 checks at full width, TF32 off."""
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import make_batch
+    from repro_torch.train import TrainConfig, init_state, make_grad_fn
+
+    dev = torch.device("cuda", 0)
+    arch, layers, B, S = TRAIN_CHECK
+    cfg = _train_cfg(arch, layers, dtype=torch.float32, no_drop=True)
+    # aux_weight 0: the load-balance loss of a microbatch is not the mean
+    # of the whole batch's, so only the cross-entropy's grads split exactly
+    tc = TrainConfig(aux_weight=0.0)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    state = init_state(cfg, ParallelConfig(), tc, gen, dev)
+    batch = make_batch(cfg, ShapeConfig("check", S, B, "train"), 0,
+                       device=dev)
+    runs = {}
+    for remat, mb in (("none", 1), ("full", 1), ("none", 2)):
+        pcfg = ParallelConfig(remat=remat, microbatches=mb)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        grads, loss, _, moem = make_grad_fn(cfg, pcfg, tc)(state["params"],
+                                                          batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        runs[remat, mb] = (grads, float(loss), moem, peak)
+    g1, l1, m1, p1 = runs["none", 1]
+    for key, what in ((("full", 1), "remat full vs none"),
+                      (("none", 2), "microbatches 2 vs 1")):
+        g, l, m, p = runs[key]
+        err, lrel = _max_leaf_err(g, g1), abs(l - l1) / abs(l1)
+        print(f"train check {arch} ({layers} layers, f32, TF32 off, B={B} "
+              f"S={S}): {what}: loss {l:.7f} vs {l1:.7f} (rel {lrel:.3e}, "
+              f"limit 1e-6), largest grad error {err:.3e} of its leaf's "
+              f"largest (limit 1e-5); step peak {p / 2**30:.3f} vs "
+              f"{p1 / 2**30:.3f} GiB; drop rate "
+              f"{float(m['moe_drop_rate'].max()):.4f}  [{card}]")
+        check(lrel <= 1e-6, f"train {what}: loss within 1e-6")
+        check(err <= 1e-5, f"train {what}: grads within 1e-5 of the leaf")
+    check(float(m1["moe_drop_rate"].max()) == 0.0,
+          "train check: no lane dropped at capacity factor E / k")
+    del state, runs, g1, g, grads, batch
+    torch.cuda.empty_cache()
+
+    # mamba2-130m whole: an uninterrupted run against a supervised one
+    # that dies at step 6 and resumes from the step-4 checkpoint.  Both run
+    # with torch's deterministic algorithms: the embedding backward's float
+    # index_add otherwise sums in atomics' order, and Adam's first steps
+    # (m / sqrt(v), about sign(g)) turn a last-bit difference in a grad
+    # near zero into a whole lr step (1.7e-4 of the loss after 8 steps on
+    # an H100)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        train_resume(card)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    train_track(card)
+    torch.cuda.empty_cache()
+
+
+def train_resume(card: str) -> None:
+    """mamba2-130m whole, f32: an uninterrupted run against a supervised
+    one that dies and resumes from a checkpoint."""
+    import shutil
+
+    from repro_torch.ckpt import CheckpointManager, restore_checkpoint
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import make_batch
+    from repro_torch.ft import (FaultInjector, FaultPlan, Supervisor,
+                                SupervisorConfig)
+    from repro_torch.models.measure import tree_leaves
+    from repro_torch.train import TrainConfig, init_state, make_train_step
+
+    dev = torch.device("cuda", 0)
+    cfg = _train_cfg("mamba2-130m", dtype=torch.float32)
+    pcfg = ParallelConfig()
+    B, S = TRAIN_SMALL
+    steps, die_at, every = TRAIN_RESUME
+    tc = TrainConfig(warmup_steps=1, total_steps=steps)
+    shape = ShapeConfig("check", S, B, "train")
+    step_fn = make_train_step(cfg, pcfg, tc)
+
+    def batch_fn(s):
+        return make_batch(cfg, shape, s, device=dev)
+
+    state = init_state(cfg, pcfg, tc, torch.Generator(device=dev)
+                       .manual_seed(SEED), dev)
+    base = []
+    for s in range(steps):
+        state, m = step_fn(state, batch_fn(s))
+        base.append(float(m["loss"]))
+    del state
+    ckpt = ROOT / "build" / "train_resume"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    sup = Supervisor(CheckpointManager(str(ckpt)),
+                     SupervisorConfig(ckpt_every=every),
+                     injector=FaultInjector(FaultPlan(die_at=(die_at,))))
+    state = init_state(cfg, pcfg, tc, torch.Generator(device=dev)
+                       .manual_seed(SEED), dev)
+    (state, last), secs = wall_s(lambda: sup.run(state, step_fn, batch_fn,
+                                                 0, steps))
+    by_step = {h["step"]: h["loss"] for h in sup.history}
+    rel = max(abs(by_step[s] - base[s]) / abs(base[s]) for s in range(steps))
+    exact = all(by_step[s] == base[s] for s in range(steps))
+    saved = restore_checkpoint(str(ckpt), state, device=dev)
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(saved),
+                                                  tree_leaves(state)))
+    print(f"train check mamba2-130m (whole, f32, B={B} S={S}): {steps} "
+          f"steps uninterrupted vs Supervisor with die_at={die_at}, "
+          f"ckpt_every={every}: restarts {sup.restarts}, history steps "
+          f"{[h['step'] for h in sup.history]}, largest loss rel diff "
+          f"{rel:.3e} (limit 1e-5; equal: {exact}), deterministic "
+          f"algorithms; last checkpoint restores bit for bit: "
+          f"{same}; {secs:.1f} s with the checkpoints  [{card}]")
+    check(last == steps and sup.restarts == 1, "train resume: one restart")
+    check(rel <= 1e-5, "train resume: trajectories within rtol 1e-5")
+    check(same, "train resume: checkpoint restores bit for bit")
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def train_track(card: str) -> None:
+    """int8 moments track fp32 on a fixed batch (mamba2-130m, f32)."""
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import make_batch
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, init_state, make_train_step
+
+    dev = torch.device("cuda", 0)
+    cfg, pcfg = _train_cfg("mamba2-130m", dtype=torch.float32), ParallelConfig()
+    B, S = TRAIN_SMALL
+    batch = make_batch(cfg, ShapeConfig("check", S, B, "train"), 0,
+                       device=dev)
+    tracks = {}
+    for sd in ("fp32", "int8"):
+        tc = TrainConfig(adam=AdamWConfig(state_dtype=sd), warmup_steps=1,
+                         total_steps=TRAIN_TRACK_STEPS)
+        state = init_state(cfg, pcfg, tc, torch.Generator(device=dev)
+                           .manual_seed(SEED), dev)
+        step_fn = make_train_step(cfg, pcfg, tc)
+        losses = []
+        for _ in range(TRAIN_TRACK_STEPS):
+            state, m = step_fn(state, batch)
+            losses.append(m["loss"])
+        tracks[sd] = [float(x) for x in losses]
+        del state
+    a, b = tracks["fp32"], tracks["int8"]
+    rel = abs(b[-1] - a[-1]) / abs(a[-1])
+    print(f"train check mamba2-130m int8 vs fp32 moments, "
+          f"{TRAIN_TRACK_STEPS} steps on one batch: loss {a[0]:.4f} -> "
+          f"fp32 {a[-1]:.4f}, int8 {b[-1]:.4f} (rel {rel:.3f}, limit 0.5)"
+          f"  [{card}]")
+    check(rel <= 0.5 and a[-1] < a[0] and b[-1] < b[0],
+          "train: int8 moments track fp32")
+
+
+def _gib(tree) -> float:
+    from repro_torch.models.measure import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)) / 2**30
+
+
+def train_timings(arch: str, card: str, profile: bool) -> None:
+    """Phase 10 (b): ``arch`` in bf16 at ``TRAIN_TIMED[arch]``, remat
+    full, on the Zipf stream; fp32 moments, then int8."""
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import make_batch
+    from repro_torch.models.measure import tree_leaves
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (TrainConfig, abstract_state, init_state,
+                                   make_train_step)
+
+    dev = torch.device("cuda", 0)
+    layers, B, S = TRAIN_TIMED[arch]
+    cfg, pcfg = _train_cfg(arch, layers), ParallelConfig(remat="full")
+    shape = ShapeConfig("train", S, B, "train")
+    warm, timed, total = TRAIN_STEPS
+    for sd in ("fp32", "int8"):
+        tc = TrainConfig(adam=AdamWConfig(state_dtype=sd), warmup_steps=2,
+                         total_steps=total)
+        meta, _ = abstract_state(cfg, pcfg, tc)
+        count = sum(v.numel() for v in tree_leaves(meta["params"]))
+        torch.cuda.synchronize()
+        held0 = torch.cuda.memory_allocated()
+        state, build = wall_s(lambda: init_state(
+            cfg, pcfg, tc, torch.Generator(device=dev).manual_seed(SEED),
+            dev))
+        held = torch.cuda.memory_allocated() - held0
+        print(f"train {arch} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+              f"bf16, {sd} moments): {count / 1e9:.4f} B params "
+              f"(abstract_state on meta); build {build:.3f} s; "
+              f"{held / 2**30:.3f} GiB held: params "
+              f"{_gib(state['params']):.3f}, moments "
+              f"{_gib(state['opt']):.3f}; grads {_gib(meta['params']):.3f} "
+              f"GiB while a step runs  [{card}]")
+        step_fn = make_train_step(cfg, pcfg, tc)
+        batches = [make_batch(cfg, shape, s, device=dev)
+                   for s in range(total)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        marks, metrics = [], []
+        for s in range(total):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            state, m = step_fn(state, batches[s])
+            ev[1].record()
+            marks.append(ev)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - held0
+        ms = [a.elapsed_time(b) for a, b in marks]
+        med = float(np.median(ms[warm:warm + timed]))
+        losses = [float(m["loss"]) for m in metrics]
+        line = (f"train {arch} {sd} moments, B={B} S={S}, remat full: "
+                f"{med:.4f} ms a step (median of steps {warm + 1}-"
+                f"{warm + timed}; first {ms[0]:.1f}), "
+                f"{B * S / med * 1e3:.0f} tokens/s, peak "
+                f"{peak / 2**30:.3f} GiB; loss over {total} steps "
+                f"{[round(x, 4) for x in losses]}")
+        if "moe_drop_rate" in metrics[-1]:
+            drop = torch.stack([m["moe_drop_rate"] for m in metrics])
+            imb = torch.stack([m["moe_load_imbalance"] for m in metrics])
+            line += (f"; moe_drop_rate mean {float(drop.mean()):.4f} max "
+                     f"{float(drop.max()):.4f}, moe_load_imbalance mean "
+                     f"{float(imb.mean()):.3f} max {float(imb.max()):.3f}")
+        print(line + f"  [{card}]")
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"train {arch} {sd}: finite loss that falls")
+        if profile and sd == "fp32":
+            batch = batches[-1]
+            lm_profile(f"train {arch} one step (B={B} S={S}, fp32 moments)",
+                       lambda: step_fn(state, batch), card,
+                       groups=TRAIN_GROUPS)
+        del state, batches, metrics, marks
+        torch.cuda.empty_cache()
+
+
+def train_launcher(card: str) -> None:
+    """Phase 10 (c): the launcher as a user runs it, in a subprocess."""
+    import os
+    import shutil
+
+    ckpt = ROOT / "build" / "train_smoke"
+    shutil.rmtree(ckpt, ignore_errors=True)  # the launcher resumes LATEST
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                        *TRAIN_LAUNCH], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    tail = r.stdout.strip().splitlines()[-4:]
+    print(f"train launcher ({' '.join(TRAIN_LAUNCH)}): exit "
+          f"{r.returncode} in {secs:.1f} s; " + " | ".join(tail)
+          + f"  [{card}]")
+    check(r.returncode == 0, f"train launcher exits 0: {r.stderr[-2000:]}")
+    with open(ckpt / "train_summary.json") as f:
+        summary = json.load(f)
+    print(f"train launcher summary: {summary}")
+    check(summary["steps"] == 30 and summary["restarts"] == 1
+          and summary["nan_events"] == 1, "train launcher summary")
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def phase_train(card: str) -> None:
+    """Phase 10 (``train`` lines): LM training (AdamW in three moment
+    precisions, the schedule, the z-loss cross-entropy, the train step with
+    microbatches and remat, the Zipf stream, checkpoints, the supervisor
+    and the launcher; plain torch, no hand-written kernel)."""
+    t0 = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        train_checks(card)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    print(f"train checks: {time.perf_counter() - t0:.1f} s")
+    train_timings("deepseek-v2-lite-16b", card, profile=True)
+    train_timings("mamba2-130m", card, profile=False)
+    train_launcher(card)
+    print(f"train phase: {time.perf_counter() - t0:.1f} s")
 
 
 def phase_timings(g, dsts, contrib, sparse):
@@ -2313,6 +2680,7 @@ def main() -> int:
     del fused
     phase_moe()
     phase_lm(card)
+    phase_train(card)
     for k, v in serving_errors.items():
         errors[k] = max(errors[k], v)
     timings = phase_timings(graphs["kron20"], dsts, contrib, sparse)

@@ -1,0 +1,6 @@
+"""Checkpoints in the reference's format (counterpart of ``repro.ckpt``)."""
+from repro_torch.ckpt.checkpoint import (CheckpointManager, latest_step,
+                                         restore_checkpoint, save_checkpoint)
+
+__all__ = ["CheckpointManager", "latest_step", "restore_checkpoint",
+           "save_checkpoint"]

@@ -3,8 +3,8 @@
 The tests run both packages on the same inputs: they hand the reference's
 arrays over as numpy (``np.asarray(g.row_ptr)`` ...), and these helpers put
 them on a torch device with the reference's dtypes.  The graph paths have
-no weights; the models' random params and the LM's decode caches cross
-through :func:`params_from_numpy`.
+no weights; the models' random params, the LM's decode caches and
+training states cross through :func:`params_from_numpy`.
 """
 from __future__ import annotations
 
@@ -79,8 +79,9 @@ def _tensor_from_array(value, dev: torch.device) -> torch.Tensor:
 
 def params_from_numpy(tree, device: str | torch.device | None = None):
     """Nested dicts, lists and tuples of array-likes (the reference's params,
-    or its decode cache: a list per stage of tuples of dicts) -> the same
-    nesting of tensors, dtypes kept; bf16 crosses bit for bit."""
+    its decode cache -- a list per stage of tuples of dicts -- or a whole
+    ``TrainState`` with its int8 moment dicts and 0-d int32 ``step``) ->
+    the same nesting of tensors, dtypes kept; bf16 crosses bit for bit."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, dev) for k, v in tree.items()}

@@ -1,14 +1,20 @@
-"""Deterministic fault injection for the graph serving engine.
+"""Deterministic fault injection for the training supervisor and the graph
+serving engine (counterpart of ``repro.ft.failures``).
 
-Counterpart of the serving side of ``repro.ft.failures``.  The serving
-engine (``serve.graph_engine``) has its own failure vocabulary: a step's
-merged frontier blowing the edge budget, a query arriving with a poisoned
-source id, a tenant cancelled mid-flight, a pathological straggler.
-``QueryFaultPlan`` scripts them; it validates at construction (negative
-tick indices are authoring bugs, not faults), and ``QueryFaultInjector``
-fires each entry once and records what fired in ``fired``, so tests can
-assert that every scripted fault happened.  The trainer's ``FaultPlan`` and
-``FaultInjector`` come with the LM substrate.
+A training step's failure modes are a worker dying (preemption, hardware),
+a step hanging (a straggler) and a numerically poisoned update;
+``FaultPlan`` scripts them by step and ``FaultInjector`` raises, sleeps or
+poisons the loss at those steps, once each, so tests can assert the
+supervisor's recovery without nondeterminism.
+
+The serving engine (``serve.graph_engine``) has its own failure
+vocabulary: a step's merged frontier blowing the edge budget, a query
+arriving with a poisoned source id, a tenant cancelled mid-flight, a
+pathological straggler.  ``QueryFaultPlan`` scripts them and
+``QueryFaultInjector`` fires each entry once.  Both plans validate at
+construction (negative indices are authoring bugs, not faults), and both
+injectors record what fired in ``fired``, so tests can assert that every
+scripted fault happened.
 """
 from __future__ import annotations
 
@@ -26,6 +32,46 @@ def _check_steps(name: str, steps: tuple, *, pairs: bool = False) -> None:
                     f"{name} entries must be (id >= 0, step >= 0), got {s}")
         elif s < 0:
             raise ValueError(f"{name} step indices must be >= 0, got {s}")
+
+
+class WorkerDied(RuntimeError):
+    """Simulated node failure (preemption, hardware loss)."""
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultPlan:
+    die_at: tuple[int, ...] = ()        # steps raising WorkerDied
+    hang_at: tuple[int, ...] = ()       # steps sleeping past the deadline
+    nan_at: tuple[int, ...] = ()        # steps whose loss is poisoned to NaN
+    hang_seconds: float = 0.2
+
+    def __post_init__(self):
+        _check_steps("die_at", self.die_at)
+        _check_steps("hang_at", self.hang_at)
+        _check_steps("nan_at", self.nan_at)
+        if self.hang_seconds < 0:
+            raise ValueError(
+                f"hang_seconds must be >= 0, got {self.hang_seconds}")
+
+
+@dataclasses.dataclass
+class FaultInjector:
+    plan: FaultPlan = FaultPlan()
+    fired: set[tuple[str, int]] = dataclasses.field(default_factory=set)
+
+    def before_step(self, step: int) -> None:
+        if step in self.plan.die_at and ("die", step) not in self.fired:
+            self.fired.add(("die", step))
+            raise WorkerDied(f"injected node failure at step {step}")
+        if step in self.plan.hang_at and ("hang", step) not in self.fired:
+            self.fired.add(("hang", step))
+            time.sleep(self.plan.hang_seconds)
+
+    def poison_loss(self, step: int, loss: float) -> float:
+        if step in self.plan.nan_at and ("nan", step) not in self.fired:
+            self.fired.add(("nan", step))
+            return float("nan")
+        return loss
 
 
 @dataclasses.dataclass(frozen=True)

@@ -17,9 +17,11 @@ Public surface:
   encode                          -- whisper encoder
 
 Decode caches are updated in place (each stage's stacked tensors), and
-``prefill`` / ``decode_step`` return the same tensors.  ``remat`` has no
-effect: the port runs serving under ``torch.inference_mode`` and trains in
-a later slice.
+``prefill`` / ``decode_step`` return the same tensors.  Training honours
+``pcfg.remat``: with ``"full"`` and grad enabled, each unit of a stage (and
+of the encoder) runs under ``torch.utils.checkpoint``, as the reference
+wraps it in ``jax.checkpoint``; serving runs under
+``torch.inference_mode`` and is not wrapped.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import functools
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.device import resolve_device
@@ -237,6 +240,24 @@ def _write_back(cache: dict, new: dict) -> None:
             cache[k].copy_(v)
 
 
+def _checkpointed(unit_body):
+    """``unit_body`` under activation checkpointing where grad is enabled.
+
+    The recompute must save the same tensors as the first run: the units'
+    sorts are stable and the MoE planner's counts are integers, so a MoE
+    unit drops the same lanes both times.  No unit draws random numbers,
+    so the RNG state is not stashed."""
+
+    def body(carry, inputs):
+        if not torch.is_grad_enabled():
+            return unit_body(carry, inputs)
+        return torch.utils.checkpoint.checkpoint(
+            unit_body, carry, inputs, use_reentrant=False,
+            preserve_rng_state=False)
+
+    return body
+
+
 def _run_stage(stacked: dict, x: torch.Tensor, specs: tuple[LayerSpec, ...],
                cfg: ModelConfig, pcfg: ParallelConfig, *,
                caches=None, pos=None, enc_out=None, remat: bool = False,
@@ -246,8 +267,10 @@ def _run_stage(stacked: dict, x: torch.Tensor, specs: tuple[LayerSpec, ...],
     Returns ``(x, caches, aux_sum, stats)``: ``caches`` is the stage's
     stacked cache, updated in place; ``stats`` is a per-unit-layer tuple of
     ``DispatchStats`` stacked over the repeats ([rep, ...] leaves) for MoE
-    layers under ``want_stats``, None entries otherwise.  ``remat`` has no
-    effect (no autograd graph is kept for serving).
+    layers under ``want_stats``, None entries otherwise.  ``remat`` (with
+    ``pcfg.remat != "none"``) recomputes each unit in the backward pass
+    instead of keeping its activations; it applies only where grad is
+    enabled.
     """
 
     def unit_body(xx, inputs):
@@ -265,8 +288,11 @@ def _run_stage(stacked: dict, x: torch.Tensor, specs: tuple[LayerSpec, ...],
             aux = aux + a
         return xx, (aux, tuple(sts))
 
+    body = unit_body
+    if remat and pcfg.remat != "none":
+        body = _checkpointed(unit_body)
     n_rep = tree_leaves(stacked)[0].shape[0]
-    x, (auxs, stats) = mscan(unit_body, x, (stacked, caches), length=n_rep)
+    x, (auxs, stats) = mscan(body, x, (stacked, caches), length=n_rep)
     return x, caches, auxs.sum(), stats
 
 
@@ -307,7 +333,8 @@ def encode(params: dict, cfg: ModelConfig, pcfg: ParallelConfig,
         xx = xx + ffn(p["l0"]["ffn"], h, cfg.ffn_type)
         return xx, None
 
-    x, _ = mscan(unit_body, frames, params["enc"]["stage0"])
+    body = _checkpointed(unit_body) if remat else unit_body
+    x, _ = mscan(body, frames, params["enc"]["stage0"])
     return rms_norm(x, params["enc"]["norm"], cfg.norm_eps)
 
 

@@ -268,6 +268,50 @@ print("ok")
     assert r.stdout.strip() == "ok"
 
 
+def test_training_path_runs_without_jax_or_repro(tmp_path):
+    """The training slice (AdamW in three moment precisions, the schedule,
+    the loss, the Zipf stream, the train step with microbatches and remat,
+    checkpoints, the supervisor and the launcher) on the CPU, with ``jax``
+    and ``repro`` blocked."""
+    code = f"""
+import dataclasses, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import torch
+from repro_torch.ckpt import CheckpointManager, restore_checkpoint
+from repro_torch.configs import ParallelConfig, smoke_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.data import make_batch
+from repro_torch.ft import FaultInjector, FaultPlan, Supervisor, SupervisorConfig
+from repro_torch.launch import train as launch_train
+from repro_torch.optim import AdamWConfig
+from repro_torch.train import TrainConfig, abstract_state, init_state, make_train_step
+cfg = dataclasses.replace(smoke_config("deepseek-v2-lite-16b"), dtype=torch.float32)
+cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dispatch="iru_hash"))
+shape = ShapeConfig("t", 32, 4, "train")
+for sd in ("fp32", "bf16", "int8"):
+    pcfg = ParallelConfig(remat="full", microbatches=2, attn_chunk=16)
+    tc = TrainConfig(adam=AdamWConfig(state_dtype=sd), warmup_steps=1)
+    state = init_state(cfg, pcfg, tc, torch.Generator().manual_seed(0), device="cpu")
+    sup = Supervisor(CheckpointManager({str(tmp_path)!r} + "/" + sd),
+                     SupervisorConfig(ckpt_every=2),
+                     injector=FaultInjector(FaultPlan(die_at=(3,))))
+    state, last = sup.run(state, make_train_step(cfg, pcfg, tc),
+                          lambda s: make_batch(cfg, shape, s, device="cpu"), 0, 4)
+    assert last == 4 and sup.restarts == 1
+    assert len(sup.history[-1]["moe_drop_rate"]) == 1
+    back = restore_checkpoint({str(tmp_path)!r} + "/" + sd,
+                              abstract_state(cfg, pcfg, tc)[0], device="cpu")
+    assert int(back["opt"]["step"]) == 4
+launch_train.main(["--device", "cpu", "--smoke", "--steps", "3", "--batch", "2",
+                   "--seq", "16", "--ckpt", {str(tmp_path / "launch")!r}])
+print("ok")
+"""
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "ok"
+
+
 def test_entry_points_need_cuda_unless_cpu_is_asked():
     code = """
 import torch
@@ -287,6 +331,11 @@ from repro_torch.models.common import Initializer
 from repro_torch.models.moe import init_moe
 from repro_torch.configs import ParallelConfig, smoke_config
 from repro_torch.models import transformer as T
+from repro_torch.ckpt import restore_checkpoint
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.data import make_batch, synthetic_stream
+from repro_torch.launch import train as launch_train
+from repro_torch.train import TrainConfig, init_state
 assert not torch.cuda.is_available()
 lm = smoke_config("deepseek-v2-lite-16b")
 g = kron(scale=6, device="cpu")
@@ -310,7 +359,14 @@ calls = [lambda: FrontierPipeline(g, BFS_APP), lambda: bfs_pipeline(g),
          lambda: T.init_params(lm, ParallelConfig(), torch.Generator()),
          lambda: T.init_cache(lm, ParallelConfig(), 2, 8),
          lambda: Initializer(torch.Generator()).vmap_unit(
-             "s", 2, lambda it: it.weight("w", (2,), (None,)))]
+             "s", 2, lambda it: it.weight("w", (2,), (None,))),
+         lambda: init_state(lm, ParallelConfig(), TrainConfig(),
+                            torch.Generator()),
+         lambda: make_batch(lm, ShapeConfig("t", 8, 2, "train"), 0),
+         lambda: synthetic_stream(lm, ShapeConfig("t", 8, 2, "train")),
+         lambda: restore_checkpoint("no-such-dir", {}),
+         lambda: launch_train.main(["--smoke", "--steps", "1",
+                                    "--ckpt", "no-such-dir"])]
 for call in calls:
     try:
         call()
