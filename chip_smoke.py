@@ -184,7 +184,23 @@ Phases, in order (any failure exits non-zero and prints no result line):
                (prefill at B = 8, S = 4096).
                The shapes are cut from LM_SHAPES: prefill_32k (S 32768, B
                32) to B = 2, S = 4096 and decode_32k to B = 8 on a 4128
-               cache.  Every line carries the card's name and power limit;
+               cache.  Then LM serving (repro_torch.serve.ServingEngine and
+               repro_torch.launch.serve; `lm serve` lines): (a) in f32 with
+               TF32 off, deepseek-v2-lite-16b at full width cut to 2 layers
+               (capacity factor E / k) serves 10 requests on 4 slots
+               (prompts of 2-12 tokens, 4-8 new tokens, one eos_id equal to
+               its request's solo first token): every request done with its
+               token count, the EOS request stopped after one token and its
+               slot taken at the next tick, and three probes' tokens equal
+               to theirs served alone on a 1-slot engine; (b) in bf16 with
+               deepseek-v2-lite-16b whole, after the decode timing, 24 of
+               the launcher's requests (16 new tokens each) on 8 slots over
+               the decode cache (4128): wall s, ticks, decode steps split
+               into prompt replays and ticks, mean ms a step beside the
+               decode_step median, generated tokens/s, peak GiB; (c) the
+               serve launcher once on the card (qwen3-32b smoke, 16
+               requests, 4 slots) prints its summary.  Every line carries
+               the card's name and power limit;
   10. train  -- LM training (repro_torch.optim, .train, .data, .ckpt, .ft
                and .launch.train; plain torch, the path reaches no
                hand-written kernel).  (a) In f32 with TF32 off at full
@@ -1851,6 +1867,13 @@ LM_CHECK_TOKENS = (2, 300, 3)      # B, prompt (ragged over the 128 chunk), step
 LM_PREFILL = {"deepseek-v2-lite-16b": (2, 4096),  # B, S
               "mamba2-130m": (8, 4096)}
 LM_DECODE = (8, 4096, 32)          # B, prompt, steps (cache 4096 + 32)
+# LM serving: (a) f32 checks at 2 layers; (b) bf16 timing over LM_DECODE's
+# cache with the launcher's prompts; (c) the launcher itself
+SERVE_CHECK = (4, 10, (2, 12), (4, 8), (3, 6, 9), 1)  # slots, requests,
+#   prompt tokens, new tokens (inclusive ranges), probes, the EOS request
+SERVE_TIMED = (8, 24, 16)          # slots, requests, new tokens
+SERVE_LAUNCH = ("--arch", "qwen3-32b", "--smoke", "--requests", "16",
+                "--slots", "4")
 LM_GROUPS = (  # profile group -> (module, functions the stack calls)
     ("attention", "repro_torch.models.transformer",
      ("mla_forward", "gqa_forward")),
@@ -2006,10 +2029,12 @@ def lm_profile(label: str, fn, card: str, top: int = 10,
         print(f"  {dev_us / 1e3:9.4f} ms  x{count:<6d} {key[:100]}")
 
 
-def lm_timings(arch: str, card: str, profile: bool) -> None:
+def lm_timings(arch: str, card: str, profile: bool,
+               serve: bool = False) -> None:
     """Build ``arch`` whole in bf16 on the card, then time prefill
     (``LM_PREFILL[arch]``), decode (``LM_DECODE``) and profile one
-    prefill."""
+    prefill; with ``serve``, then serve ``SERVE_TIMED`` on the same
+    params."""
     from repro_torch.configs import ParallelConfig, get_config
     from repro_torch.models import transformer as T
     from repro_torch.models.measure import tree_leaves
@@ -2097,15 +2122,180 @@ def lm_timings(arch: str, card: str, profile: bool) -> None:
             lm_profile(f"{arch} decode step B={B} cache {S + steps} bf16",
                        lambda: T.decode_step(params, cfg, pcfg, tok, cache,
                                              pos), card)
-        del params, cache, lg, tok, toks
+        del cache, lg, tok, toks
+        if serve:
+            lm_serve_timing(cfg, pcfg, params, S + steps, med, card)
+        del params
+    torch.cuda.empty_cache()
+
+
+def _serving_engine(cfg, pcfg, params, slots: int, max_seq: int):
+    from repro_torch.serve import ServeConfig, ServingEngine
+
+    return ServingEngine(cfg, pcfg, params, ServeConfig(batch_slots=slots,
+                                                        max_seq=max_seq))
+
+
+def lm_serve_checks(card: str) -> None:
+    """LM serving (a), f32: the continuous-batching engine at
+    deepseek-v2-lite-16b's width cut to 2 layers; crowd against solo (the
+    reference's tests/test_serving.py:37 at full width), EOS, slot reuse."""
+    import dataclasses
+
+    from repro_torch.configs import ParallelConfig, get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Request
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config("deepseek-v2-lite-16b")
+    cfg = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    pcfg = ParallelConfig(remat="none", attn_chunk=128)
+    slots, n_req, (p_lo, p_hi), (m_lo, m_hi), probes, eos_at = SERVE_CHECK
+    max_seq = p_hi + m_hi + 1
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        params, _ = T.init_params(cfg, pcfg,
+                                  torch.Generator(device=dev).manual_seed(SEED),
+                                  dev)
+        rng = np.random.default_rng(SEED)
+        spec = [(rng.integers(0, cfg.vocab_size, int(rng.integers(
+                    p_lo, p_hi + 1))).astype(np.int32),
+                 int(rng.integers(m_lo, m_hi + 1))) for _ in range(n_req)]
+
+        def solo(prompt, max_new):
+            eng = _serving_engine(cfg, pcfg, params, 1, max_seq)
+            req = Request(prompt=prompt.copy(), max_new_tokens=max_new)
+            eng.submit(req)
+            eng.run_to_completion()
+            return req.generated
+
+        eos_id = solo(spec[eos_at][0], 1)[0]
+        alone = {i: solo(*spec[i]) for i in probes}
+        eng = _serving_engine(cfg, pcfg, params, slots, max_seq)
+        reqs = [Request(prompt=p.copy(), max_new_tokens=m,
+                        eos_id=eos_id if i == eos_at else None)
+                for i, (p, m) in enumerate(spec)]
+        for r in reqs:
+            eng.submit(r)
+        admitted, ticks = [], [0]  # (tick, slot, rid) of each admission
+        admit, tick = eng._admit, eng.tick
+
+        def counted_admit(slot, req):
+            admitted.append((ticks[0], slot, req.rid))
+            admit(slot, req)
+
+        def counted_tick():
+            left = tick()
+            ticks[0] += 1
+            return left
+
+        eng._admit, eng.tick = counted_admit, counted_tick
+        eng.run_to_completion()
+    secs = time.perf_counter() - t0
+    counts_ok = all(r.done and len(r.generated)
+                    == (1 if i == eos_at else spec[i][1])
+                    for i, r in enumerate(reqs))
+    eos_tick, eos_slot = next((t, s) for t, s, rid in admitted
+                              if rid == reqs[eos_at].rid)
+    reused = [(t, rid) for t, s, rid in admitted
+              if s == eos_slot and t > eos_tick]
+    same = {i: reqs[i].generated == alone[i] for i in probes}
+    print(f"lm serve check deepseek-v2-lite-16b ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, f32, TF32 off): {n_req} requests on "
+          f"{slots} slots in {ticks[0]} ticks, {secs:.1f} s with "
+          f"{1 + len(probes)} solo runs; tokens {[len(r.generated) for r in reqs]}; EOS request "
+          f"{eos_at} (eos_id {eos_id}) admitted at tick {eos_tick} into slot "
+          f"{eos_slot}, generated {reqs[eos_at].generated}, slot next taken "
+          f"by {reused[:1]} (tick, rid); probes crowd == solo: {same}  "
+          f"[{card}]")
+    check(counts_ok, "lm serve: every request done with its token count")
+    check(len(reqs[eos_at].generated) == 1,
+          "lm serve: the EOS request stops after one token")
+    check(bool(reused) and reused[0][0] == eos_tick + 1,
+          "lm serve: the EOS request's slot is taken at the next tick")
+    check(all(same.values()), "lm serve: crowd tokens equal solo tokens")
+    del eng, params
+    torch.cuda.empty_cache()
+
+
+def lm_serve_timing(cfg, pcfg, params, max_seq: int, decode_ms: float,
+                    card: str) -> None:
+    """LM serving (b), bf16: the launcher's requests on ``SERVE_TIMED``'s
+    slots over the decode cache, with the model of ``lm_timings``."""
+    from repro_torch.launch.serve import make_requests
+
+    slots, n_req, max_new = SERVE_TIMED
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eng = _serving_engine(cfg, pcfg, params, slots, max_seq)
+    reqs = make_requests(n_req, cfg.vocab_size, max_new, SEED)
+    for r in reqs:
+        eng.submit(r)
+    steps = {"replay": 0, "tick": 0}
+    raw = eng._step_raw
+
+    def counted(batch_tok, update_only=None):
+        steps["tick" if update_only is None else "replay"] += 1
+        return raw(batch_tok, update_only)
+
+    eng._step_raw = counted
+    _, secs = wall_s(eng.run_to_completion)
+    peak = torch.cuda.max_memory_allocated() - base
+    n_steps = steps["replay"] + steps["tick"]
+    toks = sum(len(r.generated) for r in reqs)
+    replay = sum(len(r.prompt) - 1 for r in reqs)
+    print(f"lm serve {cfg.name} whole ({cfg.n_layers} layers) bf16: {n_req} "
+          f"requests (prompts {min(len(r.prompt) for r in reqs)}-"
+          f"{max(len(r.prompt) for r in reqs)} tokens, {max_new} new) on "
+          f"{slots} slots, cache {max_seq}: {secs:.3f} s wall, "
+          f"{steps['tick']} ticks, {n_steps} decode steps ({steps['replay']} "
+          f"admission replays + {steps['tick']} ticks), "
+          f"{secs / n_steps * 1e3:.4f} ms a step (decode_step median "
+          f"{decode_ms:.4f}), {toks} tokens, {toks / secs:.2f} generated "
+          f"tokens/s, peak {peak / 2**30:.3f} GiB above {base / 2**30:.3f} "
+          f"held  [{card}]")
+    check(all(r.done and len(r.generated) == max_new for r in reqs),
+          "lm serve: every timed request done with its token count")
+    check(steps["replay"] == replay, "lm serve: one replay step a prompt "
+          "token but the last")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated),
+          "lm serve: tokens in the vocabulary")
+    del eng
+
+
+def lm_serve_launcher(card: str) -> None:
+    """LM serving (c): the serve launcher once on the card, in process."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve as launch_serve
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        reqs = launch_serve.main(list(SERVE_LAUNCH))
+    secs = time.perf_counter() - t0
+    line = out.getvalue().strip().splitlines()[-1]
+    print(f"lm serve launcher ({' '.join(SERVE_LAUNCH)}): {line}; "
+          f"{secs:.1f} s with the model's build  [{card}]")
+    check(line.startswith(f"served {len(reqs)} requests / ")
+          and line.endswith("continuous batching)"),
+          "lm serve launcher prints its summary")
+    check(all(r.done and len(r.generated) == 16 for r in reqs),  # --max-new
+          "lm serve launcher: every request done")
     torch.cuda.empty_cache()
 
 
 def phase_lm(card: str) -> None:
     """Phase 9 (``lm`` lines): the LM's model half (configs, the IRU embedding, GQA/MLA
-    attention, Mamba-2, the stack's forward, prefill and decode; plain
-    torch, no hand-written kernel).  (a) f32 checks at full width; (b) bf16
-    timings with deepseek-v2-lite-16b whole and mamba2-130m whole."""
+    attention, Mamba-2, the stack's forward, prefill and decode) and LM
+    serving (the continuous-batching engine, the serve launcher); plain
+    torch, no hand-written kernel.  (a) f32 checks at full width; (b) bf16
+    timings with deepseek-v2-lite-16b whole and mamba2-130m whole; (c) the
+    serve launcher."""
     t0 = time.perf_counter()
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2113,11 +2303,13 @@ def phase_lm(card: str) -> None:
         for arch, depth in LM_CHECKS:
             lm_check_arch(arch, depth, card)
             torch.cuda.empty_cache()
+        lm_serve_checks(card)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     print(f"lm checks: {time.perf_counter() - t0:.1f} s")
-    lm_timings("deepseek-v2-lite-16b", card, profile=True)
+    lm_timings("deepseek-v2-lite-16b", card, profile=True, serve=True)
     lm_timings("mamba2-130m", card, profile=True)
+    lm_serve_launcher(card)
     print(f"lm phase: {time.perf_counter() - t0:.1f} s")
 
 

@@ -1,4 +1,6 @@
-"""Multi-tenant graph query serving (single device)."""
+"""Serving on one device: continuous-batching LM decode and multi-tenant
+graph queries."""
+from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
 from repro_torch.serve.graph_engine import (
     KINDS,
     AdmissionError,
@@ -9,4 +11,5 @@ from repro_torch.serve.graph_engine import (
 )
 
 __all__ = ["AdmissionError", "GraphQuery", "GraphServeConfig",
-           "GraphServingEngine", "KINDS", "QueueFullError"]
+           "GraphServingEngine", "KINDS", "QueueFullError", "Request",
+           "ServeConfig", "ServingEngine"]

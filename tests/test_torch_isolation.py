@@ -268,6 +268,50 @@ print("ok")
     assert r.stdout.strip() == "ok"
 
 
+def test_lm_serving_path_runs_without_jax_or_repro():
+    """The LM serving slice (the continuous-batching engine and the serve
+    launcher) on the CPU, with ``jax`` and ``repro`` blocked: a smoke
+    deepseek and a smoke mamba2 serve more requests than slots, one of them
+    stopped by its EOS."""
+    code = """
+import dataclasses, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import numpy as np, torch
+from repro_torch.configs import ParallelConfig, smoke_config
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import transformer as T
+from repro_torch.serve import Request, ServeConfig, ServingEngine
+pcfg = ParallelConfig(remat="none", attn_chunk=16)
+for arch in ("deepseek-v2-lite-16b", "mamba2-130m"):
+    cfg = dataclasses.replace(smoke_config(arch), dtype=torch.float32)
+    params, _ = T.init_params(cfg, pcfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+    eng = ServingEngine(cfg, pcfg, params, ServeConfig(batch_slots=2,
+                                                       max_seq=32),
+                        device="cpu")
+    probe = Request(prompt=np.array([4, 5], np.int32), max_new_tokens=2)
+    eng.submit(probe)
+    eng.run_to_completion()
+    reqs = [Request(prompt=np.array([4, 5], np.int32), max_new_tokens=9,
+                    eos_id=probe.generated[0])]
+    reqs += [Request(prompt=np.arange(1, 2 + i, dtype=np.int32),
+                     max_new_tokens=3) for i in range(4)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run_to_completion()
+    assert all(r.done for r in reqs)
+    assert [len(r.generated) for r in reqs] == [1, 3, 3, 3, 3]
+reqs = launch_serve.main(["--device", "cpu", "--smoke", "--requests", "3",
+                          "--slots", "2", "--max-new", "2"])
+assert [len(r.generated) for r in reqs] == [2, 2, 2]
+print("ok")
+"""
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "ok"
+
+
 def test_training_path_runs_without_jax_or_repro(tmp_path):
     """The training slice (AdamW in three moment precisions, the schedule,
     the loss, the Zipf stream, the train step with microbatches and remat,
@@ -334,7 +378,9 @@ from repro_torch.models import transformer as T
 from repro_torch.ckpt import restore_checkpoint
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.data import make_batch, synthetic_stream
+from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
+from repro_torch.serve import ServingEngine
 from repro_torch.train import TrainConfig, init_state
 assert not torch.cuda.is_available()
 lm = smoke_config("deepseek-v2-lite-16b")
@@ -366,7 +412,9 @@ calls = [lambda: FrontierPipeline(g, BFS_APP), lambda: bfs_pipeline(g),
          lambda: synthetic_stream(lm, ShapeConfig("t", 8, 2, "train")),
          lambda: restore_checkpoint("no-such-dir", {}),
          lambda: launch_train.main(["--smoke", "--steps", "1",
-                                    "--ckpt", "no-such-dir"])]
+                                    "--ckpt", "no-such-dir"]),
+         lambda: ServingEngine(lm, ParallelConfig(), {}),
+         lambda: launch_serve.main(["--smoke", "--requests", "1"])]
 for call in calls:
     try:
         call()
