@@ -239,7 +239,28 @@ Phases, in order (any failure exits non-zero and prints no result line):
                windows of PageRank on kron-20 (sort and hash), SSSP on
                delaunay-1024, three serving ticks (fused sort and fused
                hash), and B2's and B3's kernels in one call each at
-               PageRank's shape (add, and the tagged bodies).
+               PageRank's shape (add, and the tagged bodies);
+  13. dryrun -- the LM dry run (repro_torch.launch.dryrun on the meta
+               device, with the sharding layer, the meshes and the state
+               shardings; plain torch, no kernel).  (a) Every shape of
+               deepseek-v2-lite-16b and mamba2-130m at both production meshes
+               (16x16 and 2x16x16, abstract): each cell ok or skipped, with
+               its FLOPs and bytes a device, the roofline's compute and
+               memory terms on the H100's data-sheet peaks, the bottleneck,
+               the useful-FLOPs ratio and fits_80gb.  (b) The card holds the
+               count: deepseek-v2-lite-16b whole in bf16 at decode (B = 8,
+               cache 4128) and prefill (B = 2, S = 4096), and cut to 4
+               layers for a train step (iru_hash at capacity factor 1.25,
+               B = 2, S = 4096, fp32 moments, remat full): each step counted
+               on meta at the host mesh, then run once on the card on real
+               tensors under the same count, must give the same FLOPs and
+               bytes; the arguments' bytes at the host mesh must equal the
+               growth of torch.cuda.memory_allocated() while they are built,
+               within 1%; each step's CUDA-event median of 5 is printed
+               beside its roofline terms and the share max(t_compute,
+               t_memory) / measured.  (c) deepseek-v2-lite-16b's decode
+               logits under use_mesh(make_host_mesh()) equal those without a
+               mesh bit for bit (deterministic algorithms on).
 
 It prints the card's name and power limit, one JSON line naming the kernels
 with their numbers, and last {"ok": true, "device": {...}}.  It needs one
@@ -2837,6 +2858,176 @@ def profile_window(label, fn, top: int = 8):
         print(f"  {dev_us / 1e3:9.4f} ms  x{count:<6d} {key[:100]}")
 
 
+# The LM dry run (phase 13).  (a) sweeps the two archs the card runs whole;
+# (b) holds the meta count against the card at phase 9's and 10's cuts.
+DRYRUN_ARCHS = ("deepseek-v2-lite-16b", "mamba2-130m")
+DRYRUN_STEPS = (  # kind, layers (None: whole), B, S (decode: the cache)
+    ("decode", None, 8, 4128), ("prefill", None, 2, 4096),
+    ("train", 4, 2, 4096))
+DRYRUN_POS = 4096  # decode writes the cache's row 4096
+
+
+def dryrun_sweep(card: str) -> None:
+    """Phase 13 (a): every shape of ``DRYRUN_ARCHS`` at both production
+    meshes, counted on meta."""
+    from repro_torch.configs import LM_SHAPES
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    for arch in DRYRUN_ARCHS:
+        for shape in LM_SHAPES:
+            for mesh in ("single", "multi"):
+                rec = dryrun.run_cell(arch, shape, mesh, save=False)
+                check(rec["status"] in ("ok", "skipped"),
+                      f"dryrun {arch} {shape} {mesh}: {rec['status']} "
+                      f"{rec.get('error')}")
+                if rec["status"] == "skipped":
+                    print(f"dryrun {arch} {shape} {mesh}: skipped "
+                          f"({rec['reason']})  [{card}]")
+                    continue
+                cost, roof = rec["cost_analysis"], rec["roofline"]
+                print(f"dryrun {arch} {shape} {mesh}: ok, a device "
+                      f"{cost['flops']:.4e} FLOPs, {cost['bytes_accessed']:.4e}"
+                      f" bytes; t_compute {roof['t_compute_s']:.4e} s, "
+                      f"t_memory {roof['t_memory_s']:.4e} s, bound "
+                      f"{roof['bottleneck']}; useful-FLOPs ratio "
+                      f"{rec['useful_flops_ratio']:.4f}; fits_80gb "
+                      f"{rec['analytic_memory']['fits_80gb']}; counted in "
+                      f"{rec['count_s']} s  [{card}]")
+    print(f"dryrun sweep: {time.perf_counter() - t0:.1f} s (meta, no card "
+          f"work)  [{card}]")
+
+
+def _dryrun_step(kind: str, layers, B: int, S: int):
+    """(cfg, pcfg, shape) of one of ``DRYRUN_STEPS``: phase 9's whole
+    model, phase 10's 4-layer training cut."""
+    from repro_torch.configs import ParallelConfig, get_config
+    from repro_torch.configs.base import ShapeConfig
+
+    if kind == "train":
+        return (_train_cfg("deepseek-v2-lite-16b", layers),
+                ParallelConfig(remat="full"), ShapeConfig(kind, S, B, kind))
+    return (get_config("deepseek-v2-lite-16b"), ParallelConfig(),
+            ShapeConfig(kind, S, B, kind))
+
+
+def _dryrun_args(kind: str, cfg, pcfg, shape, params, dev):
+    """The step's arguments on the card, in ``dryrun.LOWERERS``' order."""
+    from repro_torch.data import make_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.train import TrainConfig, init_state
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    B, S = shape.global_batch, shape.seq_len
+    if kind == "train":
+        state = init_state(cfg, pcfg, TrainConfig(), gen, dev)
+        return state, make_batch(cfg, shape, 0, device=dev)
+    cache = T.init_cache(cfg, pcfg, B, S, device=dev)
+    if kind == "prefill":
+        toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                             device=dev, dtype=torch.int32)
+        return params, {"tokens": toks}, cache
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen, device=dev,
+                        dtype=torch.int32)
+    pos = torch.full((), DRYRUN_POS, dtype=torch.int32, device=dev)
+    return params, tok, cache, pos
+
+
+def dryrun_on_the_card(card: str) -> None:
+    """Phase 13 (b) and (c)."""
+    import dataclasses
+
+    from repro_torch.dist.sharding import use_mesh
+    from repro_torch.launch import dryrun, hlo_stats
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.measure import measure_mode
+
+    dev = torch.device("cuda", 0)
+    mesh = make_host_mesh()
+    params, params_bytes = None, 0
+    for kind, layers, B, S in DRYRUN_STEPS:
+        cfg, pcfg, shape = _dryrun_step(kind, layers, B, S)
+        meta = dryrun._measure(cfg, pcfg, shape, mesh, mesh.size)
+        lowered = dryrun.LOWERERS[kind](
+            cfg, dataclasses.replace(pcfg, microbatches=1), shape, mesh)
+        if kind != "train" and params is None:  # the decode and prefill
+            torch.cuda.synchronize()             # steps share the weights
+            held0 = torch.cuda.memory_allocated()
+            params, _ = T.init_params(
+                cfg, pcfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+            torch.cuda.synchronize()
+            params_bytes = torch.cuda.memory_allocated() - held0
+        if kind == "train":
+            params, params_bytes = None, 0
+            torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        held0 = torch.cuda.memory_allocated()
+        args = _dryrun_args(kind, cfg, pcfg, shape, params, dev)
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated() - held0 + params_bytes
+        want = meta["memory_analysis"]["argument_size_in_bytes"]
+        with use_mesh(mesh), measure_mode():
+            card_counts = hlo_stats.count_step(lowered.fn, *args)
+        ms = event_median_ms(lambda: lowered.fn(*args), reps=5)
+        roof = hlo_stats.Roofline(meta["flops"], meta["bytes_accessed"], None,
+                                  mesh.size)
+        bound = max(roof.t_compute, roof.t_memory) * 1e3
+        where = f"cache {S}" if kind == "decode" else f"S={S}"
+        label = (f"deepseek-v2-lite-16b {cfg.n_layers} layers {kind} "
+                 f"B={B} {where}")
+        print(f"dryrun card {label}: meta {meta['flops_global']:.6e} FLOPs "
+              f"{meta['bytes_global']:.6e} bytes, card "
+              f"{card_counts['flops']:.6e} FLOPs "
+              f"{card_counts['bytes_accessed']:.6e} bytes; arguments "
+              f"{want} bytes (shard_shape at the host mesh) against "
+              f"{grown} allocated ({grown / want - 1:+.4%}); measured "
+              f"{ms:.4f} ms (CUDA-event median of 5) against t_compute "
+              f"{roof.t_compute * 1e3:.4f} ms, t_memory "
+              f"{roof.t_memory * 1e3:.4f} ms (bound {roof.bottleneck}): "
+              f"share {bound / ms:.4f}; the arguments read once "
+              f"{want / hlo_stats.HBM_BW * 1e3:.4f} ms; model_flops "
+              f"{hlo_stats.model_flops(cfg, shape):.6e}  [{card}]")
+        check(card_counts["flops"] == meta["flops_global"]
+              and card_counts["bytes_accessed"] == meta["bytes_global"],
+              f"dryrun {label}: the card's count equals the meta count")
+        check(abs(grown / want - 1) <= 0.01,
+              f"dryrun {label}: argument bytes within 1% of the growth")
+        if kind == "decode":
+            dryrun_constraints_change_nothing(lowered.fn, args, mesh, card)
+        del args, lowered
+        torch.cuda.empty_cache()
+
+
+def dryrun_constraints_change_nothing(step, args, mesh, card: str) -> None:
+    """Phase 13 (c): decode logits with and without the host mesh."""
+    from repro_torch.dist.sharding import use_mesh
+
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        plain = step(*args)[0].clone()
+        again = step(*args)[0].clone()
+        with use_mesh(mesh):
+            meshed = step(*args)[0].clone()
+    finally:
+        torch.use_deterministic_algorithms(det)
+    same = torch.equal(meshed, plain)
+    print(f"dryrun card decode logits under use_mesh(make_host_mesh()) equal "
+          f"the plain step's bit for bit: {same} (plain against plain: "
+          f"{torch.equal(again, plain)}; {tuple(plain.shape)} f32)  [{card}]")
+    check(same and bool(torch.isfinite(plain).all()),
+          "dryrun: constraints change nothing")
+
+
+def phase_dryrun(card: str) -> None:
+    """Phase 13 (``dryrun`` lines)."""
+    t0 = time.perf_counter()
+    dryrun_sweep(card)
+    dryrun_on_the_card(card)
+    print(f"dryrun phase: {time.perf_counter() - t0:.1f} s  [{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2877,6 +3068,7 @@ def main() -> int:
         errors[k] = max(errors[k], v)
     timings = phase_timings(graphs["kron20"], dsts, contrib, sparse)
     phase_profile(graphs, dsts, contrib)
+    phase_dryrun(card)
     for k, v in win_launches.items():
         launches[k] = launches.get(k, 0) + v
     errors.update(win_errors)

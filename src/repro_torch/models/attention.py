@@ -33,7 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import Initializer, rms_norm
+from repro_torch.models.common import Initializer, constrain, rms_norm
 from repro_torch.models.measure import mscan
 
 NEG_INF = -1e30
@@ -280,6 +280,7 @@ def gqa_forward(
     if cross_kv is None:  # rope only for self-attention (encoder stand-in too)
         q = apply_rope(q, positions, spec.rope_theta)
         k = apply_rope(k, positions, spec.rope_theta)
+    q = constrain(q, ("batch", "seq", "heads", None))
 
     if kv_cache is not None and pos is not None and S == 1:
         # ---- decode: write one step, attend against the whole cache -------
@@ -300,7 +301,7 @@ def gqa_forward(
                              q_chunk=spec.q_chunk, kv_chunk=spec.kv_chunk)
         new_cache = None
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
-    return y, new_cache
+    return constrain(y, ("batch", "seq", "embed")), new_cache
 
 
 def _length_mask(pos, S: int, device, window: Optional[int] = None):
@@ -394,4 +395,4 @@ def mla_forward(
         if kv_cache is not None and pos is not None:
             new_cache = {"ckv": cache_write(kv_cache["ckv"], ckv_post, pos)}
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
-    return y, new_cache
+    return constrain(y, ("batch", "seq", "embed")), new_cache

@@ -6,8 +6,12 @@ Counterpart of ``repro.models.common``.  Every parameter is created through
 and their *logical axis names* -- so a sharding layer can later derive its
 layouts without a second source of truth.  Randomness comes from an
 explicit ``torch.Generator``; a child scope shares its parent's generator.
-The reference's ``constrain`` (a sharding constraint under a mesh) is not
-carried over: one process has no mesh.
+
+:func:`constrain` is called where the reference pins an activation's
+sharding.  Under ``dist.sharding.use_mesh`` it resolves the logical axes
+against the mesh (a wrong axes tuple raises, as the reference's assert
+does) and returns the tensor itself: one process holds it whole and
+redistributes nothing.  Outside a mesh it returns at once.
 """
 from __future__ import annotations
 
@@ -19,6 +23,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import (constraints_enabled, current_mesh,
+                                       resolve_spec)
 from repro_torch.models.measure import tree_leaves, tree_map
 
 Params = dict
@@ -133,3 +139,13 @@ def ffn(params: Params, x: torch.Tensor, ffn_type: str) -> torch.Tensor:
     else:
         h = F.gelu(x @ params["wi"], approximate="tanh")  # jax.nn.gelu's default
     return h @ params["wo"]
+
+
+def constrain(x: torch.Tensor, logical_axes: tuple) -> torch.Tensor:
+    """Resolve ``x``'s sharding when inside a mesh context; ``x`` itself
+    either way."""
+    mesh = current_mesh()
+    if mesh is None or not constraints_enabled():
+        return x
+    resolve_spec(logical_axes, x.shape, mesh)
+    return x

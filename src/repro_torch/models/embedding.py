@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import filter as filt
-from repro_torch.models.common import Initializer
+from repro_torch.models.common import Initializer, constrain
 
 
 def init_embedding(it: Initializer, vocab: int, d_model: int) -> None:
@@ -79,7 +79,7 @@ def embed(params: dict, tokens: torch.Tensor, *, iru: bool = True,
     out = rows.reshape(*shape, table.shape[-1])
     if scale is not None:
         out = out * torch.tensor(scale, dtype=out.dtype, device=out.device)
-    return out
+    return constrain(out, ("batch", "seq", "embed"))
 
 
 def logits(params: dict, x: torch.Tensor,
@@ -88,4 +88,5 @@ def logits(params: dict, x: torch.Tensor,
     None.  The product runs in ``x``'s dtype and is cast to f32 after, as
     the reference's."""
     w = params["tok"].T if head is None else head
-    return torch.einsum("bsd,dv->bsv", x, w).float()
+    out = torch.einsum("bsd,dv->bsv", x, w).float()
+    return constrain(out, ("batch", "seq", "vocab"))

@@ -19,7 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MambaConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.common import Initializer, rms_norm
+from repro_torch.models.common import Initializer, constrain, rms_norm
 from repro_torch.models.measure import mscan
 
 
@@ -156,6 +156,7 @@ def mamba_forward(
     xbc, new_conv = _causal_conv(xbc, params["conv_w"], params["conv_b"],
                                  conv_state)
     xr, bmat, cmat = torch.split(xbc, [d_in, mc.d_state, mc.d_state], dim=-1)
+    xr = constrain(xr, ("batch", "seq", "ffn"))
     dt = F.softplus(dt_raw.float() + params["dt_bias"].float())
 
     xh = xr.reshape(B, S, nh, mc.head_dim)
@@ -180,9 +181,11 @@ def mamba_forward(
                          "ssm": h_last.to(state["ssm"].dtype)}
     y = y + params["d_skip"].float()[None, None, :, None] * xh.float()
     y = y.reshape(B, S, d_in).to(x.dtype)
+    y = constrain(y, ("batch", "seq", "ffn"))
+    z = constrain(z, ("batch", "seq", "ffn"))
     y = rms_norm(y * F.silu(z), params["out_norm"], norm_eps)
     out = y @ params["wout"]
-    return out, new_state
+    return constrain(out, ("batch", "seq", "embed")), new_state
 
 
 def init_mamba_state(cfg_d_model: int, mc: MambaConfig, batch: int, dtype,

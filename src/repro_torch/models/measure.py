@@ -77,8 +77,14 @@ def mscan(body, init, xs, length=None):
     numbers; ``None`` with ``length``); returns the last carry and the
     ``y_i`` stacked on a new leading axis."""
     n = length if length is not None else len(tree_leaves(xs)[0])
+    # a leaf that requires grad is split once with ``unbind``, whose
+    # backward stacks the n grads in one op; n ``a[i]`` selects would each
+    # pad a zero copy of the whole leaf in the backward (O(n^2) bytes)
+    cols = [a.unbind(0) if isinstance(a, torch.Tensor) and a.requires_grad
+            else a for a in tree_leaves(xs)]
     carry, ys = init, []
     for i in range(n):
-        carry, y = body(carry, tree_map(lambda a: a[i], xs))
+        it = iter([c[i] for c in cols])
+        carry, y = body(carry, tree_map(lambda _: next(it), xs))
         ys.append(y)
     return carry, (_stack(ys) if ys else None)

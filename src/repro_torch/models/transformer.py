@@ -37,7 +37,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models import embedding
 from repro_torch.models.attention import (AttnSpec, gqa_forward, init_gqa,
                                           init_mla, mla_forward)
-from repro_torch.models.common import Initializer, ffn, init_ffn, rms_norm
+from repro_torch.models.common import (Initializer, constrain, ffn, init_ffn,
+                                       rms_norm)
 from repro_torch.models.mamba2 import init_mamba, mamba_forward
 from repro_torch.models.measure import mscan, tree_leaves
 from repro_torch.models.moe import init_moe, moe_ffn
@@ -227,7 +228,7 @@ def _run_layer(p: dict, x: torch.Tensor, ls: LayerSpec, cfg: ModelConfig,
         else:
             y = ffn(p["ffn"], h, cfg.ffn_type)
         x = x + y
-    return x, new_cache, aux, stats
+    return constrain(x, ("batch", "seq", "embed")), new_cache, aux, stats
 
 
 def _write_back(cache: dict, new: dict) -> None:
@@ -312,7 +313,7 @@ def _embed_inputs(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
         x = batch["embeds"]
     else:
         x = embedding.embed(params["embed"], batch["tokens"], iru=iru)
-    return x
+    return constrain(x, ("batch", "seq", "embed"))
 
 
 # ---------------------------------------------------------------------------

@@ -35,6 +35,9 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                 "repro_torch.")]
 for name in names:
     __import__(name)
+assert {"repro_torch.dist.sharding", "repro_torch.launch.mesh",
+        "repro_torch.launch.shardings", "repro_torch.launch.hlo_stats",
+        "repro_torch.launch.dryrun"} <= set(names)
 leaked = sorted(k for k in sys.modules
                 if k.split(".")[0] in ("jax", "jaxlib", "repro")
                 and sys.modules[k] is not None)
@@ -356,6 +359,54 @@ print("ok")
     assert r.stdout.strip().splitlines()[-1] == "ok"
 
 
+def test_dry_run_runs_without_jax_or_repro(tmp_path):
+    """The dry-run slice (the sharding layer, the meshes, the state
+    shardings, the counting modes and one full-size cell on ``meta``) with
+    ``jax`` and ``repro`` blocked and no card; the record goes to
+    ``tmp_path``."""
+    code = f"""
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import torch
+from repro_torch.dist.sharding import P, resolve_spec, use_mesh
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_production_mesh
+assert not torch.cuda.is_available()
+mesh = make_production_mesh(multi_pod=True)
+assert resolve_spec(("batch", "seq"), (256, 4096), mesh) == P(("pod", "data"), None)
+dryrun.RESULTS_DIR = {str(tmp_path)!r}
+rec = dryrun.run_cell("mamba2-130m", "decode_32k", "multi")
+assert rec["status"] == "ok", rec.get("traceback")
+assert rec["roofline"]["n_devices"] == 512 and rec["analytic_memory"]["fits_80gb"]
+print("ok")
+"""
+    r = _run(code, CUDA_VISIBLE_DEVICES="")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+    assert [p.name for p in tmp_path.iterdir()] == [
+        "mamba2-130m__decode_32k__multi.json"]
+
+
+def test_sharding_layer_loads_no_other_dist_module():
+    """``models.common`` imports ``dist.sharding``: that loads neither the
+    partitioned pipeline nor the collectives, while the package's names
+    still resolve on first use."""
+    code = """
+import sys
+import repro_torch.dist.sharding
+loaded = sorted(k for k in sys.modules if k.startswith("repro_torch."))
+assert loaded == ["repro_torch.device", "repro_torch.dist",
+                  "repro_torch.dist.sharding"], loaded
+from repro_torch.dist import bfs_partitioned, allreduce_int8
+assert "repro_torch.dist.graph_partition" in sys.modules
+print("ok")
+"""
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
 def test_entry_points_need_cuda_unless_cpu_is_asked():
     code = """
 import torch
@@ -380,6 +431,7 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.data import make_batch, synthetic_stream
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.serve import ServingEngine
 from repro_torch.train import TrainConfig, init_state
 assert not torch.cuda.is_available()
@@ -414,7 +466,8 @@ calls = [lambda: FrontierPipeline(g, BFS_APP), lambda: bfs_pipeline(g),
          lambda: launch_train.main(["--smoke", "--steps", "1",
                                     "--ckpt", "no-such-dir"]),
          lambda: ServingEngine(lm, ParallelConfig(), {}),
-         lambda: launch_serve.main(["--smoke", "--requests", "1"])]
+         lambda: launch_serve.main(["--smoke", "--requests", "1"]),
+         make_host_mesh]
 for call in calls:
     try:
         call()
