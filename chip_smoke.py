@@ -29,9 +29,10 @@ Phases, in order (any failure exits non-zero and prints no result line):
                over 4 partitions x 2 banks, 8192-lane windows, round cap 64).
                B3's windowed body (one launch) on kron-20's PageRank stream
                (add and min, f32) equals the numpy oracle on every window,
-               bit for bit, and the plain window loop on the whole stream
-               (min exactly, add within rtol 1e-5; max abs and relative
-               error printed); two 1M-lane streams built to trip the
+               bit for bit, and the plain window loop (add on the whole
+               stream within rtol 1e-5, min exactly on its first 512
+               windows; max abs and relative error printed); two 1M-lane
+               streams built to trip the
                round-cap fallback and the bank bypass are held the same way,
                and each prints how many windows took its branch (each count
                must be non-zero).  Whole-stream B3 with the banked layout (4
@@ -50,9 +51,11 @@ Phases, in order (any failure exits non-zero and prints no result line):
                3-bucket CapacityPolicy), once with mode="sort" (B1, B2) and
                once with mode="hash" (B1, B3).  Each run is held against the
                same run through the plain path (kernels=False) -- exactly for
-               BFS/SSSP, rtol 1e-5 for PageRank; hash-mode PageRank's and
-               delaunay SSSP's plain runs are cut to 5 and 300 iterations,
-               beside a kernel run of that depth -- and against the port's
+               BFS/SSSP, rtol 1e-5 for PageRank; the plain runs of hash-mode
+               PageRank, hash-mode SSSP on kron-20 and the delaunay-1024
+               traversals but sort BFS are cut to 3, 5 and 300 iterations
+               (PLAIN_DEPTH), beside a kernel run of that depth -- and
+               against the port's
                numpy host oracle (PageRank at rtol 1e-4: the oracle sums each
                hub's ~1e5 contributions sequentially in f32).  PageRank runs
                20 iterations.  The launch counts of each run are zeroed before
@@ -155,6 +158,30 @@ Phases, in order (any failure exits non-zero and prints no result line):
                4096: ms, tokens/s, peak memory, dropped share, the expert
                FFN's flop; a profile of moe_hash and of plan_dispatch at
                16384 and the planner's share of moe_hash;
+  8b. group  -- one shard per process over torch.distributed, the ranks
+               started by python -m repro_torch.launch.partitioned.  (a)
+               Four gloo ranks on the one card (the exchange crosses host
+               memory and loopback TCP, not NVLink), one shard of
+               partition_csr(kron-20, 4) each, hash mode (B1 and B3 on every
+               rank): BFS with the flag codec and SSSP equal phase 7's
+               stacked runs bit for bit, PageRank (20 iterations) within
+               rtol 1e-5 (atol 0) of stacked with the exact codec and within
+               an L1 relative error of 1e-3 with int8_ef (the stacked exact
+               run, what a wire that skipped the codec would give, must lie
+               beyond that limit); every rank's supersteps and
+               boundary traffic equal stacked, the bytes handed to
+               all_to_all_single equal the codec's wire bytes, the ranks'
+               shards add up to the stacked partition, and every rank
+               launched B1 and B3.  moe_hash_ep over the four ranks (16 of
+               deepseek-v2-lite's 64 experts each, phase 8's f32 layer at T
+               = 4096, 8 partitions) equals phase 8's stacked 4-shard result
+               (exact: rtol 1e-5, atol 1e-6 of the largest; int8: within 4
+               quanta of each 128-block), aux equal.  (b) A group of one
+               over NCCL runs BFS at P = 1 equal to the single-device
+               pipeline.  Each line prints the wall seconds (the slowest
+               rank's run, and the launcher's with its process starts),
+               launches and partition bytes per rank, and wire bytes a
+               superstep;
   9. lm      -- the LM substrate's model half (repro_torch.configs and
                repro_torch.models: the IRU embedding, GQA/MLA attention,
                Mamba-2, the stack's forward_train, prefill and decode_step;
@@ -243,11 +270,14 @@ Phases, in order (any failure exits non-zero and prints no result line):
   13. dryrun -- the LM dry run (repro_torch.launch.dryrun on the meta
                device, with the sharding layer, the meshes and the state
                shardings; plain torch, no kernel).  (a) Every shape of
-               deepseek-v2-lite-16b and mamba2-130m at both production meshes
-               (16x16 and 2x16x16, abstract): each cell ok or skipped, with
+               deepseek-v2-lite-16b and mamba2-130m at the 16x16 production
+               mesh, and decode_32k and train_4k at 2x16x16 too (abstract
+               meshes; a 2x16x16 cell's FLOPs and bytes a device must be
+               half the 16x16 cell's): each cell ok or skipped, with
                its FLOPs and bytes a device, the roofline's compute and
                memory terms on the H100's data-sheet peaks, the bottleneck,
-               the useful-FLOPs ratio and fits_80gb.  (b) The card holds the
+               the useful-FLOPs ratio, the analytic memory a device,
+               fits_80gb and the argument bytes.  (b) The card holds the
                count: deepseek-v2-lite-16b whole in bf16 at decode (B = 8,
                cache 4128) and prefill (B = 2, S = 4096), and cut to 4
                layers for a train step (iru_hash at capacity factor 1.25,
@@ -270,6 +300,8 @@ the repo.
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -553,11 +585,16 @@ def host_oracle(cache: dict, name: str, gname: str, g, iters=None):
 
 
 # the plain hash engine peels about a thousand occupancy rounds a call at
-# PageRank's shape and its SSSP on delaunay-1024 runs 1478 rounds: their
-# plain-path comparison is cut to these depths (the kernel path runs the
-# same depth for it, and in full against the host oracle)
-PLAIN_DEPTH = {("hash", "pagerank", "kron20"): 5,
-               ("hash", "sssp", "delaunay1024"): 300}
+# PageRank's shape (6.5 s an iteration) and the plain paths of the
+# delaunay-1024 traversals run a thousand levels or more: their plain-path
+# comparison is cut to these depths (the kernel path runs the same depth
+# for it, and in full against the host oracle), which keeps the whole
+# script inside its 1200 s with the group phase on a slow host
+PLAIN_DEPTH = {("hash", "pagerank", "kron20"): 3,
+               ("hash", "sssp", "kron20"): 5,
+               ("hash", "bfs", "delaunay1024"): 300,
+               ("hash", "sssp", "delaunay1024"): 300,
+               ("sort", "sssp", "delaunay1024"): 300}
 
 
 def phase_apps(graphs, oracles):
@@ -1212,7 +1249,10 @@ def phase_partitioned(graphs, oracles, served):
     """The edge-partitioned pipeline and partitioned serving, every shard on
     the card, stepped in turn (see the module docstring).  ``served`` maps
     phase 6's fused serving labels to their queries, the single-device
-    results partitioned serving must equal.  Returns the launch counts."""
+    results partitioned serving must equal.  Returns the launch counts and
+    the kron-20 hash-mode runs (result on the host, supersteps, traffic,
+    wall seconds by (app, compress); and the single-device BFS), which the
+    group phase holds its ranks against."""
     from repro_torch.apps.bfs import BFS_APP
     from repro_torch.apps.pagerank import pagerank_app
     from repro_torch.apps.sssp import SSSP_APP
@@ -1240,7 +1280,7 @@ def phase_partitioned(graphs, oracles, served):
     runs = [(name, mode, compress) for name in apps
             for mode in ("baseline", "sort", "hash")
             for compress in (False, True)] + [("pagerank", "IRU_HASH", False)]
-    single = {}
+    single, kept = {}, {"partition bytes": part.nbytes()}
     for name, mode, compress in runs:
         app, make, kw = apps[name]
         cfg = IRUConfig(**IRU_HASH) if mode == "IRU_HASH" else None
@@ -1280,11 +1320,15 @@ def phase_partitioned(graphs, oracles, served):
                   f"{what}: equals the host oracle")
             extra = "; equals single-device and the host oracle"
         traffic = pipe.boundary_traffic()
+        if mode == "hash":
+            kept[(name, compress)] = (got.cpu(), pipe.supersteps, traffic,
+                                      wall)
         print(f"{what}: {pipe.supersteps} supersteps, {pipe.n_hops} hops, "
               f"{wall:.3f} s (single-device {t_single:.3f} s), boundary "
               f"raw {traffic['raw_bytes_per_superstep']} B / wire "
               f"{traffic['wire_bytes_per_superstep']} B per superstep, "
               f"launches per shard {shard_counts}{extra}")
+    kept["single bfs"] = single[("bfs", "hash")][0].cpu()
     del single
     torch.cuda.empty_cache()
 
@@ -1331,7 +1375,7 @@ def phase_partitioned(graphs, oracles, served):
                 totals[k] = totals.get(k, 0) + v
         del pview
         torch.cuda.empty_cache()
-    return totals
+    return totals, kept
 
 
 def phase_partitioned_serving(g, pview, label, solo_qs):
@@ -1409,10 +1453,44 @@ def window_branches(idx: np.ndarray, n_live, geo=IRU_HASH):
     return int(bypass.sum()), int(dense.sum())
 
 
-def hold_windowed(label, idx, vals, op, n_live=None):
+def _oracle_piece(args):
+    from repro_torch.core import iru
+
+    return iru._hash_ref_host(*args)
+
+
+def windowed_oracle(idx_np, vals_np, cfg, live):
+    """``iru._hash_ref_host`` over a long stream, its windows split into
+    one piece a core, each in its own (spawned) process: windows are
+    independent, so the pieces join with their positions offset by the
+    piece's start.  A short stream runs here."""
+    import concurrent.futures
+    import multiprocessing
+    import os
+
+    from repro_torch.core import iru
+
+    n, w = len(idx_np), cfg.window_elems
+    windows, workers = -(-n // w), min(os.cpu_count() or 1, 8)
+    if windows < 512 or workers < 2:
+        return iru._hash_ref_host(idx_np, vals_np, cfg, live)
+    per = -(-windows // workers) * w  # lanes a piece, whole windows
+    starts = range(0, n, per)
+    jobs = [(idx_np[s0:s0 + per], vals_np[s0:s0 + per], cfg,
+             None if live is None else max(live - s0, 0)) for s0 in starts]
+    with concurrent.futures.ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as ex:
+        pieces = list(ex.map(_oracle_piece, jobs))
+    for s0, piece in zip(starts, pieces):
+        piece[2][:] += np.int32(s0)
+    return tuple(np.concatenate([p[i] for p in pieces]) for i in range(4))
+
+
+def hold_windowed(label, idx, vals, op, n_live=None, plain_lanes=None):
     """B3's windowed body (IRU_HASH, one launch) against the numpy oracle
     on every window, bit for bit, and against the plain window loop
-    (kernels=False) on the whole stream: exact but for f32 add (rtol 1e-5,
+    (kernels=False) on the whole stream, or on its first ``plain_lanes``
+    lanes (a second kernel call on them): exact but for f32 add (rtol 1e-5,
     another addition order).  Returns (max abs error against plain, the
     plain call's seconds, windows that bypass, windows that fall back)."""
     from repro_torch.core import iru
@@ -1423,7 +1501,7 @@ def hold_windowed(label, idx, vals, op, n_live=None):
     idx_np, vals_np = idx.cpu().numpy(), vals.cpu().numpy()
     live = None if n_live is None else int(n_live)
     t0 = time.perf_counter()
-    oracle = iru._hash_ref_host(idx_np, vals_np, cfg, live)
+    oracle = windowed_oracle(idx_np, vals_np, cfg, live)
     t_oracle = time.perf_counter() - t0
     w = cfg.window_elems
     windows = -(-idx.numel() // w)
@@ -1436,6 +1514,11 @@ def hold_windowed(label, idx, vals, op, n_live=None):
         bad |= set((np.flatnonzero(a != b) // w).tolist())
     check(not bad, f"{label}: equal to the numpy oracle on every window "
           f"({len(bad)} of {windows} differ, first {sorted(bad)[:5]})")
+    cut, survivors = "", int(got.active.sum())
+    if plain_lanes is not None:  # the plain loop takes about 2 s a million
+        idx, vals = idx[:plain_lanes], vals[:plain_lanes]
+        got = iru.iru_reorder(idx, vals, config=cfg, n_live=n_live)
+        cut = f" on the first {plain_lanes} lanes"
     want, t_plain = wall_s(lambda: iru.iru_reorder(
         idx, vals, config=cfg, n_live=n_live, kernels=False))
     for field in ("indices", "positions", "active"):
@@ -1453,13 +1536,13 @@ def hold_windowed(label, idx, vals, op, n_live=None):
         check(torch.equal(got.secondary, want.secondary),
               f"{label}: exact against plain")
     bypass, dense = window_branches(idx_np, n_live)
-    print(f"B3 windowed {label:22s}: {idx.numel()} lanes "
-          f"({idx.numel() if live is None else live} live), {windows} "
+    print(f"B3 windowed {label:22s}: {len(idx_np)} lanes "
+          f"({len(idx_np) if live is None else live} live), {windows} "
           f"windows, {bypass} bypass the banks, {dense} take the round-cap "
-          f"fallback in a partition; {int(got.active.sum())} survivors; "
+          f"fallback in a partition; {survivors} survivors; "
           f"equal to the numpy oracle on every window (oracle {t_oracle:.1f} "
-          f"s); against plain max abs err {err:.3g}, max rel err {rel:.3g} "
-          f"(plain {t_plain:.1f} s)")
+          f"s); against plain{cut} max abs err {err:.3g}, max rel err "
+          f"{rel:.3g} (plain {t_plain:.1f} s)")
     return err, t_plain, bypass, dense
 
 
@@ -1518,7 +1601,11 @@ def phase_windowed(graphs, oracles):
     n = pr_idx.numel()
     err_w, t_plain_w, _, _ = hold_windowed("pagerank add", pr_idx, pr_vals,
                                            "add")
-    err_min, _, _, _ = hold_windowed("pagerank min", pr_idx, pr_vals, "min")
+    # min's plain loop on a quarter of the stream: the oracle above holds
+    # every window, and the plain loop's whole-stream time is add's
+    err_min, _, _, _ = hold_windowed("pagerank min", pr_idx, pr_vals, "min",
+                                     plain_lanes=512 * IRU_HASH[
+                                         "window_elems"])
     cap_idx, bypass_idx, vals, live = trip_streams(dev)
     err_cap, _, _, dense = hold_windowed("round-cap trip add", cap_idx, vals,
                                          "add", live)
@@ -1702,14 +1789,16 @@ def moe_close(got, want, what: str, rtol: float, atol: float) -> None:
     check(ok, f"{what} within rtol {rtol:g}, atol {atol:g} x max|y|")
 
 
-def phase_moe():
+def phase_moe(layer_dir: Path):
     """Phase 8: MoE expert dispatch at deepseek-v2-lite's width (plain
     torch; the path reaches no hand-written kernel).  (a) in f32 with TF32
     off: plans equal the numpy oracle, the three engines agree, the ragged
     planned path runs with no host sync, the expert-parallel executor agrees
     with the planner, one backward is finite; (b) in bf16 (f32 router):
     each engine's CUDA-event median, the planner alone, and a profile of
-    the planned engine at T = 16384."""
+    the planned engine at T = 16384.  The f32 layer and tokens of (a) go to
+    ``layer_dir`` for the group phase's ranks; returns the stacked
+    expert-parallel outputs there (exact, int8) and the aux loss."""
     import dataclasses
 
     from repro_torch.configs.base import MoEConfig
@@ -1797,6 +1886,8 @@ def phase_moe():
               f"{err:.4g} against 0.05 max|y| + 1e-3 = {bound:.4g}")
         check(err <= bound, "compressed expert-parallel combine within "
               "0.05 max|y| + 1e-3")
+        stacked_ep = {"exact": ye.cpu(), "int8": yc.cpu(), "aux": ae.cpu()}
+        write_layer(layer_dir, p32, x, moe, ffn, n_partitions=8)
         del yr, y_m, yh, ye, yc
         # one backward
         pg = {key: v.detach().clone().requires_grad_()
@@ -1872,6 +1963,202 @@ def phase_moe():
     del pb, it
     torch.cuda.empty_cache()
     print(f"moe phase: {time.perf_counter() - t0:.1f} s")
+    return stacked_ep
+
+
+# The group phase (8b): one shard per process over torch.distributed, the
+# ranks started by the partitioned launcher.  Four gloo ranks share the one
+# card, so the exchange crosses host memory and loopback TCP, not NVLink.
+GROUP_DIR = ROOT / "build" / "group"
+GROUP_RUNS = {  # the launcher's --app -> phase 7's stacked run (app, compress)
+    "bfs:compress": ("bfs", True), "sssp": ("sssp", False),
+    "pagerank:iters=20:compress": ("pagerank", True),
+    "pagerank:iters=20": ("pagerank", False)}
+GROUP_TIMEOUT = 240  # seconds for one launcher run, process starts included
+EF_L1_LIMIT = 1e-3  # int8_ef PageRank, four ranks against stacked
+
+
+def l1_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got - want).abs().sum() / want.abs().sum())
+
+
+def write_layer(path: Path, params: dict, x, moe, ffn: str,
+                n_partitions: int) -> None:
+    """A MoE layer as the partitioned launcher's ``--moe`` reads it."""
+    import dataclasses
+
+    path.mkdir(parents=True, exist_ok=True)
+    for k in ("router", "wi", "wg", "wo"):
+        np.save(path / f"{k}.npy", params[k].cpu().numpy())
+    np.save(path / "x.npy", x.cpu().numpy())
+    (path / "config.json").write_text(json.dumps({
+        "moe": dataclasses.asdict(moe), "ffn_type": ffn,
+        "n_partitions": n_partitions}))
+
+
+def launch_group(what: str, args: list) -> tuple[list, float]:
+    """Run the partitioned launcher; returns every rank's records and the
+    wall seconds (process starts included).  A failed or hung rank fails
+    the phase."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.partitioned", *args]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    try:
+        r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                           text=True, timeout=GROUP_TIMEOUT)
+    except subprocess.TimeoutExpired as e:
+        raise RuntimeError(f"check failed: {what}: the launcher ran past "
+                           f"{GROUP_TIMEOUT} s") from e
+    wall = time.perf_counter() - t0
+    for line in r.stdout.splitlines():
+        print(f"  rank 0 | {line}")
+    check(r.returncode == 0, f"{what}: launcher exit {r.returncode}\n"
+          f"{r.stderr[-4000:]}")
+    out = Path(args[args.index("--out") + 1])
+    return json.loads((out / "summary.json").read_text()), wall
+
+
+def group_records(summary: list, label: str) -> list:
+    return [next(r for r in recs if r["label"] == label) for recs in summary]
+
+
+def phase_group(g, stacked: dict, stacked_ep: dict, card: str) -> dict:
+    """Phase 8b: (a) four gloo ranks on the one card, one kron-20 shard
+    each (hash mode: B1 and B3 on every rank), held against phase 7's
+    stacked runs, and moe_hash_ep over four ranks against phase 8's stacked
+    result; (b) a group of one over NCCL against the single-device BFS.
+    Returns the launches of the ranks' timed runs, summed."""
+    from repro_torch.launch.partitioned import parse_app
+
+    t0 = time.perf_counter()
+    totals: dict = {}
+
+    def count(recs):
+        for r in recs:
+            for k, v in r["launches"].items():
+                totals[k] = totals.get(k, 0) + v
+
+    graph = GROUP_DIR / "kron20.npz"
+    np.savez(graph, row_ptr=g.row_ptr.cpu().numpy(),
+             col_idx=g.col_idx.cpu().numpy(),
+             weights=g.weights.cpu().numpy())
+    stacked_bytes = stacked["partition bytes"]
+    runs = [a for spec in GROUP_RUNS for a in ("--app", spec)]
+    out = GROUP_DIR / "gloo"
+    summary, wall = launch_group("group gloo x4", [
+        "--nproc", "4", "--backend", "gloo", "--graph", str(graph),
+        "--mode", "hash", "--timeout", "120", "--out", str(out),
+        "--moe", str(GROUP_DIR / "moe"), *runs])
+    print(f"group gloo x4 on one card: the launcher took {wall:.1f} s "
+          f"(four process starts, each rank's graph load and partition, "
+          f"the runs below) [{card}]")
+    for spec, key in GROUP_RUNS.items():
+        label = parse_app(spec)["label"]
+        want, steps, traffic, t_stacked = stacked[key]
+        got = torch.from_numpy(np.load(out / f"{label}.npy"))
+        recs = group_records(summary, label)
+        count(recs)
+        what = f"group kron20 {label} (codec {traffic['codec']}) 4 gloo ranks"
+        check(all(r["supersteps"] == steps and r["traffic"] == traffic
+                  for r in recs), f"{what}: every rank's supersteps and "
+              f"boundary traffic equal the stacked run's")
+        for p, r in enumerate(recs):
+            for k in SHARD_PATH["hash"]:
+                check(r["launches"].get(k, 0) > 0,
+                      f"{what}: rank {p} launched {k}")
+        sent = sum(r["sent_bytes"] for r in recs)
+        check(sent == traffic["wire_bytes_total"],
+              f"{what}: {sent} B through all_to_all_single, the codec's "
+              f"wire {traffic['wire_bytes_total']} B")
+        part_bytes = [r["partition_bytes"] for r in recs]
+        check(sum(part_bytes) == stacked_bytes,
+              f"{what}: the ranks' shards add up to the stacked partition")
+        if key == ("pagerank", False):
+            rel = rel_err(got.numpy(), want.numpy())
+            check(torch.allclose(got, want, rtol=1e-5, atol=0.0),
+                  f"{what}: within rtol 1e-5, atol 0 of stacked (max "
+                  f"relative error {rel:.3g})")
+            verdict = (f"against stacked max relative error {rel:.3g} (rtol "
+                       f"1e-5, atol 0)")
+        elif key[0] == "pagerank":
+            # int8_ef: an ulp of the leak's sum order flips a code, and error
+            # feedback carries the flip on, so a small rank can move far
+            # from the stacked one; the whole vector stays close.  The L1
+            # limit lies between the sound group runs' readings (PERF.md)
+            # and that of a wire that skips the codec (exact payloads), read
+            # here from the stacked exact run
+            l1 = l1_rel(got, want)
+            skip = l1_rel(stacked[("pagerank", False)][0], want)
+            check(skip > EF_L1_LIMIT, f"{what}: the stacked exact run is "
+                  f"{skip:.3g} from the stacked int8_ef run (L1), above the "
+                  f"limit {EF_L1_LIMIT}")
+            check(l1 <= EF_L1_LIMIT, f"{what}: L1 relative error {l1:.3g} "
+                  f"against stacked, limit {EF_L1_LIMIT}")
+            verdict = (f"against stacked L1 relative error {l1:.3g} (limit "
+                       f"{EF_L1_LIMIT}; exact payloads would give {skip:.3g}"
+                       f"), max relative error "
+                       f"{rel_err(got.numpy(), want.numpy()):.3g}")
+        else:
+            check(torch.equal(got, want), f"{what}: equals stacked")
+            verdict = "equals stacked bit for bit"
+        first = max(r["first_wall_s"] for r in recs)
+        print(f"{what}: {steps} supersteps, wall "
+              f"{max(r['wall_s'] for r in recs):.4f} s (slowest rank, its "
+              f"second run; the first {first:.4f} s; stacked "
+              f"{t_stacked:.4f} s), wire "
+              f"{traffic['wire_bytes_per_superstep']} B a superstep "
+              f"({sent} B through all_to_all_single in all), launches per "
+              f"rank {[r['launches'] for r in recs]}, partition bytes per "
+              f"rank {part_bytes} (stacked {stacked_bytes}); {verdict} "
+              f"[{card}]")
+    recs = group_records(summary, "moe_exact")
+    check(all(r["held"]["wi"][0] == 16 for r in recs),
+          "group moe: each rank holds 16 of the 64 experts")
+    ye = torch.from_numpy(np.load(out / "moe_exact.npy"))
+    moe_close(ye, stacked_ep["exact"], "group moe_hash_ep 4 gloo ranks, "
+              "exact, vs stacked 4 shards", 1e-5, 1e-6)
+    for label in ("moe_exact", "moe_int8"):
+        aux = torch.from_numpy(np.load(out / f"{label}_aux.npy"))
+        check(torch.equal(aux, stacked_ep["aux"]),
+              f"group {label}: aux equals stacked")
+    yc = np.load(out / "moe_int8.npy")
+    want = stacked_ep["int8"].numpy()
+    blocks = np.pad(np.abs(want).reshape(-1), (0, (-want.size) % 128))
+    quantum = blocks.reshape(-1, 128).max(1) / 127.0
+    diff = np.pad(np.abs(yc - want).reshape(-1), (0, (-want.size) % 128))
+    worst = float((diff.reshape(-1, 128).max(1) / np.maximum(
+        quantum, 1e-30)).max())
+    print(f"  group moe_hash_ep 4 gloo ranks, int8: max abs error "
+          f"{float(np.abs(yc - want).max()):.4g} against stacked, worst "
+          f"block {worst:.3g} quanta (bound 4)")
+    check(worst <= 4, "group int8 combine within 4 quanta of stacked")
+    walls = {label: [round(r["wall_s"], 4)
+                     for r in group_records(summary, label)]
+             for label in ("moe_exact", "moe_int8")}
+    print(f"  group moe_hash_ep walls per rank (second runs), exact: "
+          f"{walls['moe_exact']} s, int8: {walls['moe_int8']} s [{card}]")
+    del summary
+
+    # (b) a group of one over NCCL
+    out = GROUP_DIR / "nccl"
+    summary, wall = launch_group("group nccl x1", [
+        "--nproc", "1", "--backend", "nccl", "--graph", str(graph),
+        "--mode", "hash", "--timeout", "120", "--out", str(out),
+        "--app", "bfs"])
+    got = torch.from_numpy(np.load(out / "bfs.npy"))
+    rec = summary[0][0]
+    count([rec])
+    check(torch.equal(got, stacked["single bfs"]),
+          "group nccl x1 bfs: equals the single-device pipeline")
+    for k in SHARD_PATH["hash"]:
+        check(rec["launches"].get(k, 0) > 0, f"group nccl x1 bfs: {k}")
+    print(f"group kron20 bfs 1 NCCL rank: {rec['supersteps']} supersteps, "
+          f"wall {rec['wall_s']:.4f} s (its first run "
+          f"{rec['first_wall_s']:.4f} s; the launcher {wall:.1f} s), launches "
+          f"{rec['launches']}, partition bytes {rec['partition_bytes']}; "
+          f"equals the single-device pipeline [{card}]")
+    print(f"group phase: {time.perf_counter() - t0:.1f} s")
+    return totals
 
 
 # The LM substrate's model half (phase 9).  (a) checks at full width in f32:
@@ -2865,18 +3152,28 @@ DRYRUN_STEPS = (  # kind, layers (None: whole), B, S (decode: the cache)
     ("decode", None, 8, 4128), ("prefill", None, 2, 4096),
     ("train", 4, 2, 4096))
 DRYRUN_POS = 4096  # decode writes the cache's row 4096
+# the shapes also swept at 2x16x16: the decode cache and the training state
+# under the pod axis (the sweep's time goes to deepseek's prefill)
+DRYRUN_MULTI = ("decode_32k", "train_4k")
 
 
 def dryrun_sweep(card: str) -> None:
-    """Phase 13 (a): every shape of ``DRYRUN_ARCHS`` at both production
-    meshes, counted on meta."""
+    """Phase 13 (a): every shape of ``DRYRUN_ARCHS`` at the 16x16
+    production mesh, and ``DRYRUN_MULTI``'s at 2x16x16 too, counted on
+    meta.  A 2x16x16 cell's FLOPs and bytes a device are half the 16x16
+    cell's (the same global step over twice the devices); its state and
+    cache shardings are its own."""
     from repro_torch.configs import LM_SHAPES
     from repro_torch.launch import dryrun
 
     t0 = time.perf_counter()
     for arch in DRYRUN_ARCHS:
         for shape in LM_SHAPES:
+            single = None
             for mesh in ("single", "multi"):
+                if mesh == "multi" and (shape not in DRYRUN_MULTI
+                                        or single is None):
+                    continue
                 rec = dryrun.run_cell(arch, shape, mesh, save=False)
                 check(rec["status"] in ("ok", "skipped"),
                       f"dryrun {arch} {shape} {mesh}: {rec['status']} "
@@ -2886,14 +3183,25 @@ def dryrun_sweep(card: str) -> None:
                           f"({rec['reason']})  [{card}]")
                     continue
                 cost, roof = rec["cost_analysis"], rec["roofline"]
+                mem = rec["analytic_memory"]
+                if mesh == "single":
+                    single = cost
+                else:
+                    check(all(2 * cost[k] == single[k]
+                              for k in ("flops", "bytes_accessed")),
+                          f"dryrun {arch} {shape}: 2x16x16's FLOPs and "
+                          f"bytes a device are half of 16x16's")
                 print(f"dryrun {arch} {shape} {mesh}: ok, a device "
-                      f"{cost['flops']:.4e} FLOPs, {cost['bytes_accessed']:.4e}"
-                      f" bytes; t_compute {roof['t_compute_s']:.4e} s, "
-                      f"t_memory {roof['t_memory_s']:.4e} s, bound "
+                      f"{cost['flops']:.4e} FLOPs, "
+                      f"{cost['bytes_accessed']:.4e} bytes; t_compute "
+                      f"{roof['t_compute_s']:.4e} s, t_memory "
+                      f"{roof['t_memory_s']:.4e} s, bound "
                       f"{roof['bottleneck']}; useful-FLOPs ratio "
-                      f"{rec['useful_flops_ratio']:.4f}; fits_80gb "
-                      f"{rec['analytic_memory']['fits_80gb']}; counted in "
-                      f"{rec['count_s']} s  [{card}]")
+                      f"{rec['useful_flops_ratio']:.4f}; per device "
+                      f"{mem['total_per_dev_gb']} GB, fits_80gb "
+                      f"{mem['fits_80gb']}; arguments "
+                      f"{rec['memory_analysis']['argument_size_in_bytes']} "
+                      f"B; counted in {rec['count_s']} s  [{card}]")
     print(f"dryrun sweep: {time.perf_counter() - t0:.1f} s (meta, no card "
           f"work)  [{card}]")
 
@@ -3057,11 +3365,18 @@ def main() -> int:
     for k, v in served.items():
         launches[k] = launches.get(k, 0) + v
     t_part = time.perf_counter()
-    for k, v in phase_partitioned(graphs, oracles, fused).items():
+    part_launches, stacked = phase_partitioned(graphs, oracles, fused)
+    for k, v in part_launches.items():
         launches[k] = launches.get(k, 0) + v
     print(f"partitioned phase: {time.perf_counter() - t_part:.1f} s")
     del fused
-    phase_moe()
+    shutil.rmtree(GROUP_DIR, ignore_errors=True)
+    GROUP_DIR.mkdir(parents=True)
+    stacked_ep = phase_moe(GROUP_DIR / "moe")
+    for k, v in phase_group(graphs["kron20"], stacked, stacked_ep,
+                            card).items():
+        launches[k] = launches.get(k, 0) + v
+    del stacked, stacked_ep
     phase_lm(card)
     phase_train(card)
     for k, v in serving_errors.items():

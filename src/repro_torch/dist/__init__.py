@@ -1,7 +1,8 @@
 """Distributed execution: the edge-partitioned frontier pipeline and its
 boundary exchange (counterpart of ``repro.dist.graph_partition``) and the
-int8-compressed collectives (``repro.dist.collectives``).  The shards run on
-one card, stepped in turn by one process.  ``dist.sharding`` (the
+int8-compressed collectives (``repro.dist.collectives``).  The shards run
+stacked on one device, stepped in turn by one process, or one a rank of a
+``torch.distributed`` group (a group mesh).  ``dist.sharding`` (the
 logical-axis rules and the ambient mesh, ``repro.dist.sharding``) is
 imported by its own name.
 

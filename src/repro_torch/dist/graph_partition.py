@@ -8,13 +8,21 @@ same ragged path, kernels B1, B2 and B3 launched per shard -- stitching the
 shards together with one boundary exchange a superstep.
 
 The reference runs one shard per device under ``shard_map`` (one process
-drives them all) and exchanges with an all-to-all.  Here one process holds
-the ``[P, ...]`` stacked partition on one device and steps every shard in
-turn: the all-to-all of the ``[P, P, lane_cap]`` send buffer (shard ``o``
-receives ``send[p][o]`` from every ``p``) is its transpose, and the
-reference's cross-shard reductions (``psum``/``pmax``) are sums and maxima
-over the shards in the host loop.  No version with one shard per card exists
-yet.
+drives them all) and exchanges with an all-to-all.  The port lays its shards
+out one of two ways (``dist.collectives``), and one superstep serves both:
+
+* stacked (no mesh, the default): one process holds the ``[P, ...]``
+  partition on one device and steps every shard in turn; the all-to-all of
+  the ``[P, P, lane_cap]`` send buffer (shard ``o`` receives ``send[p][o]``
+  from every ``p``) is its transpose, and the reference's cross-shard
+  reductions (``psum``/``pmax``) are sums and maxima over the shard axis;
+* one shard per rank (a group mesh, ``launch.mesh.make_graph_mesh(P,
+  group=...)``): each rank of a ``torch.distributed`` group holds only its
+  own shard (:meth:`GraphPartition.shard`), state and error-feedback rows;
+  the exchange is ``all_to_all_single`` of the codec's wire, one call a
+  wire array, and the reductions are ``all_reduce``s.  Every rank makes the
+  same two host reads a superstep as the stacked path (the rung, and
+  convergence with overflow) and ends with the global result.
 
 The exchange is value-only: the partitioner froze the (ghost slot -> owner
 local id) maps, so each superstep ships the app payload per boundary lane,
@@ -42,9 +50,11 @@ from repro_torch.core.pipeline import (CapacityPolicy, FrontierApp,
                                        _host_bucket, _scatter,
                                        frontier_scatter)
 from repro_torch.device import resolve_device
+from repro_torch.dist.collectives import StackedShards, group_shards
 from repro_torch.graphs.csr import (CSRGraph, GraphPartition,
                                     PartitionedGraphView, partition_csr)
 
+AXIS = "gpart"  # the graph-shard mesh axis (launch.mesh.make_graph_mesh)
 _QBLOCK = 128  # int8 codec block (one f32 scale per 128 lanes)
 
 
@@ -117,26 +127,31 @@ def _wire_bytes(codec: str, lanes: int, itemsize: int) -> int:
 
 def _boundary_exchange(new_target: torch.Tensor, ef_buf: torch.Tensor, *,
                        part: GraphPartition, op: str, codec: str,
-                       payload=None, tags: Optional[torch.Tensor] = None):
-    """One exchange of boundary values over the stacked shards; returns
-    ``(merged target [P, local_nodes], new error-feedback buffer)``.
+                       payload=None, tags: Optional[torch.Tensor] = None,
+                       shards=None):
+    """One exchange of boundary values over the shards ``part`` holds (``H``
+    of them: all ``P``, or this rank's one); returns ``(merged target [H,
+    local_nodes], new error-feedback buffer)``.
 
-    ``new_target`` is every shard's post-scatter target: its ghost region
-    ``[block:]`` holds the shard's outbound contributions (it started the
-    superstep at the merge identity).  Gather them along ``send_slot`` under
-    ``send_mask`` (the identity elsewhere), encode, transpose over the shard
-    axes (the reference's all-to-all), decode, merge into the owned blocks
-    along ``recv_id`` under ``recv_mask`` with the app's op (padding
-    ``recv_id == block`` drops at the scatter's sink slots), and reset the
-    ghost regions to the identity.
+    ``new_target`` is each held shard's post-scatter target: its ghost
+    region ``[block:]`` holds the shard's outbound contributions (it started
+    the superstep at the merge identity).  Gather them along ``send_slot``
+    under ``send_mask`` (the identity elsewhere), encode, send row ``o`` to
+    shard ``o`` through ``shards.all_to_all`` (the reference's all-to-all:
+    a transpose when stacked, ``all_to_all_single`` of each wire array over
+    a group), decode, merge into the owned blocks along ``recv_id`` under
+    ``recv_mask`` with the app's op (padding ``recv_id == block`` drops at
+    the scatter's sink slots), and reset the ghost regions to the identity.
 
-    ``payload`` is ``[P]``, one per receiving shard (the ``flag`` codec's).
-    ``op="tagged"`` is the fused-family exchange: ``tags`` (bool ``[P,
+    ``payload`` is ``[H]``, one per receiving shard (the ``flag`` codec's).
+    ``op="tagged"`` is the fused-family exchange: ``tags`` (bool ``[H,
     local_nodes]``, False = min, True = add) gives each slot its family and
-    identity; it takes the exact codec only.
+    identity; it takes the exact codec only.  ``shards`` defaults to the
+    stacked layout of every shard.
     """
-    P, ln = new_target.shape
-    block, k = part.block, part.lane_cap
+    H, ln = new_target.shape
+    P, block, k = part.n_parts, part.block, part.lane_cap
+    shards = shards or StackedShards(P)
     if (op == "tagged") != (tags is not None):
         raise ValueError("op='tagged' and a local tag table go together")
     if op == "tagged" and codec != "exact":
@@ -144,41 +159,41 @@ def _boundary_exchange(new_target: torch.Tensor, ef_buf: torch.Tensor, *,
             f"tagged boundary exchange supports only the exact codec, "
             f"got {codec!r}")
     ident = _merge_init(op, new_target.dtype)
-    slots = part.send_slot.clamp(max=ln - 1).reshape(P, P * k).long()
-    picked = torch.gather(new_target, 1, slots).reshape(P, P, k)
+    slots = part.send_slot.clamp(max=ln - 1).reshape(H, P * k).long()
+    picked = torch.gather(new_target, 1, slots).reshape(H, P, k)
     if op == "tagged":
         slot_ident = torch.where(
             tags, new_target.new_full((), _merge_init("add",
                                                       new_target.dtype)),
             new_target.new_full((), ident))
         send = torch.where(part.send_mask, picked, torch.gather(
-            slot_ident, 1, slots).reshape(P, P, k))
-        recv = send.transpose(0, 1)
-        rid = part.recv_id.reshape(P, P * k).long()
+            slot_ident, 1, slots).reshape(H, P, k))
+        recv = shards.all_to_all(send)
+        rid = part.recv_id.reshape(H, P * k).long()
         rtags = torch.gather(tags, 1, rid.clamp(max=ln - 1)).reshape(-1)
         ghost = slot_ident[:, block:]
     else:
         send = torch.where(part.send_mask, picked,
                            new_target.new_full((), ident))
-        wire, ef_buf = _encode(codec, send.reshape(P * P, k),
-                               ef_buf.reshape(P * P, k), ident)
-        ef_buf = ef_buf.reshape(P, P, k)
+        wire, ef_buf = _encode(codec, send.reshape(H * P, k),
+                               ef_buf.reshape(H * P, k), ident)
+        ef_buf = ef_buf.reshape(H, P, k)
         # the all-to-all: row (p, o) of the sender becomes row (o, p)
-        wire = {key: a.reshape(P, P, -1).transpose(0, 1).reshape(P * P, -1)
-                for key, a in wire.items()}
+        wire = {key: shards.all_to_all(a.reshape(H, P, -1)).reshape(
+            H * P, -1) for key, a in wire.items()}
         if payload is not None:  # the receiver's scalar, one per row
             payload = torch.as_tensor(payload).to(
                 new_target.device).repeat_interleave(P)[:, None]
         recv = _decode(codec, wire, ident, new_target.dtype, payload)
         rtags = None
-        ghost = new_target.new_full((P, ln - block), ident)
-    # owned blocks flattened: shard o's owner-local id i is o * block + i
-    dest = (torch.arange(P, device=new_target.device)[:, None, None] * block
+        ghost = new_target.new_full((H, ln - block), ident)
+    # owned blocks flattened: held shard h's owner-local id i is h * block + i
+    dest = (torch.arange(H, device=new_target.device)[:, None, None] * block
             + part.recv_id)
     owned = _scatter(new_target[:, :block].reshape(-1), dest.reshape(-1),
                      recv.reshape(-1), part.recv_mask.reshape(-1), op,
                      rtags)
-    return torch.cat([owned.reshape(P, block), ghost], 1), ef_buf
+    return torch.cat([owned.reshape(H, block), ghost], 1), ef_buf
 
 
 # -- partition-aware apps -----------------------------------------------------
@@ -191,14 +206,15 @@ class PartitionedApp:
       candidate and update verbatim: ghost entries sit at the merge
       identity, so their update is a no-op);
     * ``codec`` -- what ``compress=True`` selects ("exact" = none, SSSP);
-    * ``init(part, source)`` -- stacked ``(state [P, ...], mask [P,
-      local_nodes])`` on the partition's device;
-    * ``payload(states)`` -- ``[P]`` scalars the ``flag`` codec rebuilds
+    * ``init(part, source)`` -- ``(state [H, ...], mask [H, local_nodes])``
+      of the ``H`` shards ``part`` holds, on the partition's device;
+    * ``payload(states)`` -- ``[H]`` scalars the ``flag`` codec rebuilds
       lanes from (BFS: ``depth + 1``), or None;
-    * ``shared(states, graphs)`` -- entries every shard's ``update`` reads
-      that sum over all shards (the reference's ``psum`` inside the update:
-      PageRank's dangling leak), computed from the pre-update states before
-      any shard updates; or None.
+    * ``shared(states, graphs)`` -- ``{name: [H] partials}`` of entries
+      every shard's ``update`` reads that sum over all shards (the
+      reference's ``psum`` inside the update: PageRank's dangling leak); the
+      pipeline sums each over every shard, from the pre-update states,
+      before any shard updates; or None.
     """
 
     app: FrontierApp
@@ -209,24 +225,30 @@ class PartitionedApp:
 
 
 def _stacked_point_mask(part: GraphPartition, source: int):
-    """bool[P, local_nodes] with only the owner-local bit of ``source``."""
-    mask = torch.zeros((part.n_parts, part.local_nodes), dtype=torch.bool,
+    """bool[H, local_nodes] with only the owner-local bit of ``source`` (no
+    bit unless ``part`` holds its owner), and ``(held row, local id)`` of
+    ``source`` or None."""
+    mask = torch.zeros((len(part.held), part.local_nodes), dtype=torch.bool,
                        device=part.device)
     owner = source // part.block
-    mask[owner, source - owner * part.block] = True
-    return mask, owner
+    if owner not in part.held:
+        return mask, None
+    at = (owner - part.first_shard, source - owner * part.block)
+    mask[at] = True
+    return mask, at
 
 
 def partitioned_bfs_app(part: GraphPartition) -> PartitionedApp:
     from repro_torch.apps.bfs import BFS_APP, UNVISITED
 
     def init(part: GraphPartition, source: int):
-        mask, owner = _stacked_point_mask(part, source)
-        label = torch.full((part.n_parts, part.local_nodes), UNVISITED,
-                           dtype=torch.int32, device=part.device)
-        label[owner, source - owner * part.block] = 0
+        mask, at = _stacked_point_mask(part, source)
+        label = torch.full(mask.shape, UNVISITED, dtype=torch.int32,
+                           device=part.device)
+        if at is not None:
+            label[at] = 0
         return {"label": label,
-                "depth": torch.zeros(part.n_parts, dtype=torch.int32,
+                "depth": torch.zeros(len(part.held), dtype=torch.int32,
                                      device=part.device)}, mask
 
     return PartitionedApp(
@@ -238,10 +260,11 @@ def partitioned_sssp_app(part: GraphPartition) -> PartitionedApp:
     from repro_torch.apps.sssp import SSSP_APP
 
     def init(part: GraphPartition, source: int):
-        mask, owner = _stacked_point_mask(part, source)
-        dist = torch.full((part.n_parts, part.local_nodes), float("inf"),
-                          dtype=torch.float32, device=part.device)
-        dist[owner, source - owner * part.block] = 0.0
+        mask, at = _stacked_point_mask(part, source)
+        dist = torch.full(mask.shape, float("inf"), dtype=torch.float32,
+                          device=part.device)
+        if at is not None:
+            dist[at] = 0.0
         return {"dist": dist}, mask
 
     # f32 distances have no exact sub-word encoding; parity wins over bytes
@@ -249,10 +272,11 @@ def partitioned_sssp_app(part: GraphPartition) -> PartitionedApp:
 
 
 def _owned_real_mask(part: GraphPartition) -> torch.Tensor:
-    """bool[P, local_nodes]: owned slots holding a real global vertex (not
+    """bool[H, local_nodes]: owned slots holding a real global vertex (not
     a ghost, not the last shard's padding rows)."""
     r = torch.arange(part.local_nodes, device=part.device)
-    p = torch.arange(part.n_parts, device=part.device)[:, None]
+    p = torch.arange(part.held.start, part.held.stop,
+                     device=part.device)[:, None]
     return (r < part.block) & (p * part.block + r < part.n_nodes)
 
 
@@ -268,7 +292,7 @@ def partitioned_pagerank_app(part: GraphPartition, *, iters: int = 20,
         state = {"rank": torch.where(own, 1.0 / n, 0.0).to(torch.float32),
                  "acc": torch.zeros(own.shape, dtype=torch.float32,
                                     device=part.device),
-                 "it": torch.zeros(part.n_parts, dtype=torch.int32,
+                 "it": torch.zeros(len(part.held), dtype=torch.int32,
                                    device=part.device),
                  "own": own}
         return state, own.clone()
@@ -280,7 +304,7 @@ def partitioned_pagerank_app(part: GraphPartition, *, iters: int = 20,
     def shared(states, graphs):
         return {"leak": torch.stack([
             torch.where(s["own"] & (g.degrees() == 0), s["rank"], 0.0).sum()
-            for s, g in zip(states, graphs)]).sum()}
+            for s, g in zip(states, graphs)])}
 
     def update(state, acc, graph: CSRGraph):
         own = state["own"]
@@ -315,14 +339,15 @@ def _restack(states: list[dict]) -> dict:
 def partitioned_superstep(graphs: list, app: FrontierApp, states: list,
                           mask: torch.Tensor, *, e_cap: int, f_cap: int,
                           exchange=None, shared=None, **step_kw):
-    """One superstep over every shard: ``frontier_scatter`` per shard (its
-    kernels launched per shard), ``exchange(stacked new targets, states)``,
-    the ``shared`` cross-shard entries, then ``app.update`` per shard.
+    """One superstep over the held shards: ``frontier_scatter`` per shard
+    (its kernels launched per shard), ``exchange(stacked new targets,
+    states)``, the ``shared`` cross-shard entries, then ``app.update`` per
+    shard.
 
     Every shard runs every superstep, empty frontier or not, so per-shard
     counters (BFS's depth) stay in lockstep.  Nothing given is changed in
     place: a caller may rerun the same inputs at a larger rung.  Returns
-    ``(states, mask [P, local_nodes], overflow 0-d bool)``.
+    ``(states, mask [H, local_nodes], overflow 0-d bool)``.
     """
     targets, overflow = [], []
     for g, st, mk in zip(graphs, states, mask):
@@ -342,12 +367,15 @@ def partitioned_superstep(graphs: list, app: FrontierApp, states: list,
     return out_states, torch.stack(out_masks), torch.stack(overflow).any()
 
 
-def _predict(degrees: torch.Tensor, mask: torch.Tensor) -> tuple[int, int]:
+def _predict(degrees: torch.Tensor, mask: torch.Tensor,
+             shards=None) -> tuple[int, int]:
     """The largest shard's (degree sum, node count): the reference's
-    ``pmax`` of each shard's working set, one host read."""
-    need = torch.where(mask, degrees, 0).sum(1, dtype=torch.int64).max()
-    count = mask.sum(1, dtype=torch.int64).max()
-    need, count = torch.stack([need, count]).tolist()
+    ``pmax`` of each shard's working set (one ``all_reduce(MAX)`` over a
+    group), one host read."""
+    need = torch.where(mask, degrees, 0).sum(1, dtype=torch.int64)
+    count = mask.sum(1, dtype=torch.int64)
+    shards = shards or StackedShards(mask.shape[0])
+    need, count = shards.max(torch.stack([need, count], 1)).tolist()
     return need, count
 
 
@@ -364,9 +392,15 @@ class PartitionedFrontierPipeline:
     a superstep with the overflow flag.  ``compress=True`` switches the
     exchange to the app's codec; ``compress=False`` is the exact path.
 
-    ``device=None`` runs on the card and raises without one (the
-    reference's ``mesh=``); ``kernels=False`` runs the kernels' plain
-    versions (the reference's ``gather=``).
+    ``mesh=None`` steps every shard in this process on ``device``
+    (``None``: the card, raising without one).  A group mesh
+    (``launch.mesh.make_graph_mesh(P, group=...)``, the reference's
+    ``mesh=``) runs one shard per rank on the mesh's device: each rank of
+    the group builds this pipeline over the same partition (whole, or its
+    own :meth:`GraphPartition.shard`) and keeps its shard alone, and
+    ``run`` and ``gather_result`` are collectives that every rank calls.
+    ``kernels=False`` runs the kernels' plain versions (the reference's
+    ``gather=``).
     """
 
     def __init__(
@@ -374,6 +408,7 @@ class PartitionedFrontierPipeline:
         part: GraphPartition,
         papp: PartitionedApp,
         *,
+        mesh=None,
         device: str | torch.device | None = None,
         mode: str = "baseline",
         iru_config: Optional[IRUConfig] = None,
@@ -385,8 +420,27 @@ class PartitionedFrontierPipeline:
     ):
         if mode not in ("baseline", "sort", "hash"):
             raise ValueError(f"mode must be baseline|sort|hash, got {mode!r}")
-        self.device = resolve_device(device)
-        self.part = part.to(self.device)
+        if mesh is None:
+            if len(part.held) != part.n_parts:
+                raise ValueError(
+                    f"the stacked pipeline needs every shard; this partition "
+                    f"holds shards {list(part.held)} of {part.n_parts} (one "
+                    f"shard a rank takes a group mesh)")
+            self.device = resolve_device(device)
+            self.shards = StackedShards(part.n_parts)
+            self.part = part.to(self.device)
+        else:
+            if mesh.shape.get(AXIS) != part.n_parts:
+                raise ValueError(
+                    f"mesh axis {AXIS!r} has size {mesh.shape.get(AXIS)}, "
+                    f"partition has {part.n_parts} shards")
+            self.shards = group_shards(mesh, AXIS)
+            self.device = mesh.devices[0]
+            if device is not None and torch.device(device) != self.device:
+                raise ValueError(f"device={device!r} against the mesh's "
+                                 f"{self.device}")
+            self.part = part.shard(self.shards.rank).to(self.device)
+        self.mesh = mesh
         self.papp = papp
         self.mode = mode
         self.iru_config = None if mode == "baseline" else dataclasses.replace(
@@ -402,7 +456,7 @@ class PartitionedFrontierPipeline:
         # shard's whole edge set, so a dispatched rung never overflows
         self.buckets = self.capacity_policy.ladder(
             max(part.edge_cap, 1), part.local_nodes)
-        self.graphs = [self.part.shard_graph(p) for p in range(part.n_parts)]
+        self.graphs = [self.part.shard_graph(p) for p in self.part.held]
         self._degrees = torch.stack([g.degrees() for g in self.graphs])
         self.n_hops = 0
         self.supersteps = 0
@@ -415,23 +469,31 @@ class PartitionedFrontierPipeline:
                    else self.papp.payload(states))
         target, self._ef = _boundary_exchange(
             target, self._ef, part=self.part, op=self.papp.app.filter_op,
-            codec=self.codec, payload=payload)
+            codec=self.codec, payload=payload, shards=self.shards)
         return target
+
+    def _shared(self, states, graphs):
+        """The app's per-shard partials, each summed over every shard."""
+        return {k: self.shards.sum(v)
+                for k, v in self.papp.shared(states, graphs).items()}
 
     def run(self, source: int = 0) -> torch.Tensor:
         part = self.part
         state, mask = self.papp.init(part, source)
-        states = _unstack(state, part.n_parts)
-        self._ef = torch.zeros((part.n_parts, part.n_parts,
+        states = _unstack(state, len(part.held))
+        self._ef = torch.zeros((len(part.held), part.n_parts,
                                 max(part.lane_cap, 1)),
                                dtype=torch.float32, device=self.device)
+        # the geometry is every rank's, so every rank makes the same choice
         exchange = (self._exchange if part.n_parts > 1 and part.lane_cap > 0
                     else None)
+        shared = None if self.papp.shared is None else self._shared
         self.supersteps = 0
         last_b = None
         it, cont = 0, True
         while cont and it < self.max_iters:
-            b = (_host_bucket(self.buckets, *_predict(self._degrees, mask))
+            b = (_host_bucket(self.buckets, *_predict(self._degrees, mask,
+                                                      self.shards))
                  if len(self.buckets) > 1 else 0)
             if b != last_b:
                 self.n_hops += 1
@@ -439,10 +501,12 @@ class PartitionedFrontierPipeline:
             e_cap, f_cap = self.buckets[b]
             states, mask, ovf = partitioned_superstep(
                 self.graphs, self.papp.app, states, mask, e_cap=e_cap,
-                f_cap=f_cap, exchange=exchange, shared=self.papp.shared,
+                f_cap=f_cap, exchange=exchange, shared=shared,
                 iru_config=self.iru_config, kernels=self.kernels,
                 ragged=self.ragged)
-            cont, ovf = torch.stack([mask.any(), ovf]).tolist()
+            # any shard's frontier, any shard's overflow: one sum, one read
+            cont, ovf = (self.shards.sum(torch.stack(
+                [mask.any(), ovf]).long()[None]) > 0).tolist()
             if ovf:
                 raise RuntimeError(
                     f"partitioned superstep overflowed bucket {b} "
@@ -453,11 +517,13 @@ class PartitionedFrontierPipeline:
         return self.gather_result(self._state)
 
     def gather_result(self, state=None) -> torch.Tensor:
-        """The global ``[n_nodes]`` result from the stacked state."""
+        """The global ``[n_nodes]`` result from the held shards' state (over
+        a group, an ``all_gather`` of every rank's owned rows)."""
         if state is None:
             state = self._state
-        stacked = self.papp.app.result(state)  # [P, local_nodes]
-        return stacked[:, :self.part.block].reshape(-1)[:self.part.n_nodes]
+        stacked = self.papp.app.result(state)  # [H, local_nodes]
+        owned = self.shards.gather(stacked[:, :self.part.block])
+        return owned.reshape(-1)[:self.part.n_nodes]
 
     # -- boundary-traffic accounting (static: the maps are frozen) ----------
     @property
@@ -488,51 +554,57 @@ class PartitionedFrontierPipeline:
 
 # -- one-call wrappers (mirror apps.bfs_pipeline & co.) -----------------------
 
-def _as_partition(graph, n_parts: Optional[int], device) -> GraphPartition:
+def _as_partition(graph, n_parts: Optional[int], device,
+                  mesh) -> GraphPartition:
+    """A partition of ``graph``; a graph is cut into ``n_parts`` shards
+    (default: the group mesh's size, else 1) on the pipeline's device."""
     if isinstance(graph, PartitionedGraphView):
         return graph.part
     if isinstance(graph, GraphPartition):
         return graph
+    if mesh is not None:
+        n_parts = n_parts or mesh.shape.get(AXIS)
+        device = device or mesh.devices[0]
     part = partition_csr(graph.to(resolve_device(device)), n_parts or 1)
     return part.part if isinstance(part, PartitionedGraphView) else part
 
 
 def bfs_partitioned(graph, source: int = 0, *, n_parts: Optional[int] = None,
-                    compress: bool = False,
+                    compress: bool = False, mesh=None,
                     device: str | torch.device | None = None,
                     **kw) -> torch.Tensor:
     """Partitioned BFS; bit-identical to ``apps.bfs_pipeline`` (also with
     ``compress=True``: the flag codec is exact)."""
-    part = _as_partition(graph, n_parts, device)
+    part = _as_partition(graph, n_parts, device, mesh)
     pipe = PartitionedFrontierPipeline(
-        part, partitioned_bfs_app(part), compress=compress, device=device,
-        **kw)
+        part, partitioned_bfs_app(part), compress=compress, mesh=mesh,
+        device=device, **kw)
     return pipe.run(source)
 
 
 def sssp_partitioned(graph, source: int = 0, *, n_parts: Optional[int] = None,
-                     compress: bool = False,
+                     compress: bool = False, mesh=None,
                      device: str | torch.device | None = None,
                      **kw) -> torch.Tensor:
     """Partitioned SSSP; bit-identical to ``apps.sssp_pipeline`` (min is
     order-independent; the codec stays exact by design)."""
-    part = _as_partition(graph, n_parts, device)
+    part = _as_partition(graph, n_parts, device, mesh)
     pipe = PartitionedFrontierPipeline(
-        part, partitioned_sssp_app(part), compress=compress, device=device,
-        **kw)
+        part, partitioned_sssp_app(part), compress=compress, mesh=mesh,
+        device=device, **kw)
     return pipe.run(source)
 
 
 def pagerank_partitioned(graph, *, n_parts: Optional[int] = None,
                          iters: int = 20, damping: float = 0.85,
-                         compress: bool = False,
+                         compress: bool = False, mesh=None,
                          device: str | torch.device | None = None,
                          **kw) -> torch.Tensor:
     """Partitioned push PageRank; allclose to ``apps.pagerank_pipeline``
     (f32 sums regroup across shards; int8 + error feedback with
     ``compress=True``)."""
-    part = _as_partition(graph, n_parts, device)
+    part = _as_partition(graph, n_parts, device, mesh)
     pipe = PartitionedFrontierPipeline(
         part, partitioned_pagerank_app(part, iters=iters, damping=damping),
-        compress=compress, max_iters=iters, device=device, **kw)
+        compress=compress, max_iters=iters, mesh=mesh, device=device, **kw)
     return pipe.run(0)

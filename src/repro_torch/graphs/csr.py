@@ -283,8 +283,10 @@ def from_edges(
     symmetrize: bool = False,
     device: str | torch.device | None = None,
 ) -> CSRGraph:
-    """Build a CSR graph from an edge list (numpy; same dedup and lexsort as
-    the reference, so the arrays are bit-identical)."""
+    """Build a CSR graph from an edge list, bit-identical to the reference's
+    (its dedup keeps each edge's first occurrence, its lexsort orders by
+    (src, dst)).  The filter runs in numpy; the sort, dedup and row counts
+    run on ``device``."""
     src = np.asarray(src, np.int64)
     dst = np.asarray(dst, np.int64)
     if weights is None:
@@ -295,22 +297,22 @@ def from_edges(
         weights = np.concatenate([weights, weights])
     keep = ((src != dst) & (src >= 0) & (dst >= 0) & (src < n_nodes)
             & (dst < n_nodes))
-    src, dst, weights = src[keep], dst[keep], weights[keep]
-    if dedup:
-        key = src * n_nodes + dst
-        _, first = np.unique(key, return_index=True)
-        src, dst, weights = src[first], dst[first], weights[first]
-    order = np.lexsort((dst, src))
-    src, dst, weights = src[order], dst[order], weights[order]
-    row_ptr = np.zeros(n_nodes + 1, np.int64)
-    np.add.at(row_ptr, src + 1, 1)
-    row_ptr = np.cumsum(row_ptr)
     dev = resolve_device(device)
-    return CSRGraph(
-        row_ptr=torch.from_numpy(row_ptr.astype(np.int32)).to(dev),
-        col_idx=torch.from_numpy(dst.astype(np.int32)).to(dev),
-        weights=torch.from_numpy(weights).to(dev),
-    )
+    src, dst, weights = (torch.from_numpy(a[keep]).to(dev)
+                         for a in (src, dst, weights))
+    # the key orders edges by (src, dst), so a stable sort by it is the
+    # reference's lexsort, and the first of each run of equal keys is the
+    # first occurrence np.unique(return_index=True) keeps
+    key, order = torch.sort(src * n_nodes + dst, stable=True)
+    if dedup:
+        first = torch.ones_like(key, dtype=torch.bool)
+        first[1:] = key[1:] != key[:-1]
+        order = order[first]
+    src, dst, weights = src[order], dst[order], weights[order]
+    counts = torch.bincount(src, minlength=n_nodes)
+    row_ptr = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
+    return CSRGraph(row_ptr=row_ptr.to(torch.int32),
+                    col_idx=dst.to(torch.int32), weights=weights)
 
 
 # -- edge-partitioned layout -------------------------------------------------
@@ -330,7 +332,10 @@ class GraphPartition:
     """Stacked per-shard CSR slices and static boundary maps (``[P, ...]``).
 
     Counterpart of ``repro.graphs.csr.GraphPartition``: the same fields,
-    dtypes and pads, as torch tensors on one device.
+    dtypes and pads, as torch tensors on one device.  A partition may hold
+    the rows of only some shards (:meth:`shard`: what one rank of a process
+    group holds): its leading dim is then ``len(held)``, and the geometry
+    (``n_parts`` included) stays the whole partition's.
     """
 
     # per-shard local CSR (leading dim = shard)
@@ -355,6 +360,7 @@ class GraphPartition:
     ghost_cap: int = 0
     lane_cap: int = 0
     edge_cap: int = 0
+    first_shard: int = 0  # the shard whose rows are row 0 of the tensors
 
     _TENSORS = ("row_ptr", "col_idx", "weights", "ghost_ids", "n_ghosts",
                 "n_local_edges", "send_slot", "send_mask", "recv_id",
@@ -369,10 +375,33 @@ class GraphPartition:
     def device(self) -> torch.device:
         return self.row_ptr.device
 
+    @property
+    def held(self) -> range:
+        """The shards whose rows this partition holds (all of them, unless
+        it was cut by :meth:`shard`)."""
+        return range(self.first_shard,
+                     self.first_shard + self.row_ptr.shape[0])
+
+    def _row(self, p: int) -> int:
+        if p not in self.held:
+            raise ValueError(f"shard {p} is not held here (holds shards "
+                             f"{self.held.start}..{self.held.stop - 1})")
+        return p - self.first_shard
+
     def shard_graph(self, p: int) -> CSRGraph:
         """Local ``CSRGraph`` of shard ``p`` (views of the stacked arrays)."""
-        return CSRGraph(row_ptr=self.row_ptr[p], col_idx=self.col_idx[p],
-                        weights=self.weights[p])
+        r = self._row(p)
+        return CSRGraph(row_ptr=self.row_ptr[r], col_idx=self.col_idx[r],
+                        weights=self.weights[r])
+
+    def shard(self, p: int) -> "GraphPartition":
+        """Shard ``p``'s rows alone, as ``[1, ...]`` copies that keep no
+        other shard's storage alive: its local CSR and its rows of the send
+        and receive maps (what it sends to each peer, what it receives from
+        each)."""
+        r = self._row(p)
+        return dataclasses.replace(self, first_shard=p, **{
+            k: getattr(self, k)[r:r + 1].clone() for k in self._TENSORS})
 
     def to(self, device: str | torch.device) -> "GraphPartition":
         return dataclasses.replace(self, **{

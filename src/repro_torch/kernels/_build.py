@@ -73,6 +73,19 @@ def build() -> float:
     return time.perf_counter() - t0
 
 
+def require_built() -> None:
+    """Raise unless every library is built and newer than its source.  The
+    ranks of a process group only load the kernels: one build before they
+    start (``python -m repro_torch.kernels._build``, or the partitioned
+    launcher's ``--nproc``) spares them as many concurrent ``nvcc`` runs."""
+    stale = [name for name in SOURCES if _stale(name)]
+    if stale:
+        raise RuntimeError(
+            f"kernels {stale} are not built or older than their sources: "
+            f"build them once before starting the ranks (python -m "
+            f"repro_torch.kernels._build)")
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, building all kernels first if
     any is missing or older than its source."""
@@ -89,3 +102,7 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
         lib.iru_error_string.argtypes = [ctypes.c_int]
         msg = lib.iru_error_string(code).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
+
+
+if __name__ == "__main__":
+    print(f"built in {build():.1f} s into {BUILD_DIR}")

@@ -114,19 +114,23 @@ print("ok")
     assert r.stdout.strip() == "ok"
 
 
-def test_partitioned_path_runs_without_jax_or_repro():
+def test_partitioned_path_runs_without_jax_or_repro(tmp_path):
     """The partitioned slice (``partition_csr``, ``repro_torch.dist``, the
     codecs and the engine on a partitioned view) on the CPU, with ``jax``
-    and ``repro`` blocked."""
-    code = """
+    and ``repro`` blocked; then a group of one over gloo (the pipeline and
+    ``allreduce_int8`` over a group mesh)."""
+    code = f"""
 import sys
 sys.modules["jax"] = None
 sys.modules["repro"] = None
+import datetime
 import numpy as np, torch
+import torch.distributed as tdist
 import repro_torch.dist as dist
 from repro_torch.apps import bfs, pagerank
 from repro_torch.graphs.csr import partition_csr, tile_csr
 from repro_torch.graphs.generators import kron
+from repro_torch.launch.mesh import make_graph_mesh, make_iru_mesh
 from repro_torch.serve import GraphQuery, GraphServeConfig, GraphServingEngine
 g = kron(scale=6, device="cpu")
 part = partition_csr(g, 2)
@@ -135,6 +139,18 @@ label = dist.bfs_partitioned(part, 0, mode="hash", compress=True,
 assert np.array_equal(label.numpy(), bfs(g, 0))
 rank = dist.pagerank_partitioned(part, iters=3, compress=True, device="cpu")
 assert np.allclose(rank.numpy(), pagerank(g, iters=3), rtol=2e-3, atol=2e-3)
+tdist.init_process_group("gloo", init_method="file://{tmp_path}/store",
+                         rank=0, world_size=1,
+                         timeout=datetime.timedelta(seconds=60))
+mesh = make_graph_mesh(1, "cpu", group="world")
+label = dist.bfs_partitioned(g, 0, mode="hash", compress=True, mesh=mesh)
+assert np.array_equal(label.numpy(), bfs(g, 0))
+rank = dist.pagerank_partitioned(g, iters=3, mesh=mesh)
+assert np.allclose(rank.numpy(), pagerank(g, iters=3), rtol=1e-4, atol=1e-6)
+y = dist.allreduce_int8(torch.ones(4, 3),
+                        mesh=make_iru_mesh(1, "cpu", group="world"))
+assert torch.allclose(y, torch.full((3,), 4.0))
+tdist.destroy_process_group()
 q, s = dist.quantize_rows_i8(torch.ones(2, 130))
 assert q.dtype == torch.int8 and s.shape == (2, 2)
 eng = GraphServingEngine(partition_csr(tile_csr(g, 3), 2),
@@ -409,6 +425,7 @@ print("ok")
 
 def test_entry_points_need_cuda_unless_cpu_is_asked():
     code = """
+import os
 import torch
 from repro_torch.apps import (bfs_pipeline, pagerank_pipeline, ppr_pipeline,
                               sssp_pipeline)
@@ -431,7 +448,9 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.data import make_batch, synthetic_stream
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch import partitioned as launch_partitioned
+from repro_torch.launch.mesh import (make_graph_mesh, make_host_mesh,
+                                     make_iru_mesh)
 from repro_torch.serve import ServingEngine
 from repro_torch.train import TrainConfig, init_state
 assert not torch.cuda.is_available()
@@ -467,7 +486,13 @@ calls = [lambda: FrontierPipeline(g, BFS_APP), lambda: bfs_pipeline(g),
                                     "--ckpt", "no-such-dir"]),
          lambda: ServingEngine(lm, ParallelConfig(), {}),
          lambda: launch_serve.main(["--smoke", "--requests", "1"]),
-         make_host_mesh]
+         make_host_mesh,
+         lambda: make_graph_mesh(1, group="world"),
+         lambda: make_iru_mesh(1, group="world"),
+         lambda: launch_partitioned.main(group + ["--nproc", "2"]),
+         lambda: launch_partitioned.main(group)]
+group = ["--backend", "gloo", "--graph", "kron:4:4", "--app", "bfs"]
+os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
 for call in calls:
     try:
         call()
