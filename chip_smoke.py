@@ -176,12 +176,27 @@ Phases, in order (any failure exits non-zero and prints no result line):
                deepseek-v2-lite's 64 experts each, phase 8's f32 layer at T
                = 4096, 8 partitions) equals phase 8's stacked 4-shard result
                (exact: rtol 1e-5, atol 1e-6 of the largest; int8: within 4
-               quanta of each 128-block), aux equal.  (b) A group of one
+               quanta of each 128-block), aux equal.  In the same launch,
+               partitioned serving over the four ranks: the 12-query mix
+               of phase 6 through the fused hash engine on one shard of
+               partition_csr(tile_csr(kron-20, 6), 4) a rank (6 slots over
+               4 shards cut tenants, so lane_cap > 0 and the tagged
+               exchange crosses ranks; B1 and B3's tagged fold on every
+               rank): BFS and SSSP equal phase 6's fused hash results bit
+               for bit and PPR within rtol 1e-5 (atol 0), and every query
+               equals the same engine's stacked run here (every shard in
+               this process) in as many ticks; and the banked rows over
+               the four ranks: kron-20's PageRank stream (add, 1024 x 32, 4
+               partitions), one partition a rank through B3's whole-stream
+               body (exactly one iru_reorder launch a rank, so the plain
+               rows did not run), equals B3's single-card banked layout
+               bit for bit.  (b) A group of one
                over NCCL runs BFS at P = 1 equal to the single-device
                pipeline.  Each line prints the wall seconds (the slowest
                rank's run, and the launcher's with its process starts),
                launches and partition bytes per rank, and wire bytes a
-               superstep;
+               superstep (serving: each rank's wall, ticks, lane_cap,
+               bytes through all_to_all_single, launches and peak memory);
   9. lm      -- the LM substrate's model half (repro_torch.configs and
                repro_torch.models: the IRU embedding, GQA/MLA attention,
                Mamba-2, the stack's forward_train, prefill and decode_step;
@@ -1974,7 +1989,9 @@ GROUP_RUNS = {  # the launcher's --app -> phase 7's stacked run (app, compress)
     "bfs:compress": ("bfs", True), "sssp": ("sssp", False),
     "pagerank:iters=20:compress": ("pagerank", True),
     "pagerank:iters=20": ("pagerank", False)}
-GROUP_TIMEOUT = 240  # seconds for one launcher run, process starts included
+GROUP_TIMEOUT = 300  # seconds for one launcher run, process starts included
+GROUP_SLOTS = 6  # serving over four ranks: 6 tenants over 4 shards cut two
+GROUP_BANKED = "pagerank:sets=1024:slots=32:parts=4:op=add:label=banked"
 EF_L1_LIMIT = 1e-3  # int8_ef PageRank, four ranks against stacked
 
 
@@ -2022,12 +2039,125 @@ def group_records(summary: list, label: str) -> list:
     return [next(r for r in recs if r["label"] == label) for recs in summary]
 
 
-def phase_group(g, stacked: dict, stacked_ep: dict, card: str) -> dict:
+def stacked_group_serving(g, served: list) -> dict:
+    """The fused hash engine with every shard of partition_csr(tile_csr(g,
+    GROUP_SLOTS), 4) in this process, on fresh copies of phase 6's queries
+    (``served``, in their order): what the four ranks' serving run is held
+    against beside phase 6.  Returns its queries, wall seconds, ticks,
+    launches and lane_cap."""
+    from repro_torch.graphs.csr import partition_csr, tile_csr
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import (GraphQuery, GraphServeConfig,
+                                   GraphServingEngine)
+
+    pview = partition_csr(tile_csr(g, GROUP_SLOTS), 4)
+    eng = GraphServingEngine(pview, GraphServeConfig(
+        query_slots=GROUP_SLOTS, mode="hash"))
+    qs = [GraphQuery(q.kind, q.source, iters=q.iters, damping=q.damping)
+          for q in served]
+    for q in qs:
+        eng.submit(q)
+    reset_launch_counts()
+    _, wall = wall_s(lambda: eng.run_to_completion(1000))
+    out = {"queries": qs, "wall": wall, "ticks": eng.tick_no,
+           "launches": dict(launch_counts), "lane_cap": pview.part.lane_cap}
+    for k in SHARD_PATH["fused hash"]:
+        check(out["launches"].get(k, 0) > 0,
+              f"group serving's stacked twin launched {k}")
+    del eng, pview
+    torch.cuda.empty_cache()
+    return out
+
+
+def group_serving(summary, out: Path, served: list, stacked: dict,
+                  count, card: str) -> None:
+    """The four ranks' serving run against phase 6's fused hash results
+    and its stacked twin (see the module docstring)."""
+    recs = group_records(summary, "serve_hash")
+    count(recs)
+    what = (f"group serving fused hash tile_csr(kron20, {GROUP_SLOTS}) P=4, "
+            f"4 gloo ranks")
+    for p, r in enumerate(recs):
+        for k in SHARD_PATH["fused hash"]:
+            check(r["launches"].get(k, 0) > 0,
+                  f"{what}: rank {p} launched {k}")
+        check((r["ticks"], r["overflow_events"], r["quarantines"]) == (
+            stacked["ticks"], 0, 0), f"{what}: rank {p} took the stacked "
+              f"run's {stacked['ticks']} ticks, no overflow, no quarantine")
+        check(r["lane_cap"] == stacked["lane_cap"] > 0,
+              f"{what}: rank {p}'s lane_cap {r['lane_cap']} > 0, the "
+              f"stacked run's")
+    worst = 0.0
+    for i, (q, twin) in enumerate(zip(served, stacked["queries"])):
+        got = np.load(out / f"serve_hash.q{i}.npy")
+        for want, against in ((q.result, "phase 6"), (twin.result,
+                                                      "stacked")):
+            if q.kind == "ppr":
+                worst = max(worst, rel_err(got, want))
+                check(np.allclose(got, want, rtol=1e-5, atol=0.0),
+                      f"{what}: ppr {i} within rtol 1e-5 of {against} (max "
+                      f"relative error {rel_err(got, want):.3g})")
+            else:
+                check(got.dtype == want.dtype and np.array_equal(got, want),
+                      f"{what}: {q.kind} {i} equals {against}")
+    sent = sum(r["sent_bytes"] for r in recs)
+    check(sent > 0, f"{what}: the tagged exchange crossed ranks")
+    print(f"{what}: 12 queries, {recs[0]['ticks']} ticks, lane_cap "
+          f"{recs[0]['lane_cap']}; walls per rank (second runs) "
+          f"{[round(r['wall_s'], 4) for r in recs]} s (first runs "
+          f"{[round(r['first_wall_s'], 4) for r in recs]}; stacked "
+          f"{stacked['wall']:.4f} s, {stacked['ticks']} ticks, launches "
+          f"{stacked['launches']}), bytes through all_to_all_single per "
+          f"rank {[r['sent_bytes'] for r in recs]} ({sent} in all), "
+          f"launches per rank {[r['launches'] for r in recs]}, peak memory "
+          f"per rank {[round(r['peak_bytes'] / 2**30, 2) for r in recs]} "
+          f"GiB; BFS/SSSP equal phase 6 and stacked bit for bit, PPR max "
+          f"relative error {worst:.3g} [{card}]")
+
+
+def group_banked(g, summary, out: Path, count, card: str) -> None:
+    """The four ranks' banked rows against B3's single-card banked layout
+    on the same stream (see the module docstring)."""
+    from repro_torch.kernels.iru_reorder import ops as hash_ops
+
+    recs = group_records(summary, "banked")
+    count(recs)
+    what = "group banked rows kron20 pagerank add 1024 x 32 P=4, 4 gloo ranks"
+    for p, r in enumerate(recs):
+        check(r["partitions"] == [p], f"{what}: rank {p} holds partition {p}")
+        check(r["launches"] == {"iru_reorder": 1},
+              f"{what}: rank {p} launched iru_reorder once and nothing "
+              f"else, got {r['launches']}")
+    idx, vals = pagerank_stream(g)
+    want = hash_ops.hash_reorder(idx, vals, filter_op="add", n_partitions=4)
+    for field in FIELDS:
+        ref = getattr(want, field)
+        got = torch.from_numpy(np.load(out / f"banked.{field}.npy"))
+        check(torch.equal(got.to(ref.device), ref),
+              f"{what}: {field} equal to B3's single-card banked layout")
+    ms = event_ms(lambda: hash_ops.hash_reorder(idx, vals, filter_op="add",
+                                                n_partitions=4), reps=3)
+    print(f"{what}: {idx.numel()} lanes, "
+          f"{int(want.active.sum())} survivors, equal to B3's single-card "
+          f"banked layout bit for bit; walls per rank (second runs) "
+          f"{[round(r['wall_s'], 4) for r in recs]} s (first runs "
+          f"{[round(r['first_wall_s'], 4) for r in recs]}; the single-card "
+          f"banked layout {ms:.4f} ms), launches per rank "
+          f"{[r['launches'] for r in recs]} [{card}]")
+    del want, idx, vals
+    torch.cuda.empty_cache()
+
+
+def phase_group(g, stacked: dict, stacked_ep: dict, served: list,
+                card: str) -> dict:
     """Phase 8b: (a) four gloo ranks on the one card, one kron-20 shard
     each (hash mode: B1 and B3 on every rank), held against phase 7's
-    stacked runs, and moe_hash_ep over four ranks against phase 8's stacked
-    result; (b) a group of one over NCCL against the single-device BFS.
-    Returns the launches of the ranks' timed runs, summed."""
+    stacked runs, moe_hash_ep over four ranks against phase 8's stacked
+    result, partitioned serving over the ranks against phase 6's fused
+    hash queries (``served``) and the stacked engine, and the banked rows
+    over the ranks against B3's single-card banked layout; (b) a group of
+    one over NCCL against the single-device BFS.  Returns the launches of
+    the ranks' timed runs and the stacked serving run, summed."""
     from repro_torch.launch.partitioned import parse_app
 
     t0 = time.perf_counter()
@@ -2042,16 +2172,26 @@ def phase_group(g, stacked: dict, stacked_ep: dict, card: str) -> dict:
     np.savez(graph, row_ptr=g.row_ptr.cpu().numpy(),
              col_idx=g.col_idx.cpu().numpy(),
              weights=g.weights.cpu().numpy())
+    stacked_serving = stacked_group_serving(g, served)
+    count([stacked_serving])
+    serve_spec = GROUP_DIR / "serve_hash.json"
+    serve_spec.write_text(json.dumps({
+        "queries": [{"kind": q.kind, "source": q.source, "iters": q.iters,
+                     "damping": q.damping} for q in served],
+        "slots": GROUP_SLOTS, "mode": "hash", "max_ticks": 1000}))
     stacked_bytes = stacked["partition bytes"]
     runs = [a for spec in GROUP_RUNS for a in ("--app", spec)]
     out = GROUP_DIR / "gloo"
     summary, wall = launch_group("group gloo x4", [
         "--nproc", "4", "--backend", "gloo", "--graph", str(graph),
         "--mode", "hash", "--timeout", "120", "--out", str(out),
-        "--moe", str(GROUP_DIR / "moe"), *runs])
+        "--moe", str(GROUP_DIR / "moe"), *runs, "--serve", str(serve_spec),
+        "--reorder", GROUP_BANKED])
     print(f"group gloo x4 on one card: the launcher took {wall:.1f} s "
           f"(four process starts, each rank's graph load and partition, "
           f"the runs below) [{card}]")
+    group_serving(summary, out, served, stacked_serving, count, card)
+    group_banked(g, summary, out, count, card)
     for spec, key in GROUP_RUNS.items():
         label = parse_app(spec)["label"]
         want, steps, traffic, t_stacked = stacked[key]
@@ -3369,14 +3509,15 @@ def main() -> int:
     for k, v in part_launches.items():
         launches[k] = launches.get(k, 0) + v
     print(f"partitioned phase: {time.perf_counter() - t_part:.1f} s")
+    served = fused["fused hash"]
     del fused
     shutil.rmtree(GROUP_DIR, ignore_errors=True)
     GROUP_DIR.mkdir(parents=True)
     stacked_ep = phase_moe(GROUP_DIR / "moe")
-    for k, v in phase_group(graphs["kron20"], stacked, stacked_ep,
+    for k, v in phase_group(graphs["kron20"], stacked, stacked_ep, served,
                             card).items():
         launches[k] = launches.get(k, 0) + v
-    del stacked, stacked_ep
+    del stacked, stacked_ep, served
     phase_lm(card)
     phase_train(card)
     for k, v in serving_errors.items():

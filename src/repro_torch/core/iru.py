@@ -68,11 +68,14 @@ class IRUConfig:
     fallback (see ``kernels/iru_reorder/batched.py``).  ``window_elems``
     reorders independent windows of that many lanes.
 
-    The reference's ``engine``, ``interpret``, ``bank_map`` and ``mesh``
-    have no counterpart: the port's one ``kernels=`` switch chooses between
-    a kernel and its plain version, ``bank_map`` chose between two equal
-    JAX realizations, and sharding banks over devices waits for the
-    multi-GPU slice.
+    The reference's ``engine``, ``interpret`` and ``bank_map`` have no
+    counterpart: the port's one ``kernels=`` switch chooses between a
+    kernel and its plain version, and ``bank_map`` chose between two equal
+    JAX realizations.  A mesh is no field of the config in either package:
+    banks shard over the ranks of a process group through
+    ``kernels.iru_reorder.ops.hash_reorder(..., mesh=)`` (a group mesh from
+    ``launch.mesh.make_iru_mesh(P, group=...)``, one block of partitions a
+    rank).
     """
 
     target_elem_bytes: int = 4

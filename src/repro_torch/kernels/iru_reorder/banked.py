@@ -19,9 +19,16 @@ A stream whose partition counts exceed ``ref.partition_capacity`` (taken on
 the live count) bypasses banking through the flat engine, and
 ``n_partitions=1`` *is* the flat engine.  Ragged streams (``n_live``) first
 try the two-generation closed form.  The reference's ``lax.cond`` /
-``lax.switch`` become host reads of the branch predicate.  Its ``mesh``
-(``shard_map`` over devices) and ``bank_map`` (``lax.map`` or ``vmap``, the
-same result) have no counterpart here.
+``lax.switch`` become host reads of the branch predicate.  Its
+``bank_map`` (``lax.map`` or ``vmap``, the same result) has no counterpart.
+
+Its ``mesh`` (the row stage under ``shard_map``, partitions sharded over
+the devices) is a group mesh here (``launch.mesh.make_iru_mesh(P,
+group=...)``): each rank of a ``torch.distributed`` group reorders its own
+block of bank rows, and one ``all_gather`` of the rows' outputs feeds the
+partition-major combine.  The stream, the partition counts, the bypass and
+the two-generation path stay replicated on every rank, as in the reference,
+where only the row stage is inside ``shard_map``.
 """
 from __future__ import annotations
 
@@ -62,6 +69,96 @@ def _place(n: int, slot: torch.Tensor, vals: torch.Tensor,
     return buf[:n]
 
 
+def bank_rows(mesh, n_partitions: int):
+    """The shards of a group ``mesh`` over the bank rows and the block of
+    partitions this rank reorders (rank ``r`` of ``W``: rows ``[r * P / W,
+    (r + 1) * P / W)``, the reference's ``P(axis)`` sharding).  Raises for
+    one partition (the reference's words), a mesh without a process group
+    and ranks that do not divide the partitions."""
+    from repro_torch.dist.collectives import group_shards
+
+    if n_partitions <= 1:
+        raise ValueError(
+            "mesh sharding requires n_partitions > 1 (the mesh shards bank "
+            "rows; a single partition has nothing to shard)")
+    shards = group_shards(mesh)
+    if n_partitions % shards.n_shards:
+        raise ValueError(f"{shards.n_shards} ranks do not divide "
+                         f"{n_partitions} partitions")
+    per = n_partitions // shards.n_shards
+    return shards, range(shards.rank * per, (shards.rank + 1) * per)
+
+
+def gather_rows(shards, *rows):
+    """Every rank's block ``[held, ...]`` of each of ``rows``, concatenated
+    in rank order: ``[n_partitions, ...]`` (one ``all_gather`` each)."""
+    out = []
+    for x in rows:
+        wire = x.to(torch.uint8) if x.dtype == torch.bool else x
+        got = shards.gather(wire[None]).flatten(0, 1)
+        out.append(got.bool() if x.dtype == torch.bool else got)
+    return out
+
+
+def banks(indices: torch.Tensor, *, num_sets: int, n_partitions: int,
+          epb: int, n_live):
+    """Each lane's set and partition (``n_partitions`` for a dead lane),
+    the live mask (None: no ``n_live``) and live count, the partition
+    counts and the capacity past which the stream bypasses banking (on
+    the live count)."""
+    n, dev, nP = indices.shape[0], indices.device, n_partitions
+    sets = hash_set(torch.div(indices, epb, rounding_mode="floor"), num_sets)
+    if n_live is None:
+        live, m_live = None, n
+        part = sets % nP
+        cap_eff = partition_capacity(n, nP)
+    else:
+        m_live = int(torch.as_tensor(n_live).clamp(0, n))
+        live = _ar(n, dev) < m_live
+        # sentinel partition: dead lanes never land in a bank row
+        part = torch.where(live, sets % nP, nP).to(_I32)
+        per = -(-m_live // nP)
+        cap_eff = min(m_live, per + max(64, per // 4))
+    cnt = torch.bincount(part.long(), minlength=nP + 1)[:nP].to(_I32)
+    return sets, part, live, m_live, cnt, cap_eff
+
+
+def emit_partition_major(indices, secondary, rows, m_live: int):
+    """The banked stream from every partition's reordered bank row
+    (``rows``: ``oi, osec, opos, oact [n_partitions, C, ...]`` with the
+    survivors at ``[0, m)`` and the filtered tail at ``[C - f, C)``, and
+    ``m, f [n_partitions]``): partition fronts, then the dead lanes
+    ``[m_live, n)`` in stream order with their original values (inactive),
+    then the partition tails."""
+    oi, osec, opos, oact, m, f = rows
+    n, dev = indices.shape[0], indices.device
+    nP, C = oi.shape[:2]
+    payload = tuple(secondary.shape[1:])
+    # partition-major combine: fronts [0, sum m), tails [n - sum f, n)
+    front_off = _cumsum(m) - m
+    tail_off = _cumsum(f) - f
+    cols = _ar(C, dev)[None, :]
+    in_front = cols < m[:, None]
+    in_tail = cols >= C - f[:, None]
+    g = torch.where(in_front, front_off[:, None] + cols,
+                    torch.where(in_tail,
+                                (n - f.sum(dtype=_I32)) + tail_off[:, None]
+                                + (cols - (C - f[:, None])), n)).reshape(-1)
+    out_idx = _place(n, g, oi.reshape(-1), indices.new_zeros(n))
+    out_sec = _place(n, g, osec.reshape((nP * C,) + payload),
+                     secondary.new_zeros((n,) + payload))
+    out_pos = _place(n, g, opos.reshape(-1), indices.new_zeros(n))
+    out_act = _place(n, g, oact.reshape(-1),
+                     torch.zeros(n, dtype=torch.bool, device=dev))
+    if m_live < n:
+        # the dead lanes fill the gap between the fronts and the tails
+        gd = m.sum(dtype=_I32) + _ar(n - m_live, dev)
+        out_idx = _place(n, gd, indices[m_live:], out_idx)
+        out_sec = _place(n, gd, secondary[m_live:], out_sec)
+        out_pos = _place(n, gd, _ar(n, dev)[m_live:], out_pos)
+    return out_idx, out_sec, out_pos, out_act
+
+
 def hash_reorder_banked(
     indices: torch.Tensor,
     secondary: torch.Tensor,
@@ -75,6 +172,7 @@ def hash_reorder_banked(
     round_cap: Optional[int] = None,
     n_live: torch.Tensor | int | None = None,
     tag_table: Optional[torch.Tensor] = None,
+    mesh=None,
 ):
     """Banked hash reorder; stream-identical to ``ref.hash_reorder_ref_banked``.
 
@@ -87,6 +185,10 @@ def hash_reorder_banked(
     (``partition_capacity`` on the live count) and every row's round bound
     see only the prefix.
 
+    ``mesh`` (a group mesh, ``launch.mesh.make_iru_mesh(n_partitions,
+    group=...)``) reorders only this rank's block of bank rows; every rank
+    of the group calls with the same stream and gets the whole result.
+
     Returns ``(out_idx, out_sec, out_pos, out_act)``.
     """
     indices = indices.to(_I32)
@@ -94,6 +196,8 @@ def hash_reorder_banked(
     dev = indices.device
     if (filter_op == "tagged") != (tag_table is not None):
         raise ValueError("filter_op='tagged' and tag_table go together")
+    shards, held = (None, range(n_partitions)) if mesh is None else (
+        bank_rows(mesh, n_partitions))
     if n_partitions <= 1:
         return hash_reorder_batched(
             indices, secondary, num_sets=num_sets, slots=slots,
@@ -109,22 +213,9 @@ def hash_reorder_banked(
 
     nP = n_partitions
     C = partition_capacity(n, nP)
-    epb = block_bytes // elem_bytes
-    payload = tuple(secondary.shape[1:])
-
-    sets = hash_set(torch.div(indices, epb, rounding_mode="floor"), num_sets)
-    if n_live is None:
-        live = None
-        part = sets % nP
-        cap_eff = C
-    else:
-        m_live = int(torch.as_tensor(n_live).clamp(0, n))
-        live = _ar(n, dev) < m_live
-        # sentinel partition: dead lanes never land in a bank row
-        part = torch.where(live, sets % nP, nP).to(_I32)
-        per = -(-m_live // nP)
-        cap_eff = min(m_live, per + max(64, per // 4))
-    cnt = torch.bincount(part.long(), minlength=nP + 1)[:nP].to(_I32)
+    sets, part, live, m_live, cnt, cap_eff = banks(
+        indices, num_sets=num_sets, n_partitions=nP,
+        epb=block_bytes // elem_bytes, n_live=n_live)
     overflow = int(cnt.max()) > cap_eff
 
     def banked_fn():
@@ -138,13 +229,15 @@ def hash_reorder_banked(
         Pa = part[order].long()
         part_start = torch.cat([cnt.new_zeros(1), _cumsum(cnt)])
         col = _ar(n, dev) - part_start[Pa.clamp(max=nP)]
-        rc = (Pa.clamp(max=nP - 1), col.long())
-        keep = Pa < nP  # dead lanes (partition nP) stay out of every row
+        # the held block of bank rows; dead lanes (partition nP) and other
+        # ranks' partitions stay out
+        keep = (Pa >= held.start) & (Pa < held.stop)
+        rc = ((Pa - held.start)[keep], col.long()[keep])
 
         def rows(fill, vals, dtype):
-            buf = torch.full((nP, C) + vals.shape[1:], fill, dtype=dtype,
-                             device=dev)
-            buf[rc[0][keep], rc[1][keep]] = vals[keep]
+            buf = torch.full((len(held), C) + vals.shape[1:], fill,
+                             dtype=dtype, device=dev)
+            buf[rc] = vals[keep]
             return buf
 
         rI = rows(-1, I, _I32)
@@ -153,40 +246,14 @@ def hash_reorder_banked(
         rS = rows(num_sets, S, _I32)
         rValid = rows(False, torch.ones(n, dtype=torch.bool, device=dev),
                       torch.bool)
-        outs = [_row_reorder((rI[p], rV[p], rPos[p], rS[p], rValid[p]),
+        outs = [_row_reorder((rI[r], rV[r], rPos[r], rS[r], rValid[r]),
                              num_sets=num_sets, slots=slots,
                              filter_op=filter_op, round_cap=round_cap,
-                             tag_table=tag_table) for p in range(nP)]
-        oi, osec, opos, oact = (torch.stack([o[k] for o in outs])
-                                for k in range(4))
-        m = torch.stack([o[4] for o in outs])
-        f = torch.stack([o[5] for o in outs])
-        # partition-major combine: fronts [0, sum m), tails [n - sum f, n)
-        front_off = _cumsum(m) - m
-        tail_off = _cumsum(f) - f
-        cols = _ar(C, dev)[None, :]
-        in_front = cols < m[:, None]
-        in_tail = cols >= C - f[:, None]
-        g = torch.where(in_front, front_off[:, None] + cols,
-                        torch.where(in_tail,
-                                    (n - f.sum(dtype=_I32)) + tail_off[:, None]
-                                    + (cols - (C - f[:, None])), n)).reshape(-1)
-        out_idx = _place(n, g, oi.reshape(-1), indices.new_zeros(n))
-        out_sec = _place(n, g, osec.reshape((nP * C,) + payload),
-                         secondary.new_zeros((n,) + payload))
-        out_pos = _place(n, g, opos.reshape(-1), indices.new_zeros(n))
-        out_act = _place(n, g, oact.reshape(-1),
-                         torch.zeros(n, dtype=torch.bool, device=dev))
-        if live is not None:
-            # dead lanes fill the gap between the partition fronts and the
-            # filtered tails, in stream order, with their original values
-            live_s = live[order]
-            dead_rank = _cumsum(~live_s) - 1
-            gd = torch.where(live_s, n, m.sum(dtype=_I32) + dead_rank)
-            out_idx = _place(n, gd, I, out_idx)
-            out_sec = _place(n, gd, V, out_sec)
-            out_pos = _place(n, gd, Pos, out_pos)
-        return out_idx, out_sec, out_pos, out_act
+                             tag_table=tag_table) for r in range(len(held))]
+        out_rows = [torch.stack([o[k] for o in outs]) for k in range(6)]
+        if shards is not None:
+            out_rows = gather_rows(shards, *out_rows)
+        return emit_partition_major(indices, secondary, out_rows, m_live)
 
     def flat_fn():
         # bank capacity exceeded: bypass banking, as the oracle does

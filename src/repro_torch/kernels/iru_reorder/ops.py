@@ -19,6 +19,15 @@ has two bodies:
   shared memory (``_window_limit``).  Launches count under
   ``iru_reorder_windowed``.
 
+Over a group mesh (``mesh=``, ``launch.mesh.make_iru_mesh(P, group=...)``)
+each rank reorders its own block of the banked layout's partitions: on CUDA
+tensors, one launch of the whole-stream body a partition on that
+partition's sub-stream (its lanes in stream order: the definition of
+``ref.hash_reorder_ref_banked``, and B3 folds in stream order, so the
+result equals the single-card banked layout bit for bit), on CPU tensors
+the plain rows (``banked.py``); one ``all_gather`` then feeds the
+partition-major combine on every rank.
+
 On a CUDA tensor with ``kernels=True`` every other option raises, naming
 the slice that brings it; nothing quietly runs the plain version instead.
 """
@@ -30,8 +39,10 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build, launch_counts
-from repro_torch.kernels.iru_reorder.banked import hash_reorder_banked
+from repro_torch.kernels.iru_reorder.banked import (
+    bank_rows, banks, emit_partition_major, gather_rows, hash_reorder_banked)
 from repro_torch.kernels.iru_reorder.batched import hash_reorder_batched
+from repro_torch.kernels.iru_reorder.ref import partition_capacity
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _OPS = {None: 0, "add": 1, "min": 2, "max": 3, "tagged": 4}
@@ -141,6 +152,7 @@ def hash_reorder(
     n_live: torch.Tensor | int | None = None,
     tag_table: Optional[torch.Tensor] = None,
     kernels: bool = True,
+    mesh=None,
 ):
     """Paper-faithful O(n) bounded reorder.  Returns an ``IRUStream``.
 
@@ -149,7 +161,10 @@ def hash_reorder(
     last one ragged).  ``n_live`` (a 0-d tensor or int, never a shape)
     selects ragged execution; the kernel reads it from device memory, so no
     host sync.  ``kernels=False`` runs the plain version on any device (the
-    plain path a card run is held against).
+    plain path a card run is held against).  ``mesh`` (a group mesh over
+    ranks that divide ``n_partitions``) shards the banked layout's rows,
+    one block of partitions a rank; every rank of the group calls with the
+    same stream and gets the whole result.  It takes no window.
     """
     from repro_torch.core.iru import IRUStream  # late: core imports us
 
@@ -157,6 +172,11 @@ def hash_reorder(
         raise ValueError(f"unknown filter op {filter_op!r}")
     if (filter_op == "tagged") != (tag_table is not None):
         raise ValueError("filter_op='tagged' and tag_table go together")
+    if mesh is not None and window_elems is not None:
+        raise ValueError(
+            "a mesh shards the banked layout's rows of the whole stream; "
+            "windows take no mesh (the reference's hash_reorder has no "
+            "window): drop window_elems or mesh")
     indices = indices.to(torch.int32)
     n = indices.shape[0]
     if secondary is None:
@@ -174,9 +194,10 @@ def hash_reorder(
                                      tag_table, kernels=False)
         kw.update(elem_bytes=elem_bytes, block_bytes=block_bytes,
                   n_live=n_live, tag_table=tag_table)
-        if n_partitions > 1:
+        if n_partitions > 1 or mesh is not None:
             return IRUStream(*hash_reorder_banked(
-                indices, secondary, n_partitions=n_partitions, **kw))
+                indices, secondary, n_partitions=n_partitions, mesh=mesh,
+                **kw))
         return IRUStream(*hash_reorder_batched(indices, secondary, **kw))
     epb = block_bytes // elem_bytes
     _refuse(secondary, num_sets=num_sets, slots=slots, epb=epb,
@@ -187,6 +208,10 @@ def hash_reorder(
         return IRUStream(*_launch_windowed(
             indices, secondary, window_elems, num_sets, slots, epb,
             n_partitions, round_cap, filter_op, n_live))
+    if mesh is not None:
+        return IRUStream(*_launch_rows(
+            indices, secondary, num_sets, slots, epb, n_partitions,
+            filter_op, n_live, tag_table, mesh))
     return IRUStream(*_launch(indices, secondary, num_sets, slots, epb,
                               n_partitions, filter_op, n_live, tag_table))
 
@@ -256,3 +281,48 @@ def _launch(indices, secondary, num_sets, slots, epb, n_partitions,
                   "iru_reorder_banked" if n_partitions > 1 else
                   "iru_reorder"] += 1
     return out
+
+
+def _launch_rows(indices, secondary, num_sets, slots, epb, n_partitions,
+                 filter_op, n_live, tag_table, mesh):
+    """The banked layout over a group mesh: the stream's partition counts
+    (one host read) decide the bypass, as on one card; past the capacity
+    every rank reorders the whole stream flat.  Else each of this rank's
+    partitions goes through the whole-stream body on its sub-stream, its
+    local positions map back to stream positions, and its output lands in
+    a bank row (survivors at the front, the filtered tail at the back);
+    the rows of every rank are gathered and emitted partition-major."""
+    shards, held = bank_rows(mesh, n_partitions)
+    n, dev = indices.shape[0], indices.device
+    if n == 0:
+        return _outputs(indices, secondary)
+    _, part, _, m_live, cnt, cap_eff = banks(
+        indices, num_sets=num_sets, n_partitions=n_partitions, epb=epb,
+        n_live=n_live)
+    counts = cnt.tolist()
+    if max(counts) > cap_eff:
+        return _launch(indices, secondary, num_sets, slots, epb, 1,
+                       filter_op, n_live, tag_table)
+    C = partition_capacity(n, n_partitions)
+    order = torch.argsort(part, stable=True)  # dead lanes (partition P) last
+    rows = []
+    for p in held:
+        c, lo = counts[p], sum(counts[:p])
+        sel = order[lo:lo + c]
+        oi, osec, opos, oact = _launch(indices[sel], secondary[sel], num_sets,
+                                       slots, epb, 1, filter_op, None,
+                                       tag_table)
+        m = oact.sum(dtype=torch.int32)
+        col = torch.arange(c, device=dev)
+        col = torch.where(col < m, col, col + (C - c))
+
+        def row(x):
+            buf = x.new_zeros(C)
+            buf[col] = x
+            return buf
+
+        rows.append((row(oi), row(osec), row(sel[opos.long()].to(torch.int32)),
+                     row(oact), m, c - m))
+    out_rows = [torch.stack([r[k] for r in rows]) for k in range(6)]
+    return emit_partition_major(indices, secondary,
+                                gather_rows(shards, *out_rows), m_live)

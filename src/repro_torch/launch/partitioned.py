@@ -1,5 +1,5 @@
-"""Partitioned launcher: the frontier pipeline with one graph shard per rank
-of a ``torch.distributed`` process group.
+"""Partitioned launcher: one graph shard (or block of bank partitions) per
+rank of a ``torch.distributed`` process group.
 
 The reference needs no launcher (one JAX process drives every device under
 ``shard_map``); the port runs one process a shard.  Two ways to start it:
@@ -23,17 +23,37 @@ The reference needs no launcher (one JAX process drives every device under
         --mode hash --app bfs:compress
 
 Every rank builds the graph (``--graph``: ``kron:SCALE:EDGE_FACTOR[:SEED]``
-or an ``.npz`` of ``row_ptr``, ``col_idx`` and ``weights``) and its
-partition on its device, keeps its own shard, and runs each
-``--app APP[:compress][:iters=N]`` from source 0 through
-``PartitionedFrontierPipeline`` over a group mesh.  ``--moe DIR`` runs
-``moe_hash_ep`` over the group (``DIR/config.json`` and the layer's
-``router``, ``wi``, ``wg``, ``wo`` and ``x`` as ``.npy``; each rank reads
-its experts' rows alone), exact and int8-compressed; ``--allreduce FILE``
-runs ``allreduce_int8`` over a ``[rows, ...]`` array, a block of rows a
-rank.  Rank 0 prints one summary line a run and, with ``--out DIR``, writes
-each result as ``DIR/<label>.npy`` and every rank's record to
-``DIR/summary.json``.
+or an ``.npz`` of ``row_ptr``, ``col_idx`` and ``weights``) on its device.
+The runs, each repeatable or combined in one launch:
+
+* ``--app APP[:compress][:iters=N]``: ``PartitionedFrontierPipeline`` from
+  source 0 over a group mesh on ``partition_csr(graph, world)``, each rank
+  keeping its own shard;
+* ``--serve FILE``: partitioned graph serving, ``GraphServingEngine`` over
+  a group mesh on ``partition_csr(tile_csr(graph, slots), world)``.  FILE
+  is a JSON object: ``queries`` (a list of ``{"kind", "source", "iters",
+  "damping"}``), ``slots``, ``mode`` and, optionally, ``capacity_policy``
+  (``[n_buckets, min_capacity, growth]``) and ``max_ticks``; its label is
+  ``serve_<mode>``.  Every rank keeps the engine's global state and steps
+  its own shard;
+* ``--reorder SOURCE[:sets=N][:slots=N][:parts=N][:op=OP][:round_cap=N]
+  [:live=N][:label=NAME]``: ``hash_reorder(..., n_partitions=parts,
+  mesh=)``, the banked layout with one block of partitions a rank.
+  SOURCE is ``pagerank`` (PageRank's first reorder on the graph: every
+  edge's destination carrying ``rank[src] / deg[src]`` at the uniform
+  start rank) or an ``.npz`` of ``indices`` and, optionally, ``secondary``
+  and (read for ``op=tagged``) ``tag_table``;
+* ``--moe DIR``: ``moe_hash_ep`` over the group (``DIR/config.json`` and
+  the layer's ``router``, ``wi``, ``wg``, ``wo`` and ``x`` as ``.npy``;
+  each rank reads its experts' rows alone), exact and int8-compressed;
+* ``--allreduce FILE``: ``allreduce_int8`` over a ``[rows, ...]`` array, a
+  block of rows a rank.
+
+Each run goes twice, every rank starting together (the first warms up).
+Rank 0 prints one summary line a run and, with ``--out DIR``, writes each
+result as ``DIR/<label>.npy`` (a served query as ``<label>.q<i>``, a
+reorder's fields as ``<label>.indices`` and so on) and every rank's record
+to ``DIR/summary.json``.
 
 The device is ``cuda:{LOCAL_RANK % device_count()}`` unless ``--device``
 says otherwise (raising without a card), and the backend is the caller's:
@@ -53,6 +73,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -90,6 +111,13 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--app", action="append", default=[],
                     help="APP[:compress][:iters=N], APP one of bfs, sssp, "
                          "pagerank; repeatable")
+    ap.add_argument("--serve", action="append", default=[],
+                    help="JSON of a serving run (queries, slots, mode); "
+                         "repeatable")
+    ap.add_argument("--reorder", action="append", default=[],
+                    help="SOURCE[:sets=N][:slots=N][:parts=N][:op=OP]"
+                         "[:round_cap=N][:live=N][:label=NAME], SOURCE "
+                         "pagerank or an .npz; repeatable")
     ap.add_argument("--moe", default=None, help="directory of a MoE layer")
     ap.add_argument("--allreduce", default=None, help=".npy [rows, ...]")
     ap.add_argument("--out", default=None, help="directory for results")
@@ -113,6 +141,29 @@ def parse_app(spec: str) -> dict:
     run["label"] = "_".join(
         [app] + (["compress"] if run["compress"] else [])
         + ([f"iters{run['iters']}"] if app == "pagerank" else []))
+    return run
+
+
+_REORDER_INTS = ("sets", "slots", "parts", "round_cap", "live")
+
+
+def parse_reorder(spec: str, index: int = 0) -> dict:
+    """``SOURCE[:key=value]...`` -> its fields (``label`` defaults to
+    ``reorder<index>``)."""
+    source, *opts = spec.split(":")
+    if source != "pagerank" and not source.endswith(".npz"):
+        raise ValueError(f"--reorder {spec!r}: SOURCE is pagerank or an .npz")
+    run = {"source": source, "sets": 1024, "slots": 32, "parts": 4,
+           "op": None, "round_cap": None, "live": None,
+           "label": f"reorder{index}"}
+    for opt in opts:
+        key, _, val = opt.partition("=")
+        if key in _REORDER_INTS and val.isdigit():
+            run[key] = int(val)
+        elif key in ("op", "label") and val:
+            run[key] = val
+        else:
+            raise ValueError(f"--reorder {spec!r}: unknown option {opt!r}")
     return run
 
 
@@ -188,7 +239,7 @@ def _timed(fn, dev):
     return out, walls[1], dict(launch_counts), walls[0]
 
 
-def run_graph(args, dev: torch.device, world: int):
+def run_graph(args, dev: torch.device, world: int, g):
     """Each ``--app`` over a group mesh; returns (records, results)."""
     from repro_torch.core import CapacityPolicy
     from repro_torch.dist import graph_partition as gp
@@ -199,15 +250,12 @@ def run_graph(args, dev: torch.device, world: int):
     policy = (CapacityPolicy(*map(int, args.ladder.split(",")))
               if args.ladder else None)
     t0 = time.perf_counter()
-    g = load_graph(args.graph, dev)
-    _sync(dev)
-    t1 = time.perf_counter()
+    # the whole partition goes when the rank's shard is cut from it
     shard = partition_csr(g, world).shard(dist.get_rank())
-    del g  # the whole graph and partition go here
     _sync(dev)
     if dist.get_rank() == 0:
-        print(f"rank 0 setup: graph {args.graph} loaded in {t1 - t0:.3f} s, "
-              f"partitioned in {time.perf_counter() - t1:.3f} s", flush=True)
+        print(f"rank 0 setup: graph partitioned in "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
     records, results = [], {}
     for spec in args.app:
         run = parse_app(spec)
@@ -241,6 +289,114 @@ def run_graph(args, dev: torch.device, world: int):
                 f"(raw {traffic['raw_bytes_per_superstep']} B)")})
         results[run["label"]] = result
         del pipe
+    return records, results
+
+
+def run_serve(args, dev: torch.device, world: int, g):
+    """Each ``--serve`` run: the fused engine over a group mesh, one shard
+    of ``partition_csr(tile_csr(g, slots), world)`` a rank."""
+    from repro_torch.core import CapacityPolicy
+    from repro_torch.graphs.csr import partition_csr, tile_csr
+    from repro_torch.launch.mesh import make_graph_mesh
+    from repro_torch.serve import (GraphQuery, GraphServeConfig,
+                                   GraphServingEngine)
+
+    mesh = make_graph_mesh(world, dev, group="world")
+    records, results = [], {}
+    for path in args.serve:
+        spec = json.loads(Path(path).read_text())
+        Q, mode = spec["slots"], spec["mode"]
+        label = f"serve_{mode}"
+        kw = ({"capacity_policy": CapacityPolicy(*spec["capacity_policy"])}
+              if "capacity_policy" in spec else {})
+        cfg = GraphServeConfig(query_slots=Q, mode=mode, **kw)
+
+        def serve():
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            eng = GraphServingEngine(partition_csr(tile_csr(g, Q), world),
+                                     cfg, mesh=mesh)
+            qs = [GraphQuery(q["kind"], int(q["source"]),
+                             iters=q.get("iters", 20),
+                             damping=q.get("damping", 0.85))
+                  for q in spec["queries"]]
+            for q in qs:
+                eng.submit(q)
+            eng.run_to_completion(spec.get("max_ticks", 10_000))
+            return eng, qs
+
+        (eng, qs), wall, launches, first = _timed(serve, dev)
+        # the timed run's peak on the card (None on the CPU)
+        peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+                else None)
+        for i, q in enumerate(qs):
+            if q.status != "done":
+                raise RuntimeError(f"{label}: query {i} ({q.kind} from "
+                                   f"{q.source}) ended {q.status}: {q.error}")
+            results[f"{label}.q{i}"] = torch.from_numpy(q.result)
+        part = eng.part_view.part
+        records.append({
+            "label": label, "wall_s": wall, "first_wall_s": first,
+            "launches": launches, "sent_bytes": eng.shards.sent_bytes,
+            "partition_bytes": part.nbytes(), "ticks": eng.tick_no,
+            "overflow_events": eng.overflow_events,
+            "quarantines": eng.quarantines,
+            "admission_blocked": eng.admission_blocked,
+            "lane_cap": part.lane_cap, "peak_bytes": peak,
+            "summary": (
+                f"{len(qs)} queries on {Q} slots over {world} ranks "
+                f"({args.backend}, {dev}), mode {mode}: {eng.tick_no} ticks, "
+                f"lane_cap {part.lane_cap}, {eng.overflow_events} overflow "
+                f"events, {eng.quarantines} quarantines")})
+        del eng
+    return records, results
+
+
+def reorder_stream(run: dict, g, dev: torch.device):
+    """``(indices, secondary, tag_table)`` of a ``--reorder`` run."""
+    if run["source"] == "pagerank":
+        deg = g.degrees().clamp(min=1).float()
+        start = (1.0 / g.n_nodes / deg)[g.edge_sources().long()]
+        return g.col_idx, start, None
+    with np.load(run["source"]) as z:
+        idx = torch.from_numpy(z["indices"]).to(dev)
+        sec = (torch.from_numpy(z["secondary"]).to(dev)
+               if "secondary" in z else None)
+        tags = (torch.from_numpy(z["tag_table"]).to(dev)
+                if run["op"] == "tagged" else None)
+    return idx, sec, tags
+
+
+def run_reorder(args, dev: torch.device, world: int, g):
+    """Each ``--reorder`` run: ``hash_reorder`` over a group mesh, one
+    block of bank partitions a rank."""
+    from repro_torch.kernels.iru_reorder.ops import hash_reorder
+    from repro_torch.launch.mesh import make_iru_mesh
+
+    records, results = [], {}
+    for i, spec in enumerate(args.reorder):
+        run = parse_reorder(spec, i)
+        mesh = make_iru_mesh(run["parts"], dev, group="world")
+        idx, sec, tags = reorder_stream(run, g, dev)
+        out, wall, launches, first = _timed(lambda: hash_reorder(
+            idx, sec, num_sets=run["sets"], slots=run["slots"],
+            filter_op=run["op"], round_cap=run["round_cap"],
+            n_partitions=run["parts"], n_live=run["live"], tag_table=tags,
+            mesh=mesh), dev)
+        per = run["parts"] // world
+        held = list(range(dist.get_rank() * per, (dist.get_rank() + 1) * per))
+        label = run["label"]
+        for field in out._fields:
+            results[f"{label}.{field}"] = getattr(out, field)
+        records.append({
+            "label": label, "wall_s": wall, "first_wall_s": first,
+            "launches": launches, "partitions": held,
+            "summary": (
+                f"hash_reorder of {idx.shape[0]} lanes from {run['source']} "
+                f"({run['sets']} x {run['slots']}, op {run['op']}, "
+                f"round_cap {run['round_cap']}, live {run['live']}) over "
+                f"{world} ranks ({args.backend}, {dev}), {run['parts']} "
+                f"partitions, {per} a rank")})
     return records, results
 
 
@@ -313,9 +469,20 @@ def rank_main(args) -> None:
         print(f"rank 0 setup: init_process_group({args.backend}) "
               f"{time.perf_counter() - t0:.3f} s", flush=True)
     try:
+        g = None
+        if args.graph is not None:
+            t0 = time.perf_counter()
+            g = load_graph(args.graph, dev)
+            _sync(dev)
+            if rank == 0:
+                print(f"rank 0 setup: graph {args.graph} loaded in "
+                      f"{time.perf_counter() - t0:.3f} s", flush=True)
         records, results = [], {}
-        for wanted, job in ((args.app, run_graph), (args.moe, run_moe),
-                            (args.allreduce, run_allreduce)):
+        for wanted, job in (
+                (args.app, partial(run_graph, g=g)),
+                (args.serve, partial(run_serve, g=g)),
+                (args.reorder, partial(run_reorder, g=g)),
+                (args.moe, run_moe), (args.allreduce, run_allreduce)):
             if wanted:
                 recs, res = job(args, dev, world)
                 records += recs
@@ -382,10 +549,14 @@ def spawn(args, argv: list[str]) -> int:
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     args = _parser().parse_args(argv)
-    if not (args.app or args.moe or args.allreduce):
-        raise SystemExit("nothing to run: give --app, --moe or --allreduce")
-    if args.app and args.graph is None:
-        raise SystemExit("--app needs --graph")
+    if not (args.app or args.serve or args.reorder or args.moe
+            or args.allreduce):
+        raise SystemExit("nothing to run: give --app, --serve, --reorder, "
+                         "--moe or --allreduce")
+    runs = [parse_reorder(spec, i) for i, spec in enumerate(args.reorder)]
+    if (args.app or args.serve or any(r["source"] == "pagerank"
+                                      for r in runs)) and args.graph is None:
+        raise SystemExit("--app, --serve and --reorder pagerank need --graph")
     for spec in args.app:
         parse_app(spec)
     if args.nproc is not None:

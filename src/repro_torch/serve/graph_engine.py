@@ -43,8 +43,17 @@ once for the finished slots.
 (``partition_csr(tile_csr(g, Q), P)``) with ``fused=True`` runs every tick
 over its ``P`` shards (``_PartitionedFusedRuntime``), stitched by the tagged
 boundary exchange; the reference runs them under ``shard_map`` on ``P``
-devices, the port steps them in turn on one card.  ``fused=False`` refuses
-it, as the reference does.
+devices.  The port steps them in turn on one device, or, given a group mesh
+(``mesh=launch.mesh.make_graph_mesh(P, group=...)``), one shard a rank of a
+``torch.distributed`` group: every rank builds the engine over the same view
+and submits the same queries, keeps the engine's global state replicated,
+and steps its own shard (``all_to_all_single`` for the exchange,
+``all_reduce`` for the PPR leak, the rung and the overflow, ``all_gather``
+of the owned rows after each step).  Admission, eviction, retirement and
+extraction then decide the same on every rank; the decisions that read a
+clock (straggler deadlines, the quarantine backoff) are agreed through one
+``all_reduce`` a tick each.  ``fused=False`` refuses a partitioned view, as
+the reference does.
 
 Min-family results are bit-identical to solo runs in every mode; PPR sums
 may reassociate within f32 tolerance (the merge grouping depends on the
@@ -68,8 +77,9 @@ from repro_torch.core.pipeline import (CapacityPolicy, FrontierApp,
                                        FrontierPipeline, StepResult,
                                        _host_bucket)
 from repro_torch.device import resolve_device
-from repro_torch.dist.graph_partition import (_boundary_exchange, _predict,
-                                              partitioned_superstep)
+from repro_torch.dist.collectives import StackedShards, group_shards
+from repro_torch.dist.graph_partition import (AXIS, _boundary_exchange,
+                                              _predict, partitioned_superstep)
 from repro_torch.ft.failures import QueryFaultInjector, QueryFaultPlan
 from repro_torch.ft.supervisor import StragglerClock, backoff_delay
 from repro_torch.graphs.csr import (CSRGraph, GraphView, PartitionedGraphView,
@@ -365,21 +375,24 @@ def _partitioned_fused_app(Q: int) -> FrontierApp:
 
 class _PartitionedFusedRuntime:
     """``FrontierPipeline``'s ``step`` for the fused tick over a
-    ``PartitionedGraphView``: every shard on this runtime's device, stepped
-    in turn, with the tagged boundary exchange (exact codec) between the
+    ``PartitionedGraphView``: the shards held here (all of them, stepped in
+    turn, or this rank's one over a group: ``shards``) on this runtime's
+    device, with the tagged boundary exchange (exact codec) between the
     scatter and the update.
 
     The engine keeps its fused state in the global single-device layout;
-    each step lays it out over the shards (owned blocks, ghost slots at
-    their family's identity), runs one superstep and gathers the owned
-    blocks back into new global tensors.  The engine's state is never
-    written, so an overflowed step is rerun from it at the next rung.
+    each step lays it out over the held shards (owned blocks, ghost slots
+    at their family's identity), runs one superstep and gathers every
+    shard's owned block back into new global tensors.  The engine's state
+    is never written, so an overflowed step is rerun from it at the next
+    rung.
     """
 
     def __init__(self, pview: PartitionedGraphView, *, mode: str,
                  iru_config: Optional[IRUConfig], kernels: bool,
                  capacity_policy: Optional[CapacityPolicy], ragged: bool,
-                 device: torch.device):
+                 device: torch.device, shards=None):
+        self.shards = shards or StackedShards(pview.n_parts)
         part = pview.part.to(device)
         self.part = part
         self.Q, self.n = pview.n_tenants, pview.base_nodes
@@ -393,12 +406,14 @@ class _PartitionedFusedRuntime:
         # shard's whole edge set
         self.buckets = self.capacity_policy.ladder(
             max(part.edge_cap, 1), part.local_nodes)
-        self.graphs = [part.shard_graph(p) for p in range(part.n_parts)]
+        self.graphs = [part.shard_graph(p) for p in part.held]
         self._degrees = torch.stack([g.degrees() for g in self.graphs])
-        # id-space maps [P, local_nodes]: global composite id (owned, then
-        # the ghosts'), slot (padding -> Q) and the owned-real mask
+        # id-space maps [H, local_nodes] of the held shards: global
+        # composite id (owned, then the ghosts'), slot (padding -> Q) and
+        # the owned-real mask
         Qn, block = self.Q * self.n, part.block
-        owned = (torch.arange(part.n_parts, device=device)[:, None] * block
+        owned = (torch.arange(part.held.start, part.held.stop,
+                              device=device)[:, None] * block
                  + torch.arange(block, device=device))
         gid = torch.cat([torch.where(owned < Qn, owned, -1),
                          part.ghost_ids.long()], 1)
@@ -415,22 +430,24 @@ class _PartitionedFusedRuntime:
         tgt = torch.where(own, state_g["tgt"][gid], ident)
         src = torch.where(own, state_g["src"][gid], 0.0)
         shared = {k: state_g[k] for k in ("tag", "unit", "live", "damp")}
-        states = [dict(shared, val=val[p], tgt=tgt[p], src=src[p],
-                       slot=slot[p], own=own[p])
-                  for p in range(self.part.n_parts)]
+        states = [dict(shared, val=val[h], tgt=tgt[h], src=src[h],
+                       slot=slot[h], own=own[h])
+                  for h in range(len(self.part.held))]
         return states, own & mask_g[gid]
 
-    def _from_stacked(self, states, mask_st):
+    def _from_stacked(self, state_g, states, mask_st):
+        """The global state after a step: every shard's owned ``val`` and
+        mask rows (one ``all_gather`` over a group), ``tgt`` rebuilt from
+        ``val`` as the update builds it, and the rest of ``state_g``, which
+        a step does not change."""
         Qn, block = self.Q * self.n, self.part.block
-
-        def take(a):
-            return a[:, :block].reshape(-1)[:Qn]
-
-        state = {k: take(torch.stack([s[k] for s in states]))
-                 for k in ("val", "tgt", "src")}
-        state.update({k: states[0][k] for k in ("tag", "unit", "live",
-                                                "damp")})
-        return state, take(mask_st)
+        rows = torch.stack([torch.stack([s["val"] for s in states]),
+                            mask_st.to(_F32)], 1)[..., :block]
+        rows = self.shards.gather(rows).transpose(0, 1).reshape(2, -1)[:, :Qn]
+        val = rows[0]
+        tgt = torch.where(_rows(state_g["tag"], self.n), 0.0, val).to(_ACC)
+        state = dict(state_g, val=val, tgt=tgt)
+        return state, rows[1] > 0
 
     # -- one superstep --------------------------------------------------------
     def _shared(self, states, graphs):
@@ -441,12 +458,13 @@ class _PartitionedFusedRuntime:
             dangling = s["own"] & (g.degrees() == 0)
             leak = leak.index_add(0, s["slot"],
                                   torch.where(dangling, s["val"], 0.0))
-        return {"leak_q": leak[:self.Q]}
+        return {"leak_q": self.shards.sum(leak[None])[:self.Q]}
 
     def _exchange(self, target, states):
         tags = torch.stack([_pad1(s["tag"])[s["slot"]] for s in states])
         out, _ = _boundary_exchange(target, None, part=self.part,
-                                    op="tagged", codec="exact", tags=tags)
+                                    op="tagged", codec="exact", tags=tags,
+                                    shards=self.shards)
         return out
 
     def _superstep(self, states, mask, bucket: int):
@@ -467,14 +485,16 @@ class _PartitionedFusedRuntime:
         working set, re-dispatched upward on overflow.  On overflow at the
         top (``raise_on_overflow=False``) the given state comes back."""
         states, mk = self._to_stacked(state, mask)
-        b = (_host_bucket(self.buckets, *_predict(self._degrees, mk))
+        b = (_host_bucket(self.buckets, *_predict(self._degrees, mk,
+                                                  self.shards))
              if len(self.buckets) > 1 else 0)
         none = mk.new_zeros(0, dtype=torch.int32)
         zero = mk.new_zeros((), dtype=torch.int32)
         while True:
             out_states, out_mask, ovf = self._superstep(states, mk, b)
-            if not bool(ovf):
-                gs, gm = self._from_stacked(out_states, out_mask)
+            # any shard's overflow (every rank reads the same sum)
+            if not bool(self.shards.sum(ovf.long()[None])):
+                gs, gm = self._from_stacked(state, out_states, out_mask)
                 return StepResult(gs, gm, none, none, none, zero, False, b)
             if b == len(self.buckets) - 1:
                 if raise_on_overflow:
@@ -494,7 +514,12 @@ class GraphServingEngine:
     """Slot-leased multi-tenant traversal engine (see the module docstring).
 
     ``device=None`` runs on the card and raises without one; the graph is
-    moved to the engine's device.
+    moved to the engine's device.  ``mesh`` (a group mesh,
+    ``launch.mesh.make_graph_mesh(P, group=...)``) serves a
+    ``PartitionedGraphView`` of ``P`` shards one shard a rank, on the mesh's
+    device: every rank of the group builds the engine and makes the same
+    calls (``submit``, ``tick``, ``run_to_completion``), each of them a
+    collective.  ``mesh=None`` steps every shard here.
     """
 
     def __init__(
@@ -504,18 +529,46 @@ class GraphServingEngine:
         *,
         fault_plan: Optional[QueryFaultPlan] = None,
         device: str | torch.device | None = None,
+        mesh=None,
     ):
         self.cfg = cfg = config or GraphServeConfig()
         if cfg.query_slots < 1:
             raise ValueError(f"query_slots must be >= 1, got {cfg.query_slots}")
+        if mesh is not None and not isinstance(graph, PartitionedGraphView):
+            raise ValueError(
+                f"a mesh shards a PartitionedGraphView (partition_csr("
+                f"tile_csr(g, {cfg.query_slots}), P)); a "
+                f"{type(graph).__name__} has no shards")
         # a plain CSRGraph (tiled here), a composed GraphView, or a
         # PartitionedGraphView (the fused tick runs over its shards)
         self.part_view: Optional[PartitionedGraphView] = None
+        self.shards = None  # one shard a rank: the group's RankShards
         if isinstance(graph, PartitionedGraphView):
             if not cfg.fused:
                 raise ValueError(
                     "PartitionedGraphView serving requires fused=True "
                     "(the split per-family engine is single-device only)")
+            part = graph.part
+            if mesh is None and len(part.held) != part.n_parts:
+                raise ValueError(
+                    f"serving without a mesh needs every shard; this view "
+                    f"holds shards {list(part.held)} of {part.n_parts} (one "
+                    f"shard a rank takes a group mesh)")
+            if mesh is not None:
+                if mesh.shape.get(AXIS) != part.n_parts:
+                    raise ValueError(
+                        f"mesh axis {AXIS!r} has size "
+                        f"{mesh.shape.get(AXIS)}, partition has "
+                        f"{part.n_parts} shards")
+                self.shards = group_shards(mesh, AXIS)
+                if device is not None and torch.device(
+                        device) != mesh.devices[0]:
+                    raise ValueError(f"device={device!r} against the mesh's "
+                                     f"{mesh.devices[0]}")
+                device = mesh.devices[0]
+                # this rank keeps its own shard's rows alone
+                graph = dataclasses.replace(
+                    graph, part=part.shard(self.shards.rank))
             self.part_view = graph
             graph = graph.view
         self.device = resolve_device(device)
@@ -599,7 +652,8 @@ class GraphServingEngine:
                 self._pipes["fused"] = _PartitionedFusedRuntime(
                     self.part_view, mode=cfg.mode, iru_config=cfg.iru_config,
                     kernels=cfg.kernels, capacity_policy=cfg.capacity_policy,
-                    ragged=cfg.ragged, device=self.device)
+                    ragged=cfg.ragged, device=self.device,
+                    shards=self.shards)
             else:
                 self._pipes["fused"] = self._pipeline(
                     self.cgraph, app, edge_capacity=self._edge_budget)
@@ -858,12 +912,25 @@ class GraphServingEngine:
         self.clock.observe(time.monotonic() - t0)
         self.completed.append(query)
 
+    def _agree(self, flags: list[bool]) -> list[bool]:
+        """Decisions read off this process's clock, made the same on every
+        rank of a group (any rank's True wins: one ``all_reduce``); the
+        flags' count is the same on every rank, as the state it ranges over
+        is."""
+        if self.shards is None or not flags:
+            return flags
+        got = self.shards.max(torch.tensor([flags], dtype=torch.int32,
+                                            device=self.device))
+        return [bool(f) for f in got.tolist()]
+
     def _drain_quarantine(self) -> None:
         now = time.monotonic()
-        due = [(q, t) for q, t in self.quarantined if t <= now]
-        self.quarantined = [(q, t) for q, t in self.quarantined if t > now]
-        for q, _ in due:
-            self._retry_solo(q)
+        due = self._agree([t <= now for _, t in self.quarantined])
+        waiting = self.quarantined
+        self.quarantined = [e for e, d in zip(waiting, due) if not d]
+        for (q, _), d in zip(waiting, due):
+            if d:
+                self._retry_solo(q)
 
     # -- the tick ----------------------------------------------------------
     def _shed(self, fam: Optional[str], needs: np.ndarray, top: int,
@@ -947,22 +1014,31 @@ class GraphServingEngine:
 
     def _supervise(self) -> None:
         deadline = self.clock.deadline(self.cfg.straggler_min_s)
+        # (query, reason) in slot order; a None reason waits on its age
+        verdicts, ages = [], []
         for q in self._running():
             if self.injector is not None:
                 self.injector.stall(q.qid, self.tick_no)
                 if self.injector.should_cancel(q.qid, self.tick_no):
-                    self._cancel(q, f"cancelled mid-flight at tick "
-                                    f"{self.tick_no}")
+                    verdicts.append((q, f"cancelled mid-flight at tick "
+                                        f"{self.tick_no}"))
                     continue
             budget = q.tick_budget or self.cfg.default_tick_budget
             if q.ticks >= budget:
-                self._cancel(q, f"tick budget {budget} exhausted")
-                continue
-            age = time.monotonic() - q.admitted_time
-            if deadline is not None and age > deadline:
-                self._cancel(
-                    q, f"straggler deadline exceeded ({age:.3f}s > "
-                       f"{deadline:.3f}s EWMA wall-clock bound)")
+                verdicts.append((q, f"tick budget {budget} exhausted"))
+            elif deadline is not None:
+                ages.append(time.monotonic() - q.admitted_time)
+                verdicts.append((q, None))
+        # every running query's deadline agreed in one call a tick
+        late = iter(zip(self._agree([a > deadline for a in ages]), ages))
+        for q, reason in verdicts:
+            if reason is None:
+                over, age = next(late)
+                if not over:
+                    continue
+                reason = (f"straggler deadline exceeded ({age:.3f}s > "
+                          f"{deadline:.3f}s EWMA wall-clock bound)")
+            self._cancel(q, reason)
 
     def tick(self) -> int:
         """One engine tick: drain quarantine, admit, one batched step per

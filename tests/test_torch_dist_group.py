@@ -1,19 +1,29 @@
 """Port parity: one shard per rank of a ``torch.distributed`` group (the
-partitioned pipeline, ``allreduce_int8`` and ``moe_hash_ep`` over a group
-mesh) against the port's stacked shards and the reference on four forced
-JAX host devices.
+partitioned pipeline, partitioned graph serving, the banked IRU engine's
+rows, ``allreduce_int8`` and ``moe_hash_ep`` over a group mesh) against
+the port's stacked shards and the reference on four forced JAX host
+devices.
 
 One launcher run (``python -m repro_torch.launch.partitioned --nproc 4``,
 gloo on the CPU, a ``file://`` rendezvous in a temp dir) runs BFS with the
 flag codec, SSSP exact and PageRank with ``int8_ef`` after 1 and 5
-supersteps on kron-7 at P = 4 under a 3-rung ladder, ``allreduce_int8``
-and ``moe_hash_ep`` at a narrow width; the reference runs the same in one
-subprocess at the same time.  Labels, ``n_hops``, ``supersteps`` and
-``boundary_traffic()`` are held equal, PageRank at rtol 1e-5, atol 0 (the
-int8 codes are the same on both sides; only f32 sum order differs), MoE at
-``test_torch_moe_ep.py``'s tolerances.  This file imports no JAX: the
-reference runs in its child, so the card's test (``-m gpu``) collects it
-on the card machine too.
+supersteps at P = 4 under a 3-rung ladder on kron-7 with the out-edges of
+every seventh node dropped (reachable sinks, so PageRank and served PPR
+leak mass), the fused serving engine on ``tile_csr`` of that graph with
+three tenants at P = 4 in hash and sort mode (three tenants over four
+shards cut tenants, so the tagged exchange crosses ranks), three banked
+reorders of a seeded 4000-lane stream (min with ``round_cap`` at 4
+partitions, add at 8, tagged and ragged at 4) and two of a skewed one whose
+lanes all hash into one partition, so the banked layout bypasses its rows
+(min with ``round_cap``, tagged and ragged),
+``allreduce_int8`` and ``moe_hash_ep`` at a narrow width; the reference
+runs the same in two subprocesses at the same time.  Labels, ``n_hops``,
+``supersteps`` and ``boundary_traffic()`` are held equal, PageRank at rtol
+1e-5, atol 0 (the int8 codes are the same on both sides; only f32 sum
+order differs), MoE at ``test_torch_moe_ep.py``'s tolerances, served BFS
+and SSSP bit for bit and PPR at rtol 1e-5, the banked streams bit for bit.
+This file imports no JAX: the reference runs in its children, so the
+card's test (``-m gpu``) collects it on the card machine too.
 """
 from __future__ import annotations
 
@@ -32,15 +42,21 @@ import torch.distributed as dist
 from filelock import FileLock
 
 from repro_torch.configs.base import MoEConfig
-from repro_torch.convert import params_from_numpy
+from repro_torch.convert import graph_from_numpy, params_from_numpy
 from repro_torch.core.pipeline import CapacityPolicy
 from repro_torch.dist import graph_partition as gp
 from repro_torch.dist.collectives import allreduce_int8
-from repro_torch.graphs.csr import partition_csr
+from repro_torch.graphs.csr import partition_csr, tile_csr
 from repro_torch.graphs.generators import kron
+from repro_torch.kernels.iru_reorder.banked import (banks,
+                                                    hash_reorder_banked)
+from repro_torch.kernels.iru_reorder.batched import _two_gen_plan, hash_set
+from repro_torch.kernels.iru_reorder.ops import hash_reorder
 from repro_torch.launch.mesh import make_graph_mesh, make_iru_mesh
 from repro_torch.moe import moe_hash_ep
 from repro_torch.moe.ep import shard_experts
+from repro_torch.serve import (GraphQuery, GraphServeConfig,
+                               GraphServingEngine)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(ROOT, "src")
@@ -53,6 +69,25 @@ RUNS = {"bfs_compress": ("bfs", True, None),
 T, D, E, K, F = 128, 32, 8, 2, 48
 MOE = dict(n_experts=E, top_k=K, d_ff=F, capacity_factor=2.0)
 N_PARTITIONS = 8
+# serving: three tenants of kron-7 over four shards, a 2-rung ladder
+SLOTS, SERVE_LADDER, SERVE_MODES = 3, (2, 256, 16), ("hash", "sort")
+QUERIES = [{"kind": "bfs", "source": 0}, {"kind": "sssp", "source": 3},
+           {"kind": "ppr", "source": 9, "iters": 8},
+           {"kind": "bfs", "source": 17},
+           {"kind": "ppr", "source": 0, "iters": 5},
+           {"kind": "sssp", "source": 9}]
+# banked reorders of seeded streams: label -> hash_reorder's options and
+# the stream's file; every lane of "skewed" hashes into partition 0 at
+# P = 4, so its reorders bypass the bank rows
+LANES, SETS, SLOTS_B = 4000, 64, 8
+REORDERS = {"banked_min": dict(filter_op="min", round_cap=16, n_partitions=4),
+            "banked_add": dict(filter_op="add", n_partitions=8),
+            "banked_tagged": dict(filter_op="tagged", n_partitions=4,
+                                  n_live=3100),
+            "skewed_min": dict(filter_op="min", round_cap=16, n_partitions=4,
+                               stream="skewed"),
+            "skewed_tagged": dict(filter_op="tagged", n_partitions=4,
+                                  n_live=3100, stream="skewed")}
 
 _REFERENCE = """
 import json
@@ -61,12 +96,14 @@ from repro.configs.base import MoEConfig
 from repro.core import CapacityPolicy
 from repro.dist import graph_partition as gp
 from repro.dist.collectives import allreduce_int8
-from repro.graphs.csr import partition_csr
-from repro.graphs.generators import kron
+from repro.graphs.csr import CSRGraph, partition_csr
 from repro.launch.mesh import make_iru_mesh
 from repro.moe import moe_hash_ep
 assert len(jax.devices()) == 4, jax.devices()
-part = partition_csr(kron(scale=7, edge_factor=8, seed=4), 4)
+z = np.load(DIR + "/graph.npz")
+graph = CSRGraph(**{k: jnp.asarray(z[k])
+                    for k in ("row_ptr", "col_idx", "weights")})
+part = partition_csr(graph, 4)
 policy = CapacityPolicy(*LADDER)
 out, meta = {}, {}
 for label, (app, compress, iters) in RUNS.items():
@@ -93,6 +130,81 @@ np.savez(DIR + "/reference.npz", **out)
 with open(DIR + "/reference.json", "w") as f:
     json.dump(meta, f)
 """
+
+
+_REFERENCE_SERVE = """
+import json
+import numpy as np, jax, jax.numpy as jnp
+from repro import serve as jserve
+from repro.core import CapacityPolicy
+from repro.graphs.csr import CSRGraph, partition_csr, tile_csr
+from repro.kernels.iru_reorder.banked import hash_reorder_banked
+from repro.launch.mesh import make_iru_mesh
+assert len(jax.devices()) == 4, jax.devices()
+out = {}
+z = np.load(DIR + "/graph.npz")
+graph = CSRGraph(**{k: jnp.asarray(z[k])
+                    for k in ("row_ptr", "col_idx", "weights")})
+view = partition_csr(tile_csr(graph, SLOTS), 4)
+eng = jserve.GraphServingEngine(view, jserve.GraphServeConfig(
+    query_slots=SLOTS, mode="hash",
+    capacity_policy=CapacityPolicy(*SERVE_LADDER)))
+qs = [jserve.GraphQuery(q["kind"], q["source"], iters=q.get("iters", 20))
+      for q in QUERIES]
+for q in qs:
+    eng.submit(q)
+eng.run_to_completion(2000)
+assert all(q.status == "done" for q in qs), [q.error for q in qs]
+for i, q in enumerate(qs):
+    out[f"serve.q{i}"] = q.result
+mesh = make_iru_mesh(4)
+assert mesh.shape["part"] == 4
+for label, kw in REORDERS.items():
+    kw = dict(kw)
+    z = np.load(DIR + "/" + kw.pop("stream", "stream") + ".npz")
+    if "n_live" in kw:
+        kw["n_live"] = jnp.int32(kw["n_live"])
+    tags = jnp.asarray(z["tag_table"]) if kw["filter_op"] == "tagged" else None
+    got = hash_reorder_banked(
+        jnp.asarray(z["indices"]), jnp.asarray(z["secondary"]),
+        num_sets=SETS, slots=SLOTS_B, tag_table=tags, mesh=mesh, **kw)
+    for name, a in zip(("indices", "secondary", "positions", "active"), got):
+        out[f"{label}.{name}"] = np.asarray(a)
+np.savez(DIR + "/reference_serve.npz", **out)
+with open(DIR + "/reference_serve.json", "w") as f:
+    json.dump({"tick_no": eng.tick_no}, f)
+"""
+
+
+def _graph_arrays():
+    """kron-7 (seed 4) with the out-edges of every seventh node dropped:
+    sinks that other nodes reach, so served PPR leaks mass and the leak's
+    sum over the shards has something to add."""
+    g = kron(scale=7, edge_factor=8, seed=4, device="cpu")
+    row_ptr, col_idx, weights = (t.numpy() for t in (g.row_ptr, g.col_idx,
+                                                     g.weights))
+    src = np.repeat(np.arange(g.n_nodes), np.diff(row_ptr))
+    keep = src % 7 != 3
+    deg = np.bincount(src[keep], minlength=g.n_nodes)
+    return (np.concatenate([[0], np.cumsum(deg)]).astype(np.int32),
+            col_idx[keep], weights[keep])
+
+
+def _graph():
+    return graph_from_numpy(*_graph_arrays(), "cpu")
+
+
+def _reorder_spec(d, label: str) -> str:
+    """The launcher's ``--reorder`` of run ``label``."""
+    kw = REORDERS[label]
+    spec = [str(d / f"{kw.get('stream', 'stream')}.npz"), f"sets={SETS}", f"slots={SLOTS_B}",
+            f"parts={kw['n_partitions']}", f"op={kw['filter_op']}",
+            f"label={label}"]
+    if "round_cap" in kw:
+        spec.append(f"round_cap={kw['round_cap']}")
+    if "n_live" in kw:
+        spec.append(f"live={kw['n_live']}")
+    return ":".join(spec)
 
 
 def _launcher(out_dir, *extra, nproc=P, backend="gloo", device="cpu"):
@@ -123,13 +235,20 @@ def runs(tmp_path_factory):
             "stdout": (d / "stdout.txt").read_text(), "layer": layer,
             "allreduce_x": np.load(d / "allreduce.npy"),
             "ref": dict(np.load(d / "reference.npz")),
-            "ref_meta": json.loads((d / "reference.json").read_text())}
+            "ref_meta": json.loads((d / "reference.json").read_text()),
+            "ref_serve": dict(np.load(d / "reference_serve.npz")),
+            "ref_serve_meta": json.loads(
+                (d / "reference_serve.json").read_text()),
+            "streams": {k: dict(np.load(d / f"{k}.npz"))
+                        for k in ("stream", "skewed")}}
 
 
 def _make_runs(d) -> None:
     """Start both runs together, each with its own timeout, so a hung
     collective fails here."""
     (d / "store").unlink(missing_ok=True)  # a rendezvous file is single-use
+    np.savez(d / "graph.npz", **dict(zip(("row_ptr", "col_idx", "weights"),
+                                         _graph_arrays())))
     rng = np.random.default_rng(11)
     layer = {"router": rng.standard_normal((D, E)) * 0.3,
              "wi": rng.standard_normal((E, D, F)) * 0.2,
@@ -146,40 +265,68 @@ def _make_runs(d) -> None:
     allreduce_x = rng.standard_normal((8, 5, 40)).astype(np.float32)
     np.save(d / "allreduce.npy", allreduce_x)
 
+    stream = {"indices": rng.integers(0, 3000, LANES).astype(np.int32),
+              "secondary": rng.random(LANES).astype(np.float32),
+              "tag_table": rng.random(3001) < 0.5}
+    np.savez(d / "stream.npz", **stream)
+    pool = rng.integers(0, 3000, 8 * LANES).astype(np.int32)
+    in0 = pool[hash_set(torch.from_numpy(pool // 32), SETS).numpy() % 4 == 0]
+    assert in0.shape[0] >= LANES
+    np.savez(d / "skewed.npz", indices=in0[:LANES],
+             secondary=rng.random(LANES).astype(np.float32),
+             tag_table=stream["tag_table"])
+    for mode in SERVE_MODES:
+        (d / f"serve_{mode}.json").write_text(json.dumps({
+            "queries": QUERIES, "slots": SLOTS, "mode": mode,
+            "capacity_policy": SERVE_LADDER}))
+
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
     code = (f"DIR = {str(d)!r}\nLADDER = {LADDER!r}\nRUNS = {RUNS!r}\n"
             f"MOE = {MOE!r}\nN_PARTITIONS = {N_PARTITIONS}\n"
             + textwrap.dedent(_REFERENCE))
-    ref = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=env,
-                           stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                           text=True)
+    code_serve = (f"DIR = {str(d)!r}\nSLOTS = {SLOTS}\nSERVE_LADDER = "
+                  f"{SERVE_LADDER!r}\nQUERIES = {QUERIES!r}\nREORDERS = "
+                  f"{REORDERS!r}\nSETS = {SETS}\nSLOTS_B = {SLOTS_B}\n"
+                  + textwrap.dedent(_REFERENCE_SERVE))
+    refs = [subprocess.Popen([sys.executable, "-c", c], cwd=ROOT, env=env,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True) for c in (code, code_serve)]
     specs = {"bfs_compress": "bfs:compress", "sssp": "sssp",
              "pagerank_compress_iters1": "pagerank:iters=1:compress",
              "pagerank_compress_iters5": "pagerank:iters=5:compress"}
-    cmd = _launcher(d, "--graph", "kron:7:8:4", "--ladder",
+    cmd = _launcher(d, "--graph", str(d / "graph.npz"), "--ladder",
                     ",".join(map(str, LADDER)), "--out", str(d / "out"),
                     "--moe", str(d / "moe"), "--allreduce",
                     str(d / "allreduce.npy"),
-                    *[a for s in specs.values() for a in ("--app", s)])
+                    *[a for s in specs.values() for a in ("--app", s)],
+                    *[a for m in SERVE_MODES
+                      for a in ("--serve", str(d / f"serve_{m}.json"))],
+                    *[a for label in REORDERS
+                      for a in ("--reorder", _reorder_spec(d, label))])
     try:
-        group = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ,
-                                                       PYTHONPATH=SRC),
-                               capture_output=True, text=True, timeout=120)
-        _, ref_err = ref.communicate(timeout=300)
+        # one OpenMP thread a rank: four ranks at the host's thread count
+        # beside xdist's workers oversubscribe the cores (the ragged
+        # reorders' round loops then took seconds a call)
+        group = subprocess.run(
+            cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=SRC,
+                                    OMP_NUM_THREADS="1"),
+            capture_output=True, text=True, timeout=180)
+        ref_errs = [ref.communicate(timeout=300)[1] for ref in refs]
     finally:
-        ref.kill()
-        ref.wait()
+        for ref in refs:
+            ref.kill()
+            ref.wait()
     assert group.returncode == 0, group.stderr[-4000:]
-    assert ref.returncode == 0, ref_err[-4000:]
+    for ref, err in zip(refs, ref_errs):
+        assert ref.returncode == 0, err[-4000:]
     (d / "stdout.txt").write_text(group.stdout)
 
 
 @pytest.fixture(scope="module")
 def stacked():
     """The port's stacked shards on the same graph, ladder and runs."""
-    part = partition_csr(kron(scale=7, edge_factor=8, seed=4, device="cpu"),
-                         P)
+    part = partition_csr(_graph(), P)
     out = {}
     for label, (app, compress, iters) in RUNS.items():
         kw = {"iters": iters} if iters else {}
@@ -253,6 +400,119 @@ def test_each_rank_holds_its_own_shard_state_and_experts(runs, stacked):
         assert held["wi"] == held["wg"] == [E // P, D, F]
         assert held["wo"] == [E // P, F, D]
         assert held["router"] == [D, E] and held["experts"] == [E // P]
+
+
+# ---------------------------------------------------------------------------
+# partitioned serving and the banked engine's rows over four ranks
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def stacked_serving():
+    """The port's stacked engine at P = 4 (every shard in this process) on
+    the launcher's graph, queries and ladder, in each mode."""
+    pview = partition_csr(tile_csr(_graph(), SLOTS), P)
+    out = {}
+    for mode in SERVE_MODES:
+        eng = GraphServingEngine(pview, GraphServeConfig(
+            query_slots=SLOTS, mode=mode,
+            capacity_policy=CapacityPolicy(*SERVE_LADDER)), device="cpu")
+        qs = [GraphQuery(q["kind"], q["source"], iters=q.get("iters", 20))
+              for q in QUERIES]
+        for q in qs:
+            eng.submit(q)
+        eng.run_to_completion(2000)
+        out[mode] = (eng, qs)
+    return pview, out
+
+
+def _same_query(got, want, kind, what):
+    assert got.dtype == want.dtype, what
+    if kind == "ppr":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7,
+                                   err_msg=what)
+    else:
+        assert np.array_equal(got, want), what
+
+
+@pytest.mark.parametrize("mode", SERVE_MODES)
+def test_group_serving_matches_stacked_and_reference(runs, stacked_serving,
+                                                     mode):
+    """Four ranks, one shard each: every query equals the stacked engine's
+    (BFS and SSSP bit for bit, PPR at rtol 1e-5) and the reference engine's
+    on four devices, in as many ticks; the tagged exchange crosses ranks."""
+    pview, engines = stacked_serving
+    eng, qs = engines[mode]
+    label = f"serve_{mode}"
+    for i, q in enumerate(qs):
+        assert q.status == "done", q.error
+        got = _result(runs, f"{label}.q{i}")
+        _same_query(got, q.result, q.kind, f"{label} q{i} against stacked")
+        _same_query(got, runs["ref_serve"][f"serve.q{i}"], q.kind,
+                    f"{label} q{i} against the reference")
+    assert pview.part.lane_cap > 0
+    recs = _records(runs, label)
+    for rec in recs:  # every rank decided the same
+        assert (rec["ticks"], rec["overflow_events"], rec["quarantines"],
+                rec["admission_blocked"], rec["lane_cap"]) == (
+            eng.tick_no, eng.overflow_events, eng.quarantines,
+            eng.admission_blocked, pview.part.lane_cap)
+    assert eng.tick_no == runs["ref_serve_meta"]["tick_no"]
+    assert sum(r["sent_bytes"] for r in recs) > 0  # the exchange ran
+    assert sum(r["partition_bytes"] for r in recs) == pview.part.nbytes()
+    assert label in runs["stdout"]
+
+
+def _stream_args(runs, label):
+    kw = dict(REORDERS[label])
+    z = runs["streams"][kw.pop("stream", "stream")]
+    tags = (torch.from_numpy(z["tag_table"]) if kw["filter_op"] == "tagged"
+            else None)
+    return (torch.from_numpy(z["indices"]), torch.from_numpy(z["secondary"]),
+            tags, kw)
+
+
+@pytest.mark.parametrize("label", list(REORDERS))
+def test_group_banked_rows_match_single_process_and_reference(runs, label):
+    """Each rank reorders its block of bank rows (two a rank at 8
+    partitions), or, on the skewed stream, the whole stream flat: the
+    stream equals the single-process banked engine's and the reference's
+    ``hash_reorder_banked(mesh=)`` on four devices, bit for bit, field by
+    field."""
+    idx, sec, tags, kw = _stream_args(runs, label)
+    want = hash_reorder_banked(idx, sec, num_sets=SETS, slots=SLOTS_B,
+                               tag_table=tags, **kw)
+    for name, w in zip(("indices", "secondary", "positions", "active"),
+                       want):
+        got = _result(runs, f"{label}.{name}")
+        assert got.dtype == w.numpy().dtype, name
+        assert np.array_equal(got, w.numpy()), (label, name)
+        assert np.array_equal(got, runs["ref_serve"][f"{label}.{name}"]), (
+            label, name)
+    per = kw["n_partitions"] // P
+    for r, rec in enumerate(_records(runs, label)):
+        assert rec["partitions"] == list(range(r * per, (r + 1) * per))
+
+
+def test_group_banked_streams_take_the_row_stage(runs):
+    """The uniform stream's runs take the rows (every partition fits its
+    bank) and the skewed stream's bypass them (partition 0 holds every live
+    lane, past the capacity); no ragged run's two-generation closed form
+    holds, so both paths are reached."""
+    for label in REORDERS:
+        idx, sec, tags, kw = _stream_args(runs, label)
+        sets, part, live, m_live, cnt, cap = banks(
+            idx, num_sets=SETS, n_partitions=kw["n_partitions"], epb=32,
+            n_live=kw.get("n_live"))
+        if label.startswith("skewed"):
+            assert int(cnt[0]) == m_live > cap, label
+        else:
+            assert int(cnt.max()) <= cap, label
+        if live is not None:
+            ok, _ = _two_gen_plan(
+                idx, sec, live, sets, n_partitions=kw["n_partitions"],
+                num_sets=SETS, slots=SLOTS_B, filter_op=kw["filter_op"],
+                round_cap=None, tag_table=tags)
+            assert not bool(ok), label
 
 
 # ---------------------------------------------------------------------------
@@ -373,6 +633,63 @@ def test_group_of_one_and_its_refusals(group_of_one):
         allreduce_int8(torch.ones(2, 3), mesh=imesh)
 
 
+def test_group_of_one_serves_and_reorders_and_refuses(group_of_one):
+    """A group of one serves as the stacked engine does and reorders as the
+    single-process banked engine does (two partitions on the one rank);
+    what a mesh cannot honour raises, and nothing falls back."""
+    g = kron(scale=6, device="cpu")
+    cfg = GraphServeConfig(query_slots=2,
+                           capacity_policy=CapacityPolicy(*SERVE_LADDER))
+    mesh = make_graph_mesh(1, "cpu", group="world")
+    one = partition_csr(tile_csr(g, 2), 1)
+
+    def serve(**kw):
+        eng = GraphServingEngine(one, cfg, **kw)
+        qs = [GraphQuery("bfs", 0), GraphQuery("ppr", 3, iters=4),
+              GraphQuery("sssp", 5)]
+        for q in qs:
+            eng.submit(q)
+        eng.run_to_completion(500)
+        return [q.result for q in qs], eng.tick_no
+
+    got, want = serve(mesh=mesh), serve(device="cpu")
+    assert got[1] == want[1]
+    for a, b in zip(got[0], want[0]):
+        assert np.array_equal(a, b)
+    nogroup = dataclasses.replace(mesh, group=None)
+    with pytest.raises(ValueError, match="without a process group"):
+        GraphServingEngine(one, cfg, mesh=nogroup)
+    with pytest.raises(ValueError, match="a CSRGraph has no shards"):
+        GraphServingEngine(g, cfg, mesh=mesh)
+    with pytest.raises(ValueError) as e:  # a group of the wrong size
+        GraphServingEngine(partition_csr(tile_csr(g, 2), 2), cfg, mesh=mesh)
+    assert str(e.value) == "mesh axis 'gpart' has size 1, partition has 2 " \
+                           "shards"
+    with pytest.raises(ValueError, match="requires fused=True"):
+        GraphServingEngine(one, dataclasses.replace(cfg, fused=False),
+                           mesh=mesh)
+    rng = np.random.default_rng(3)
+    idx = torch.from_numpy(rng.integers(0, 500, 600).astype(np.int32))
+    sec = torch.from_numpy(rng.random(600).astype(np.float32))
+    imesh = make_iru_mesh(2, "cpu", group="world")
+    kw = dict(num_sets=16, slots=4, filter_op="add", n_partitions=2)
+    for a, b in zip(hash_reorder(idx, sec, mesh=imesh, **kw),
+                    hash_reorder(idx, sec, **kw)):
+        assert torch.equal(a, b)
+    # one partition: the reference's words, from either entry point
+    for fn in (hash_reorder, hash_reorder_banked):
+        with pytest.raises(ValueError) as e:
+            fn(idx, sec, n_partitions=1, mesh=imesh)
+        assert str(e.value) == (
+            "mesh sharding requires n_partitions > 1 (the mesh shards bank "
+            "rows; a single partition has nothing to shard)")
+    with pytest.raises(ValueError, match="without a process group"):
+        hash_reorder(idx, sec, mesh=dataclasses.replace(imesh, group=None),
+                     **kw)
+    with pytest.raises(ValueError, match="windows take no mesh"):
+        hash_reorder(idx, sec, window_elems=128, mesh=imesh, **kw)
+
+
 @pytest.mark.gpu
 def test_nccl_ranks_sharing_a_card_refuse(tmp_path):
     """Two NCCL ranks on one card raise and name the reason (NCCL itself
@@ -386,3 +703,50 @@ def test_nccl_ranks_sharing_a_card_refuse(tmp_path):
         text=True, timeout=120)
     assert r.returncode != 0
     assert "NCCL needs one card per rank" in r.stderr, r.stderr[-4000:]
+
+
+@pytest.mark.gpu
+def test_banked_rows_on_the_card_equal_the_banked_layout(tmp_path):
+    """On the card a group of one reorders its four partitions through
+    B3's whole-stream body, one launch each on the partition's
+    sub-stream, and equals B3's banked layout bit for bit: merged, ragged,
+    tagged and unmerged.  A stream whose lanes all hash into one partition
+    bypasses the rows (one launch of the whole-stream body on the whole
+    stream) and equals the banked layout too, whole and ragged."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: B3 has no CPU body")
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    dist.init_process_group(
+        "gloo", init_method=f"file://{tmp_path}/store", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = make_iru_mesh(4, "cuda:0", group="world")
+        rng = np.random.default_rng(7)
+        n, span = 1 << 16, 1 << 18
+        idx = torch.from_numpy(rng.integers(0, span, n).astype(np.int32))
+        sec = torch.from_numpy(rng.random(n).astype(np.float32))
+        tags = torch.from_numpy(rng.random(span + 1) < 0.5).cuda()
+        # every lane's block hashes into partition 0 of 4
+        pool = torch.from_numpy(rng.integers(0, span, 8 * n).astype(np.int32))
+        skewed = pool[hash_set(pool // 32, 1024) % 4 == 0][:n]
+        assert skewed.shape[0] == n
+        idx, sec, skewed = idx.cuda(), sec.cuda(), skewed.cuda()
+        for x, kw, launches in (
+                (idx, dict(filter_op="add"), 4),
+                (idx, dict(filter_op="min", n_live=n - 1000), 4),
+                (idx, dict(filter_op="tagged", tag_table=tags, n_live=n // 2),
+                 4),
+                (idx, dict(filter_op=None), 4),
+                (skewed, dict(filter_op="add"), 1),
+                (skewed, dict(filter_op="min", n_live=n - 1000), 1)):
+            reset_launch_counts()
+            got = hash_reorder(x, sec, n_partitions=4, mesh=mesh, **kw)
+            key = ("iru_reorder_tagged" if kw["filter_op"] == "tagged"
+                   else "iru_reorder")
+            assert dict(launch_counts) == {key: launches}, kw
+            want = hash_reorder(x, sec, n_partitions=4, **kw)
+            for name, a, b in zip(got._fields, got, want):
+                assert torch.equal(a, b), (kw["filter_op"], launches, name)
+    finally:
+        dist.destroy_process_group()

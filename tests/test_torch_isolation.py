@@ -453,6 +453,7 @@ from repro_torch.launch.mesh import (make_graph_mesh, make_host_mesh,
                                      make_iru_mesh)
 from repro_torch.serve import ServingEngine
 from repro_torch.train import TrainConfig, init_state
+from repro_torch.kernels.iru_reorder.ops import hash_reorder
 assert not torch.cuda.is_available()
 lm = smoke_config("deepseek-v2-lite-16b")
 g = kron(scale=6, device="cpu")
@@ -490,7 +491,11 @@ calls = [lambda: FrontierPipeline(g, BFS_APP), lambda: bfs_pipeline(g),
          lambda: make_graph_mesh(1, group="world"),
          lambda: make_iru_mesh(1, group="world"),
          lambda: launch_partitioned.main(group + ["--nproc", "2"]),
-         lambda: launch_partitioned.main(group)]
+         lambda: launch_partitioned.main(group),
+         lambda: GraphServingEngine(partition_csr(tile_csr(g, 8), 1),
+                                    mesh=make_graph_mesh(1, group="world")),
+         lambda: hash_reorder(g.col_idx, n_partitions=2,
+                              mesh=make_iru_mesh(2, group="world"))]
 group = ["--backend", "gloo", "--graph", "kron:4:4", "--app", "bfs"]
 os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
 for call in calls:
@@ -505,6 +510,19 @@ assert label.device.type == "cpu" and int(label[0]) == 0
 it = Initializer(torch.Generator(), device="cpu")
 init_moe(it, 8, moe, "swiglu")
 assert it.params["wi"].device.type == "cpu"
+# a group mesh on the CPU, asked for: the engine and the banked rows run
+import tempfile
+import torch.distributed as dist
+with tempfile.TemporaryDirectory() as tmp:
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            rank=0, world_size=1)
+    eng = GraphServingEngine(partition_csr(tile_csr(g, 8), 1),
+                             mesh=make_graph_mesh(1, "cpu", group="world"))
+    assert eng.device.type == "cpu"
+    out = hash_reorder(g.col_idx, n_partitions=2,
+                       mesh=make_iru_mesh(2, "cpu", group="world"))
+    assert out.indices.device.type == "cpu"
+    dist.destroy_process_group()
 print("ok")
 """
     r = _run(code, CUDA_VISIBLE_DEVICES="")
