@@ -5,7 +5,8 @@ Run from the repo root with no arguments:  python3 chip_smoke.py
 
 Phases, in order (any failure exits non-zero and prints no result line):
   1. build   -- compiles every kernel of the port (nvcc, sm_90a) into
-               build/kernels/ and prints the seconds and each kernel's
+               build/kernels/ while kron-20 and delaunay-1024 are built on
+               the card, and prints the seconds and each kernel's
                register / shared-memory report;
   2. kernels -- holds each kernel against its plain PyTorch version on the
                card at full size: B1 (block-reuse gather) on kron-20's edge
@@ -28,10 +29,10 @@ Phases, in order (any failure exits non-zero and prints no result line):
   3. banked/windowed -- the paper's IRU geometry (IRU_HASH: 1024 x 32 sets
                over 4 partitions x 2 banks, 8192-lane windows, round cap 64).
                B3's windowed body (one launch) on kron-20's PageRank stream
-               (add and min, f32) equals the numpy oracle on every window,
-               bit for bit, and the plain window loop (add on the whole
-               stream within rtol 1e-5, min exactly on its first 512
-               windows; max abs and relative error printed); two 1M-lane
+               equals the numpy oracle, bit for bit, and the plain window
+               loop (add on every window, within rtol 1e-5 of plain; min on
+               its first 512 windows, exactly; max abs and relative error
+               printed); two 1M-lane
                streams built to trip the
                round-cap fallback and the bank bypass are held the same way,
                and each prints how many windows took its branch (each count
@@ -45,15 +46,19 @@ Phases, in order (any failure exits non-zero and prints no result line):
                1e-4), and reorder_frontier with IRU_HASH and with 4
                partitions and no window, each run with its launch counts
                zeroed before and read after; then both bodies' CUDA-event
-               times and a profile of one call each;
+               times, the windowed body's by window size, without a merge
+               and in one partition, its time by phase (one call of its
+               stamped build: clock64 cycles a window and each phase's
+               share) with its CTAs resident per SM, and a profile of one
+               call of each body;
   4. apps    -- BFS and SSSP from node 0 on kron-20 and delaunay-1024, and
                PageRank on kron-20, through the kernels (kernels=True,
                3-bucket CapacityPolicy), once with mode="sort" (B1, B2) and
                once with mode="hash" (B1, B3).  Each run is held against the
                same run through the plain path (kernels=False) -- exactly for
                BFS/SSSP, rtol 1e-5 for PageRank; the plain runs of hash-mode
-               PageRank, hash-mode SSSP on kron-20 and the delaunay-1024
-               traversals but sort BFS are cut to 3, 5 and 300 iterations
+               PageRank, BFS and SSSP on kron-20 and the delaunay-1024
+               traversals but sort BFS are cut to 1, 3, 2 and 100 iterations
                (PLAIN_DEPTH), beside a kernel run of that depth -- and
                against the port's
                numpy host oracle (PageRank at rtol 1e-4: the oracle sums each
@@ -235,7 +240,7 @@ Phases, in order (any failure exits non-zero and prints no result line):
                token count, the EOS request stopped after one token and its
                slot taken at the next tick, and three probes' tokens equal
                to theirs served alone on a 1-slot engine; (b) in bf16 with
-               deepseek-v2-lite-16b whole, after the decode timing, 24 of
+               deepseek-v2-lite-16b whole, after the decode timing, 16 of
                the launcher's requests (16 new tokens each) on 8 slots over
                the decode cache (4128): wall s, ticks, decode steps split
                into prompt replays and ticks, mean ms a step beside the
@@ -263,18 +268,19 @@ Phases, in order (any failure exits non-zero and prints no result line):
                mamba2-130m whole (B = 8, S = 4096), each with fp32 then
                int8 moments: the parameter count (abstract_state on meta),
                build seconds, GiB held (params, moments), the step's
-               CUDA-event median over steps 3-7 of 10, tokens/s, peak
-               memory, the 10 losses (which must fall), the MoE drop rate
+               CUDA-event median over steps 3-5 of 5, tokens/s, peak
+               memory, the 5 losses (which must fall), the MoE drop rate
                and load imbalance; one profiled deepseek step split into
                forward, loss, backward (with the remat recompute) and
                optimizer by CUDA-event spans, with the device busy share.
                (c) python -m repro_torch.launch.train --arch mamba2-130m
-               --steps 30 --batch 8 --seq 1024 --ckpt build/train_smoke
-               --ckpt-every 10 --inject-faults as a subprocess: exit 0 and a
-               train_summary.json of 30 steps, 1 restart, 1 NaN event;
+               --steps 15 --batch 8 --seq 1024 --ckpt build/train_smoke
+               --ckpt-every 5 --inject-faults as a subprocess: exit 0 and a
+               train_summary.json of 15 steps, 1 restart, 1 NaN event;
   11. timings -- CUDA-event times after a warm-up for each kernel, its plain
-               version and one library call computing the same function (B2
-               tagged and B3 have none), the bound (bytes over the card's
+               version (B3's plain versions: the wall seconds of their calls
+               in phase 2) and one library call computing the same function
+               (B2 tagged and B3 have none), the bound (bytes over the card's
                3.35 TB/s), at PageRank's shape; B1 also at a BFS level's
                shape (the gappy quarter-node expansion) beside index_select;
   12. profile -- device time by kernel and the device's busy share over short
@@ -307,8 +313,13 @@ Phases, in order (any failure exits non-zero and prints no result line):
                logits under use_mesh(make_host_mesh()) equal those without a
                mesh bit for bit (deterministic algorithms on).
 
-It prints the card's name and power limit, one JSON line naming the kernels
-with their numbers, and last {"ok": true, "device": {...}}.  It needs one
+Each phase ends with a line of its wall seconds (``phase NAME: s``).  The
+host (numpy) oracles of phases 3 and 4 run in a pool of spawned processes
+from the moment the graphs exist, while the kernels compile, and phase 13
+(a) (meta device, no card work) runs in a child process from the end of
+phase 3; the run stops both before it ends.  It prints
+the card's name and power limit, one JSON line naming the kernels with
+their numbers, and last {"ok": true, "device": {...}}.  It needs one
 CUDA card and exits non-zero without one, or when run outside a checkout of
 the repo.
 """
@@ -356,10 +367,20 @@ def wall_s(fn):
     return out, time.perf_counter() - t0
 
 
-def phase_build():
+def phase_build(dev, pool):
+    """Phase 1 with the graphs: the sources compile (one nvcc each, started
+    from a thread) while the graphs are built on the card, which needs no
+    kernel, and then the host oracles start in ``pool``
+    (``start_host_work``).  Returns the graphs and the started work."""
+    import concurrent.futures
+
     from repro_torch.kernels import _build
 
-    seconds = _build.build()
+    with concurrent.futures.ThreadPoolExecutor(1) as ex:
+        compiling = ex.submit(_build.build)
+        graphs = make_graphs(dev)
+        work = start_host_work(pool, graphs)
+        seconds = compiling.result()
     print(f"build: {seconds:.3f} s ({len(_build.SOURCES)} sources, parallel "
           f"nvcc) into {_build.BUILD_DIR.relative_to(ROOT)}")
     for name in _build.SOURCES:
@@ -368,6 +389,7 @@ def phase_build():
                 if "Used" in ln] if log.exists() else []
         print(f"  {name}: {len(used)} entry points; " + "; ".join(
             sorted(set(used))))
+    return graphs, work
 
 
 def make_graphs(dev):
@@ -491,8 +513,8 @@ def phase_kernels(g):
               f"difference {diff:.3g}")
         check(torch.equal(first, again),
               f"B2 {op}: repeated calls bit-identical")
-    herr, herr_tagged = phase_hash_kernel(g, ef, gen)
-    return dsts, contrib, sparse, {
+    herr, herr_tagged, plain_s = phase_hash_kernel(g, ef, gen)
+    return dsts, contrib, sparse, plain_s, {
         "coalesced_gather": gerr, "segment_merge": merr,
         "segment_merge_tagged": terr, "iru_reorder": herr,
         "iru_reorder_tagged": herr_tagged}
@@ -546,12 +568,13 @@ def phase_hash_kernel(g, ef, gen):
              ("expansion min f32", ef.dsts, relax, "min", ef.n_valid),
              ("expansion no merge", ef.dsts, relax, None, ef.n_valid),
              ("eight hot sets max", hot_idx, hot_vals, "max", None)]
-    herr = 0.0
+    herr, plain_s = 0.0, {}
     for label, idx, vals, op, n_live in cases:
         got = hash_ops.hash_reorder(idx, vals, filter_op=op, n_live=n_live)
-        want = hash_ops.hash_reorder(idx, vals, filter_op=op, n_live=n_live,
-                                     kernels=False)
-        torch.cuda.synchronize()
+        want, secs = wall_s(lambda: hash_ops.hash_reorder(
+            idx, vals, filter_op=op, n_live=n_live, kernels=False))
+        if label == "pagerank add":
+            plain_s["iru_reorder"] = secs
         for field in ("indices", "positions", "active"):
             check(torch.equal(getattr(got, field), getattr(want, field)),
                   f"B3 {label}: {field} equal to plain")
@@ -572,9 +595,9 @@ def phase_hash_kernel(g, ef, gen):
     table = family_table(g)
     got = hash_ops.hash_reorder(pr_idx, pr_vals, filter_op="tagged",
                                 tag_table=table)
-    want = hash_ops.hash_reorder(pr_idx, pr_vals, filter_op="tagged",
-                                 tag_table=table, kernels=False)
-    torch.cuda.synchronize()
+    want, plain_s["iru_reorder_tagged"] = wall_s(
+        lambda: hash_ops.hash_reorder(pr_idx, pr_vals, filter_op="tagged",
+                                      tag_table=table, kernels=False))
     for field in ("indices", "positions", "active"):
         check(torch.equal(getattr(got, field), getattr(want, field)),
               f"B3 tagged: {field} equal to plain")
@@ -584,18 +607,34 @@ def phase_hash_kernel(g, ef, gen):
     print(f"B3 tagged pagerank   : {pr_idx.numel()} lanes, "
           f"{int(got.active.sum())} survivors, max abs err {terr.item():.3g},"
           f" matches plain")
-    return herr, terr.item()
+    return herr, terr.item(), plain_s
+
+
+def _app_oracle(name: str, g, iters=None) -> np.ndarray:
+    from repro_torch.apps import bfs, pagerank, sssp
+
+    return (pagerank(g, iters=iters) if name == "pagerank"
+            else {"bfs": bfs, "sssp": sssp}[name](g, 0))
+
+
+def _app_oracle_piece(name, row_ptr, col_idx, weights, iters):
+    """``_app_oracle`` in a pool worker, on a CPU copy of the graph."""
+    from repro_torch.graphs.csr import CSRGraph
+
+    g = CSRGraph(torch.from_numpy(row_ptr), torch.from_numpy(col_idx),
+                 torch.from_numpy(weights))
+    return _app_oracle(name, g, iters)
 
 
 def host_oracle(cache: dict, name: str, gname: str, g, iters=None):
     """The host (numpy) oracle of app ``name`` on graph ``gname``, computed
-    once a run (PageRank at ``iters`` iterations) and kept in ``cache``."""
-    from repro_torch.apps import bfs, pagerank, sssp
-
+    once a run (PageRank at ``iters`` iterations) and kept in ``cache``
+    (where ``start_host_work`` may have started it in the pool)."""
     key = (name, gname, iters)
     if key not in cache:
-        cache[key] = (pagerank(g, iters=iters) if name == "pagerank"
-                      else {"bfs": bfs, "sssp": sssp}[name](g, 0))
+        cache[key] = _app_oracle(name, g, iters)
+    elif hasattr(cache[key], "result"):
+        cache[key] = cache[key].result()
     return torch.from_numpy(cache[key]).to(g.device)
 
 
@@ -604,12 +643,13 @@ def host_oracle(cache: dict, name: str, gname: str, g, iters=None):
 # delaunay-1024 traversals run a thousand levels or more: their plain-path
 # comparison is cut to these depths (the kernel path runs the same depth
 # for it, and in full against the host oracle), which keeps the whole
-# script inside its 1200 s with the group phase on a slow host
-PLAIN_DEPTH = {("hash", "pagerank", "kron20"): 3,
-               ("hash", "sssp", "kron20"): 5,
-               ("hash", "bfs", "delaunay1024"): 300,
-               ("hash", "sssp", "delaunay1024"): 300,
-               ("sort", "sssp", "delaunay1024"): 300}
+# script well inside its 1200 s on a slow host
+PLAIN_DEPTH = {("hash", "pagerank", "kron20"): 1,
+               ("hash", "bfs", "kron20"): 3,
+               ("hash", "sssp", "kron20"): 2,
+               ("hash", "bfs", "delaunay1024"): 100,
+               ("hash", "sssp", "delaunay1024"): 100,
+               ("sort", "sssp", "delaunay1024"): 100}
 
 
 def phase_apps(graphs, oracles):
@@ -894,10 +934,15 @@ def figures_at_full_size(graphs, oracles, dev):
             check(base.lanes == iru.lanes and base.events == iru.events,
                   f"figure {algo}/{ds}: the IRU trace has the baseline's "
                   f"steps and lanes")
+            agree = "hash equals baseline"
             if algo == "pr":
+                err = rel_err(res["hash"].cpu().numpy(),
+                              res["baseline"].cpu().numpy())
+                agree = f"hash against baseline max rel err {err:.3g}"
                 check(torch.allclose(res["hash"], res["baseline"], rtol=1e-5,
                                      atol=0.0),
-                      f"figure pr/{ds}: hash within rtol 1e-5 of baseline")
+                      f"figure pr/{ds}: hash within rtol 1e-5 of baseline "
+                      f"(max relative error {err:.3g})")
             else:
                 check(torch.equal(res["hash"], res["baseline"]),
                       f"figure {algo}/{ds}: hash equals baseline")
@@ -915,7 +960,7 @@ def figures_at_full_size(graphs, oracles, dev):
                   f" {imp:.4f}, filtered {frac:.4f}; trace wall baseline "
                   f"{walls['baseline']:.3f} s, IRU {walls['hash']:.3f} s; "
                   f"launches baseline {launched['baseline']}, IRU "
-                  f"{launched['hash']}"
+                  f"{launched['hash']}; {agree}"
                   + (f"; graph built in {t_gen:.1f} s" if algo == "bfs"
                      else ""))
     merged = [v for (a, _), v in improvement.items() if a != "bfs"]
@@ -1474,66 +1519,110 @@ def _oracle_piece(args):
     return iru._hash_ref_host(*args)
 
 
-def windowed_oracle(idx_np, vals_np, cfg, live):
-    """``iru._hash_ref_host`` over a long stream, its windows split into
-    one piece a core, each in its own (spawned) process: windows are
-    independent, so the pieces join with their positions offset by the
-    piece's start.  A short stream runs here."""
+# the worker processes (spawned; two cores stay free for this process and
+# the compiler) that compute the host oracles of phases 3 and 4
+ORACLE_WORKERS = max(min((os.cpu_count() or 3) - 2, 8), 1)
+BANKED = dict(num_sets=1024, slots=32, n_partitions=4)
+
+
+def oracle_pool():
     import concurrent.futures
     import multiprocessing
-    import os
 
-    from repro_torch.core import iru
+    return concurrent.futures.ProcessPoolExecutor(
+        ORACLE_WORKERS, mp_context=multiprocessing.get_context("spawn"))
 
+
+def start_host_work(pool, graphs) -> dict:
+    """Start in ``pool`` the numpy work that phases 3 and 4 check against,
+    while the kernels still compile: the apps' host oracles on kron-20 and
+    delaunay-1024 (the ``oracles`` cache, as futures), hash_reorder_ref_
+    banked on kron-20's PageRank stream, and the windowed oracle of each
+    stream phase 3 holds (the PageRank stream with add and min, and the two
+    trip streams).  The largest jobs go first."""
+    from repro_torch.core.iru import IRUConfig
+    from repro_torch.kernels.iru_reorder.ref import hash_reorder_ref_banked
+
+    g = graphs["kron20"]
+    oracles = {}
+    for gname in ("delaunay1024", "kron20"):
+        gr = graphs[gname]
+        arrays = [t.cpu().numpy() for t in (gr.row_ptr, gr.col_idx,
+                                            gr.weights)]
+        for name, iters in (("sssp", None), ("pagerank", 20), ("bfs", None)):
+            oracles[(name, gname, iters)] = pool.submit(
+                _app_oracle_piece, name, *arrays, iters)
+    pr_idx, pr_vals = pagerank_stream(g)
+    idx_np, vals_np = pr_idx.cpu().numpy(), pr_vals.cpu().numpy()
+    banked = pool.submit(hash_reorder_ref_banked, idx_np, vals_np, **BANKED)
+    cap_idx, bypass_idx, vals, live = trip_streams(g.device)
+    vals_t = vals.cpu().numpy()
+    held = [("pagerank add", pr_idx, pr_vals, "add", None, None),
+            # min on its first 512 windows: add holds every window against
+            # both, and the plain loop's whole-stream time is add's
+            ("pagerank min", pr_idx, pr_vals, "min", None,
+             512 * IRU_HASH["window_elems"]),
+            ("round-cap trip add", cap_idx, vals, "add", live, None),
+            ("bypass trip min", bypass_idx, vals, "min", live, None)]
+    windowed = [windowed_oracle(
+        pool, (idx_np if a is pr_idx else a.cpu().numpy())[:cut],
+        (vals_np if a is pr_idx else vals_t)[:cut],
+        IRUConfig(mode="hash", filter_op=op, **IRU_HASH),
+        None if n_live is None else int(n_live))
+        for _, a, _, op, n_live, cut in held]
+    return {"oracles": oracles, "banked": banked, "held": held,
+            "windowed": windowed, "pr": (pr_idx, pr_vals, idx_np, vals_np)}
+
+
+def windowed_oracle(pool, idx_np, vals_np, cfg, live):
+    """Start ``iru._hash_ref_host`` over a stream in ``pool``, its windows
+    split into one piece a worker (windows are independent, so the pieces
+    join with their positions offset by the piece's start).  Returns a
+    function that waits for the pieces and returns the four arrays."""
     n, w = len(idx_np), cfg.window_elems
-    windows, workers = -(-n // w), min(os.cpu_count() or 1, 8)
-    if windows < 512 or workers < 2:
-        return iru._hash_ref_host(idx_np, vals_np, cfg, live)
-    per = -(-windows // workers) * w  # lanes a piece, whole windows
+    per = -(-(-(-n // w)) // ORACLE_WORKERS) * w  # whole windows a piece
     starts = range(0, n, per)
-    jobs = [(idx_np[s0:s0 + per], vals_np[s0:s0 + per], cfg,
-             None if live is None else max(live - s0, 0)) for s0 in starts]
-    with concurrent.futures.ProcessPoolExecutor(
-            workers, mp_context=multiprocessing.get_context("spawn")) as ex:
-        pieces = list(ex.map(_oracle_piece, jobs))
-    for s0, piece in zip(starts, pieces):
-        piece[2][:] += np.int32(s0)
-    return tuple(np.concatenate([p[i] for p in pieces]) for i in range(4))
+    futures = [pool.submit(_oracle_piece, (
+        idx_np[s0:s0 + per], vals_np[s0:s0 + per], cfg,
+        None if live is None else max(live - s0, 0))) for s0 in starts]
+
+    def wait():
+        pieces = [f.result() for f in futures]
+        for s0, piece in zip(starts, pieces):
+            piece[2][:] += np.int32(s0)
+        return tuple(np.concatenate([p[i] for p in pieces])
+                     for i in range(4))
+
+    return wait
 
 
-def hold_windowed(label, idx, vals, op, n_live=None, plain_lanes=None):
-    """B3's windowed body (IRU_HASH, one launch) against the numpy oracle
-    on every window, bit for bit, and against the plain window loop
-    (kernels=False) on the whole stream, or on its first ``plain_lanes``
-    lanes (a second kernel call on them): exact but for f32 add (rtol 1e-5,
-    another addition order).  Returns (max abs error against plain, the
-    plain call's seconds, windows that bypass, windows that fall back)."""
+def hold_windowed(label, idx, vals, op, oracle, n_live=None,
+                  cut_lanes=None):
+    """B3's windowed body (IRU_HASH, one launch) against the plain window
+    loop (kernels=False), exact but for f32 add (rtol 1e-5, another
+    addition order), and then against the numpy oracle (``oracle()``,
+    started earlier in the pool) on every window, bit for bit: on the whole
+    stream, or on its first ``cut_lanes`` lanes (whole windows; the plain
+    loop on a second kernel call on them).  Returns (max abs error against
+    plain, the plain call's seconds, windows that bypass, windows that fall
+    back)."""
     from repro_torch.core import iru
 
     cfg = iru.IRUConfig(mode="hash", filter_op=op, **IRU_HASH)
     got = iru.iru_reorder(idx, vals, config=cfg, n_live=n_live)
     torch.cuda.synchronize()
-    idx_np, vals_np = idx.cpu().numpy(), vals.cpu().numpy()
+    got_np = [getattr(got, field).cpu().numpy() for field in FIELDS]
+    idx_np = idx.cpu().numpy()
     live = None if n_live is None else int(n_live)
-    t0 = time.perf_counter()
-    oracle = windowed_oracle(idx_np, vals_np, cfg, live)
-    t_oracle = time.perf_counter() - t0
     w = cfg.window_elems
     windows = -(-idx.numel() // w)
-    bad = set()
-    for k, field in enumerate(FIELDS):
-        a = getattr(got, field).cpu().numpy()
-        b = oracle[k]
-        if a.dtype == np.float32:  # bit for bit
-            a, b = a.view(np.int32), b.view(np.int32)
-        bad |= set((np.flatnonzero(a != b) // w).tolist())
-    check(not bad, f"{label}: equal to the numpy oracle on every window "
-          f"({len(bad)} of {windows} differ, first {sorted(bad)[:5]})")
-    cut, survivors = "", int(got.active.sum())
-    if plain_lanes is not None:  # the plain loop takes about 2 s a million
-        idx, vals = idx[:plain_lanes], vals[:plain_lanes]
+    cut, survivors, held = "", int(got.active.sum()), windows
+    if cut_lanes is not None:  # the plain loop takes about 2 s a million
+        idx, vals = idx[:cut_lanes], vals[:cut_lanes]
         got = iru.iru_reorder(idx, vals, config=cfg, n_live=n_live)
-        cut = f" on the first {plain_lanes} lanes"
+        got_np = [a[:cut_lanes] for a in got_np]
+        cut = f" on the first {cut_lanes} lanes"
+        held = -(-min(windows * w, cut_lanes) // w)
     want, t_plain = wall_s(lambda: iru.iru_reorder(
         idx, vals, config=cfg, n_live=n_live, kernels=False))
     for field in ("indices", "positions", "active"):
@@ -1550,13 +1639,23 @@ def hold_windowed(label, idx, vals, op, n_live=None, plain_lanes=None):
     else:
         check(torch.equal(got.secondary, want.secondary),
               f"{label}: exact against plain")
+    t0 = time.perf_counter()
+    want_np = oracle()
+    t_oracle = time.perf_counter() - t0
+    bad = set()
+    for a, b in zip(got_np, want_np):
+        if a.dtype == np.float32:  # bit for bit
+            a, b = a.view(np.int32), b.view(np.int32)
+        bad |= set((np.flatnonzero(a != b) // w).tolist())
+    check(not bad, f"{label}: equal to the numpy oracle on every window "
+          f"held ({len(bad)} of {held} differ, first {sorted(bad)[:5]})")
     bypass, dense = window_branches(idx_np, n_live)
     print(f"B3 windowed {label:22s}: {len(idx_np)} lanes "
           f"({len(idx_np) if live is None else live} live), {windows} "
           f"windows, {bypass} bypass the banks, {dense} take the round-cap "
-          f"fallback in a partition; {survivors} survivors; "
-          f"equal to the numpy oracle on every window (oracle {t_oracle:.1f} "
-          f"s); against plain{cut} max abs err {err:.3g}, max rel err "
+          f"fallback in a partition; {survivors} survivors; equal to the "
+          f"numpy oracle on {held} windows (waited {t_oracle:.1f} s for it) "
+          f"and to plain{cut}: max abs err {err:.3g}, max rel err "
           f"{rel:.3g} (plain {t_plain:.1f} s)")
     return err, t_plain, bypass, dense
 
@@ -1591,13 +1690,44 @@ def trip_streams(dev):
         live
 
 
-def phase_windowed(graphs, oracles):
+def window_phases(idx, vals):
+    """Where a window's time goes: one call of B3's windowed body's stamped
+    build at the paper's geometry (add), each window's clock64() cycles by
+    phase; prints the mean cycles a window and each phase's share of all
+    windows' cycles, with the CTAs resident per SM and the shared memory a
+    window takes."""
+    from repro_torch.kernels.iru_reorder import ops as hash_ops
+
+    kw = {k: IRU_HASH[k] for k in ("num_sets", "slots", "window_elems",
+                                    "n_partitions", "round_cap")}
+    hash_ops.windowed_phase_stamps(idx, vals, filter_op="add", **kw)  # warm
+    _, stamps = hash_ops.windowed_phase_stamps(idx, vals, filter_op="add",
+                                               **kw)
+    torch.cuda.synchronize()
+    cycles = stamps.diff(dim=1).double()
+    share = cycles.sum(0) / cycles.sum()
+    per = cycles.mean(0)
+    smem = hash_ops._lib().iru_win_reorder_smem(
+        kw["window_elems"], kw["num_sets"], kw["n_partitions"])
+    resident = hash_ops.windowed_occupancy(kw["window_elems"], kw["num_sets"],
+                                           kw["n_partitions"])
+    print(f"time iru_reorder_windowed by phase at pagerank's shape (stamped "
+          f"build, one call, {stamps.shape[0]} windows; clock64 cycles a "
+          f"window, share): " + ", ".join(
+              f"{name} {c:.1f} ({f:.4f})" for name, c, f in zip(
+                  hash_ops.WINDOW_PHASES, per.tolist(), share.tolist()))
+          + f"; total {per.sum().item():.1f} cycles a window; {resident} "
+          f"CTAs resident per SM, {smem} bytes of shared memory a window")
+
+
+def phase_windowed(graphs, oracles, work, pool):
     """The paper's geometry on the card: B3's windowed body and its banked
-    whole-stream layout held against the numpy oracle and the plain
-    versions, the apps through FrontierPipeline with IRU_HASH and the host
-    entry point reorder_frontier (the launch counts zeroed before each run
-    and read after it), then the two bodies' times and a profile.  Returns
-    (launches, errors, timing rows)."""
+    whole-stream layout held against the plain versions and the numpy
+    oracles (started in ``pool`` by ``start_host_work``: ``work``), the
+    apps through FrontierPipeline with IRU_HASH and the host entry point
+    reorder_frontier (the launch counts zeroed before each run and read
+    after it), then the two bodies' times and a profile.  Shuts ``pool``
+    down.  Returns (launches, errors, timing rows)."""
     from repro_torch.apps.bfs import BFS_APP
     from repro_torch.apps.pagerank import pagerank_app
     from repro_torch.apps.sssp import SSSP_APP
@@ -1605,34 +1735,24 @@ def phase_windowed(graphs, oracles):
     from repro_torch.core.iru import IRUConfig, reorder_frontier
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.iru_reorder import ops as hash_ops
-    from repro_torch.kernels.iru_reorder.ref import (hash_reorder_ref_banked,
-                                                     hash_set,
-                                                     partition_capacity)
+    from repro_torch.kernels.iru_reorder.ref import hash_set, partition_capacity
 
     g = graphs["kron20"]
-    dev = g.device
-    pr_idx, pr_vals = pagerank_stream(g)
-    idx_np, vals_np = pr_idx.cpu().numpy(), pr_vals.cpu().numpy()
+    pr_idx, pr_vals, idx_np, vals_np = work["pr"]
     n = pr_idx.numel()
-    err_w, t_plain_w, _, _ = hold_windowed("pagerank add", pr_idx, pr_vals,
-                                           "add")
-    # min's plain loop on a quarter of the stream: the oracle above holds
-    # every window, and the plain loop's whole-stream time is add's
-    err_min, _, _, _ = hold_windowed("pagerank min", pr_idx, pr_vals, "min",
-                                     plain_lanes=512 * IRU_HASH[
-                                         "window_elems"])
-    cap_idx, bypass_idx, vals, live = trip_streams(dev)
-    err_cap, _, _, dense = hold_windowed("round-cap trip add", cap_idx, vals,
-                                         "add", live)
-    err_by, _, bypass, _ = hold_windowed("bypass trip min", bypass_idx, vals,
-                                         "min", live)
+    res = [hold_windowed(label, a, v, op, oracle, n_live, cut_lanes)
+           for (label, a, v, op, n_live, cut_lanes), oracle
+           in zip(work["held"], work["windowed"])]
+    err_w, t_plain_w = res[0][:2]
+    err_min, err_cap, err_by = (r[0] for r in res[1:])
+    dense, bypass = res[2][3], res[3][2]
     check(dense > 0, "the round-cap trip stream takes the fallback")
     check(bypass > 0, "the bypass trip stream bypasses the banks")
     print(f"B3 windowed: {dense} windows took the round-cap fallback, "
           f"{bypass} bypassed the banks")
 
     # whole-stream B3, banked layout (4 partitions, no window)
-    kw = dict(num_sets=1024, slots=32, n_partitions=4)
+    kw = BANKED
     got = hash_ops.hash_reorder(pr_idx, pr_vals, filter_op="add", **kw)
     want, t_plain_b = wall_s(lambda: hash_ops.hash_reorder(
         pr_idx, pr_vals, filter_op="add", kernels=False, **kw))
@@ -1647,7 +1767,7 @@ def phase_windowed(graphs, oracles):
     # bypass, partition-major emission) is the same
     got0 = hash_ops.hash_reorder(pr_idx, pr_vals, **kw)
     t0 = time.perf_counter()
-    oracle0 = hash_reorder_ref_banked(idx_np, vals_np, **kw)
+    oracle0 = work["banked"].result()
     t_oracle = time.perf_counter() - t0
     for k, field in enumerate(FIELDS):
         check(np.array_equal(getattr(got0, field).cpu().numpy(), oracle0[k]),
@@ -1658,7 +1778,13 @@ def phase_windowed(graphs, oracles):
           f"{counts.tolist()} (capacity {partition_capacity(n, 4)}), "
           f"{int(got.active.sum())} survivors, max abs err {err_b:.3g} "
           f"against plain (plain {t_plain_b:.1f} s); without a merge equal "
-          f"to hash_reorder_ref_banked (oracle {t_oracle:.1f} s)")
+          f"to hash_reorder_ref_banked (waited {t_oracle:.1f} s for it)")
+    t0 = time.perf_counter()
+    for key in work["oracles"]:  # the apps' host oracles, here and phase 4
+        host_oracle(oracles, *key[:2], graphs[key[1]], key[2])
+    pool.shutdown()
+    print(f"host oracles: waited {time.perf_counter() - t0:.1f} s for the "
+          f"rest of the pool's work")
 
     # the main path: the apps with IRU_HASH, and reorder_frontier
     cfg = IRUConfig(mode="hash", **IRU_HASH)
@@ -1751,6 +1877,7 @@ def phase_windowed(graphs, oracles):
         parts.append(f"{label} {ms:.4f} ms")
     print("time iru_reorder_windowed by variant at pagerank's shape: "
           + ", ".join(parts))
+    window_phases(pr_idx, pr_vals)
     profile_window("B3 windowed at pagerank's shape, one call",
                    lambda: iru_reorder(pr_idx, pr_vals, config=add_cfg))
     profile_window("B3 banked at pagerank's shape, one call",
@@ -2319,7 +2446,7 @@ LM_DECODE = (8, 4096, 32)          # B, prompt, steps (cache 4096 + 32)
 # cache with the launcher's prompts; (c) the launcher itself
 SERVE_CHECK = (4, 10, (2, 12), (4, 8), (3, 6, 9), 1)  # slots, requests,
 #   prompt tokens, new tokens (inclusive ranges), probes, the EOS request
-SERVE_TIMED = (8, 24, 16)          # slots, requests, new tokens
+SERVE_TIMED = (8, 16, 16)          # slots, requests, new tokens
 SERVE_LAUNCH = ("--arch", "qwen3-32b", "--smoke", "--requests", "16",
                 "--slots", "4")
 LM_GROUPS = (  # profile group -> (module, functions the stack calls)
@@ -2771,16 +2898,16 @@ TRAIN_RESUME = (8, 6, 4)            # steps, die_at, ckpt_every
 TRAIN_TRACK_STEPS = 20              # int8 against fp32 on a fixed batch
 TRAIN_TIMED = {"deepseek-v2-lite-16b": (4, 2, 4096),  # layers, B, S (bf16)
                "mamba2-130m": (None, 8, 4096)}
-TRAIN_STEPS = (2, 5, 10)            # warm-up, timed (median), steps in all
+TRAIN_STEPS = (2, 3, 5)             # warm-up, timed (median), steps in all
 TRAIN_GROUPS = (  # profile group -> (module, functions a train step calls)
     ("forward", "repro_torch.models.transformer", ("forward_train",)),
     ("loss", "repro_torch.train.trainer", ("softmax_xent",)),
     ("backward", "torch.autograd", ("grad",)),
     ("optimizer", "repro_torch.train.trainer", ("adamw_update",)),
 )
-TRAIN_LAUNCH = ("--arch", "mamba2-130m", "--steps", "30", "--batch", "8",
+TRAIN_LAUNCH = ("--arch", "mamba2-130m", "--steps", "15", "--batch", "8",
                 "--seq", "1024", "--ckpt", "build/train_smoke",
-                "--ckpt-every", "10", "--inject-faults")
+                "--ckpt-every", "5", "--inject-faults")
 
 
 def _train_cfg(arch: str, layers=None, *, dtype=None, no_drop=False):
@@ -3072,7 +3199,7 @@ def train_launcher(card: str) -> None:
     with open(ckpt / "train_summary.json") as f:
         summary = json.load(f)
     print(f"train launcher summary: {summary}")
-    check(summary["steps"] == 30 and summary["restarts"] == 1
+    check(summary["steps"] == 15 and summary["restarts"] == 1
           and summary["nan_events"] == 1, "train launcher summary")
     shutil.rmtree(ckpt, ignore_errors=True)
 
@@ -3096,7 +3223,11 @@ def phase_train(card: str) -> None:
     print(f"train phase: {time.perf_counter() - t0:.1f} s")
 
 
-def phase_timings(g, dsts, contrib, sparse):
+def phase_timings(g, dsts, contrib, sparse, plain_s):
+    """CUDA-event times of the kernels at PageRank's shape beside their
+    plain versions, library calls and bounds.  B3's plain versions peel
+    about a thousand rounds a call: their times are the wall seconds of
+    phase 2's calls on the same inputs (``plain_s``)."""
     from repro_torch.kernels.coalesced_gather import ops as gather_ops
     from repro_torch.kernels.coalesced_gather.ref import coalesced_gather_ref
     from repro_torch.kernels.segment_merge import ops as merge_ops
@@ -3131,15 +3262,14 @@ def phase_timings(g, dsts, contrib, sparse):
     }
     # B3 at PageRank's shape: every edge's destination, f32 add, all live.
     # No single PyTorch call computes the IRU hash, so there is no library
-    # time; the plain version peels about a thousand rounds, so one rep.
+    # time.
     from repro_torch.kernels.iru_reorder import ops as hash_ops
 
     pr_idx, pr_vals = pagerank_stream(g)
     b3 = {
         "ms": event_ms(lambda: hash_ops.hash_reorder(pr_idx, pr_vals,
                                                      filter_op="add")),
-        "plain_ms": event_ms(lambda: hash_ops.hash_reorder(
-            pr_idx, pr_vals, filter_op="add", kernels=False), reps=1),
+        "plain_ms": plain_s["iru_reorder"] * 1e3,
         "library_ms": None,
         # idx 4 + vals 4 read; idx 4 + vals 4 + pos 4 + active 1 written
         "bytes": n * (4 + 4) + n * (4 + 4 + 4 + 1),
@@ -3161,9 +3291,7 @@ def phase_timings(g, dsts, contrib, sparse):
     b3t = {
         "ms": event_ms(lambda: hash_ops.hash_reorder(
             pr_idx, pr_vals, filter_op="tagged", tag_table=table)),
-        "plain_ms": event_ms(lambda: hash_ops.hash_reorder(
-            pr_idx, pr_vals, filter_op="tagged", tag_table=table,
-            kernels=False), reps=1),
+        "plain_ms": plain_s["iru_reorder_tagged"] * 1e3,
         "library_ms": None,
         # B3's bytes and the tag table read once
         "bytes": n * (4 + 4) + table.numel() + n * (4 + 4 + 4 + 1),
@@ -3468,10 +3596,33 @@ def dryrun_constraints_change_nothing(step, args, mesh, card: str) -> None:
           "dryrun: constraints change nothing")
 
 
-def phase_dryrun(card: str) -> None:
-    """Phase 13 (``dryrun`` lines)."""
+SWEEP_LOG = ROOT / "build" / "dryrun_sweep.log"
+
+
+def start_dryrun_sweep(card: str) -> subprocess.Popen:
+    """Phase 13 (a) counts on the meta device and does no card work: it
+    runs in a child process (no card visible to it) beside the phases
+    before it, its lines in ``SWEEP_LOG``."""
+    SWEEP_LOG.parent.mkdir(parents=True, exist_ok=True)
+    with open(SWEEP_LOG, "w") as log:
+        return subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--dryrun-sweep",
+             card], cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+            env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+
+
+def phase_dryrun(card: str, sweep: subprocess.Popen | None = None) -> None:
+    """Phase 13 (``dryrun`` lines): (a) the sweep (its lines from the child
+    process ``sweep`` when given, else run here), then (b) on the card."""
     t0 = time.perf_counter()
-    dryrun_sweep(card)
+    if sweep is None:
+        dryrun_sweep(card)
+    else:
+        rc = sweep.wait(timeout=600)
+        print(SWEEP_LOG.read_text().rstrip())
+        check(rc == 0, f"dryrun sweep exits 0, got {rc}")
+        print(f"dryrun sweep: waited {time.perf_counter() - t0:.1f} s for "
+              f"its child  [{card}]")
     dryrun_on_the_card(card)
     print(f"dryrun phase: {time.perf_counter() - t0:.1f} s  [{card}]")
 
@@ -3492,39 +3643,64 @@ def main() -> int:
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t_start = time.perf_counter()
+    pool, started = oracle_pool(), []  # stopped on every way out
+    try:
+        return run_phases(dev, card, pool, started, t_start)
+    finally:
+        pool.shutdown(cancel_futures=True)
+        for proc in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
-    phase_build()
-    graphs = make_graphs(dev)
-    dsts, contrib, sparse, errors = phase_kernels(graphs["kron20"])
-    oracles = {}
-    win_launches, win_errors, win_rows = phase_windowed(graphs, oracles)
-    launches = phase_apps(graphs, oracles)
-    for k, v in phase_figures(graphs, oracles).items():
+
+def timed(name: str, fn, *args):
+    """``fn(*args)``, then a line with the phase's wall seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def run_phases(dev, card: str, pool, started: list, t_start: float) -> int:
+    graphs, work = timed("build and graphs", phase_build, dev, pool)
+    dsts, contrib, sparse, plain_s, errors = timed(
+        "kernels", phase_kernels, graphs["kron20"])
+    oracles = work["oracles"]
+    win_launches, win_errors, win_rows = timed(
+        "windowed", phase_windowed, graphs, oracles, work, pool)
+    del work
+    # phase 13 (a) runs beside phases 4-12, once the pool's work is done
+    sweep = start_dryrun_sweep(card)
+    started.append(sweep)
+    launches = timed("apps", phase_apps, graphs, oracles)
+    for k, v in timed("figures", phase_figures, graphs, oracles).items():
         launches[k] = launches.get(k, 0) + v
-    served, serving_errors, fused = phase_serving(graphs["kron20"])
+    served, serving_errors, fused = timed("serving", phase_serving,
+                                          graphs["kron20"])
     for k, v in served.items():
         launches[k] = launches.get(k, 0) + v
-    t_part = time.perf_counter()
-    part_launches, stacked = phase_partitioned(graphs, oracles, fused)
+    part_launches, stacked = timed("partitioned", phase_partitioned, graphs,
+                                   oracles, fused)
     for k, v in part_launches.items():
         launches[k] = launches.get(k, 0) + v
-    print(f"partitioned phase: {time.perf_counter() - t_part:.1f} s")
     served = fused["fused hash"]
     del fused
     shutil.rmtree(GROUP_DIR, ignore_errors=True)
     GROUP_DIR.mkdir(parents=True)
-    stacked_ep = phase_moe(GROUP_DIR / "moe")
-    for k, v in phase_group(graphs["kron20"], stacked, stacked_ep, served,
-                            card).items():
+    stacked_ep = timed("moe", phase_moe, GROUP_DIR / "moe")
+    for k, v in timed("group", phase_group, graphs["kron20"], stacked,
+                      stacked_ep, served, card).items():
         launches[k] = launches.get(k, 0) + v
     del stacked, stacked_ep, served
-    phase_lm(card)
-    phase_train(card)
+    timed("lm", phase_lm, card)
+    timed("train", phase_train, card)
     for k, v in serving_errors.items():
         errors[k] = max(errors[k], v)
-    timings = phase_timings(graphs["kron20"], dsts, contrib, sparse)
-    phase_profile(graphs, dsts, contrib)
-    phase_dryrun(card)
+    timings = timed("timings", phase_timings, graphs["kron20"], dsts,
+                    contrib, sparse, plain_s)
+    timed("profile", phase_profile, graphs, dsts, contrib)
+    timed("dryrun", phase_dryrun, card, sweep)
     for k, v in win_launches.items():
         launches[k] = launches.get(k, 0) + v
     errors.update(win_errors)
@@ -3569,5 +3745,14 @@ def main() -> int:
     return 0
 
 
+def dryrun_child(card: str) -> int:
+    """The child process of ``start_dryrun_sweep``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    dryrun_sweep(card)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dryrun-sweep"]:
+        sys.exit(dryrun_child(sys.argv[2]))
     sys.exit(main())

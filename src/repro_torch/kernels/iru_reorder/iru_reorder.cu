@@ -66,24 +66,43 @@
 //
 // The windowed body (win_reorder) reorders independent windows of w lanes
 // (the streaming lookahead of the paper's geometry: 8192 lanes, 1024 x 32
-// sets over 4 partitions, round cap 64) in one launch, one CTA a window,
-// all in shared memory: it bins the window by (partition, set) with a
-// block-wide bitonic sort of (partition, set or index, lane) keys, decides
-// the window's bank bypass and each partition's round-cap fallback from
-// the set histogram, walks the hash partitions' sets (from the same
-// histogram: a set of at most `slots` arrivals, which fills at most once,
-// by one thread in a single round, a larger one by a warp with the
-// whole-stream walk), folds a capped partition's runs of equal indices in
-// stream order
-// (ref.dense_merge_ref), and emits partition-major with block scans,
-// positions offset by the window's start.  A fully dead window is a copy.
-// Its equality with the oracle is window by window, the positions global.
-// What bounds it on an H100: work in shared memory, not device memory (the
-// same 8 B read and 13 B written a lane).  A window of 8192 lanes at 1024
-// sets and 4 partitions takes about 196 KB, so one CTA runs on an SM at a
-// time and its phases (the sort's 91 steps, the walk, the scans) run one
-// after another; one launch a call and no device-wide pass in between is
-// what the design buys.
+// sets over 4 partitions, round cap 64) in one launch, one CTA of 512
+// threads a window, all in shared memory, positions offset by the window's
+// start (a fully dead window is a copy):
+//   bin     each lane's set, counted as it loads in its stretch of the
+//           window (16 stretches at the paper's geometry, their 16-bit
+//           counters where the payloads go later); the per-set totals
+//           decide the bank bypass and each partition's round-cap
+//           fallback, and a scan over the set keys (partition-major) gives
+//           each set's first slot and each stretch's first slot in it; a
+//           warp a stretch then places its lanes (ranked within a 32-lane
+//           step by __match_any_sync): a stable counting sort into 16-bit
+//           lane ids.  Only a capped partition's lanes are then sorted, by
+//           (index, lane), for the fallback (ref.dense_merge_ref), which
+//           folds runs of equal indices in stream order;
+//   walk    the hot sets (past `slots` arrivals) by the whole-stream walk, a
+//           warp each, first; the small ones a chunk of 32 set keys a warp,
+//           several sets a 32-lane step: such a set fills at most once, at
+//           its last arrival, so __match_any_sync on the index marks every
+//           first arrival kept and the rest filtered in one step, and each
+//           kept lane folds its duplicates in lane (stream) order.  A lane's
+//           16-bit aux word holds its set key and its mark;
+//   emit    one mark scan over the lanes in stream order for up to four
+//           partitions (packed 16-bit trigger and filtered counts, a
+//           thread's eight lanes one 16-byte load) gives each trigger its
+//           flush rank and each filtered lane its tail slot; then a thread
+//           a binned slot places the kept entries (consecutive slots of a
+//           flush group or of a partition's drains go to consecutive
+//           addresses); the filtered lanes, staged by tail slot over the
+//           spent binned order, go out with the dead lanes in one
+//           contiguous pass.
+// What bounds it on an H100: shared-memory work, warp collectives and block
+// barriers, not device memory (8 B read and 13 B written a lane).  The
+// design keeps each step to one pass over the window (no comparison sort;
+// one mark scan for four partitions) and a window to 113968 bytes at 8192
+// lanes, 1024 sets and 4 partitions, so two windows reside on an SM and
+// one's barriers and loads overlap the other's work.  The longest chains
+// left are the small-set walk's __match_any_sync steps and the scatter's.
 //
 // Plain C interface, loaded with ctypes; launches on the caller's stream and
 // allocates nothing (the wrapper passes one workspace buffer).
@@ -879,13 +898,33 @@ int run(const int* idx, const T* val, const int* n_live, int* out_idx, T* out_va
 }
 
 // ------------------------------------------------------------- windowed body
-constexpr int kWinThreads = 1024;
+constexpr int kWinThreads = 512;
 constexpr int kWinWarps = kWinThreads / kWarp;
-constexpr int kLaneBits = 13;  // a lane's bits in a window's sort key
-constexpr int kLaneMask = (1 << kLaneBits) - 1;
-constexpr int kMaxWindow = 1 << kLaneBits;
-constexpr int kPartShift = 32 + kLaneBits;  // a sort key: partition, set or index, lane
-constexpr long long kWinMaxSmem = kMaxSmem - 1024;  // the rest: the kernel's static shared memory
+constexpr int kWinWalkWarps = 8;   // warps with walk_set's scratch: the hot-set walkers
+constexpr int kWinMaxRankers = kWinWarps;
+constexpr int kMaxWindow = 8192;
+constexpr int kWinMaxSets = 1 << 14;  // a lane's set key and its mark share 16 bits
+// Half of an SM's 228 KB, less the 1 KB the card reserves for each block and
+// 1 KB for the kernel's static shared memory: two windows reside on an SM.
+constexpr long long kWinMaxSmem = 233472 / 2 - 2048;
+// the stamped build's phases: load + histogram, binning, small-set walk,
+// hot-set walk, fallback, scans, emission
+constexpr int kWinPhases = 7;
+
+// division of a non-negative int by d: a shift and a mask when d is a
+// power of two, as the paper's geometry's are
+struct Div {
+  int d;
+  int shift;  // log2(d), or -1
+  __host__ __device__ static Div of(int d) {
+    int shift = -1;
+    for (int b = 0; b < 31; ++b)
+      if (d == 1 << b) shift = b;
+    return Div{d, shift};
+  }
+  __device__ __forceinline__ int div(int x) const { return shift >= 0 ? x >> shift : x / d; }
+  __device__ __forceinline__ int mod(int x) const { return shift >= 0 ? x & (d - 1) : x % d; }
+};
 
 struct WinGeo {
   long long n;
@@ -895,38 +934,68 @@ struct WinGeo {
   int epb;
   int nparts;
   int round_cap;  // 0: none
+  int epb_shift;  // log2(epb) when epb is a power of two, else -1
+  int sets_pow2;  // num_sets is a power of two
+  Div per_group;  // slots
 };
 
-// shared memory of one window's CTA
-struct WinSmem {
-  uint64_t* keys;    // [pow2 >= w] sort keys; after the sort, the binned order
-  int* s_idx;        // [w] the window's live lanes
-  uint32_t* s_val;   // [w] payload bits; a kept lane's merged payload after the walk
-  uint16_t* b_lane;  // [w] each set's kept entries in emission order, by binned slot
-  uint8_t* mark;     // [w] kKept, kTrigger or kFiltered, by lane
-  int* cnt;          // [num_sets] live arrivals, by set
-  int* start;        // [num_sets + 1] first binned slot, by partition-major set order
-  int* nflush;       // [num_sets] flush groups, by partition-major set order
-  int* ndrain;       // [num_sets] drain group size, likewise
-  int* drain_off;    // [num_sets] drain offset within its partition, likewise
-  int* hot;          // [num_sets] sets walked by a warp
-  int* pc;           // [nparts + 1] live lanes, by partition
-  int* dense;        // [nparts + 1] 1: the partition takes the round-cap fallback
-  int* heads;        // [nparts + 1] a capped partition's survivors
-  int* pfront;       // [nparts + 1] a partition's first front slot
-  int* ptail;        // [nparts + 1] a partition's first tail slot
-  int* pfilt;        // [nparts + 1] a partition's filtered lanes
-  int* phead;        // [nparts + 1] capped partitions' survivors before the partition
-  int* pd;           // [nparts + 1] drain prefix at a partition's first set
-  int* pf;           // [nparts + 1] flush prefix at a partition's first set
-  uint32_t* walk;    // [warps][5][kWarp] walk_set's shared copies
-};
-
-__host__ __device__ inline int pow2_ceil(int x) {
-  int p = 1;
-  while (p < x) p <<= 1;
-  return p;
+// hash_set with the window's shortcuts: a shift for a power-of-two epb
+// (an arithmetic shift floors, as the division does) and a mask for a
+// power-of-two set count
+__device__ __forceinline__ int win_hash(int idx, const WinGeo& g) {
+  int q;
+  if (g.epb_shift >= 0) {
+    q = idx >> g.epb_shift;
+  } else {
+    q = idx / g.epb;
+    if (idx % g.epb != 0 && idx < 0) --q;
+  }
+  unsigned h = (unsigned)q * 2654435761u;
+  h ^= h >> 16;
+  return (int)(g.sets_pow2 ? h & (unsigned)(g.num_sets - 1) : h % (unsigned)g.num_sets);
 }
+
+// the stamped build: every CTA's clock64() at each phase boundary, after a
+// block barrier, into stamps[window][kWinPhases + 1]; compiled out otherwise
+template <bool STAMP>
+__device__ __forceinline__ void win_stamp(long long* stamps, int at) {
+  if (!STAMP) return;
+  __syncthreads();
+  if (threadIdx.x == 0) stamps[(long long)blockIdx.x * (kWinPhases + 1) + at] = clock64();
+}
+
+// Shared memory of one window's CTA.  A lane's aux word is its set's key in
+// partition-major order shifted left by 2 over its mark (kKept, kTrigger,
+// kFiltered); before the scatter it holds the lane's set, and after the mark
+// scan a trigger's holds its flush rank within its partition.  Region R
+// holds the binning's counters, then the walk's per-set arrays and scratch.
+struct WinSmem {
+  int* s_idx;           // [w] the window's live lanes
+  uint32_t* s_val;      // [w] payload bits; a kept lane's merged payload after the walk
+  uint16_t* order;      // [w] binned order: lanes by (set key, stream); a set's kept entries
+                        //     are put over its consumed arrivals
+  uint16_t* aux;        // [w] by lane, see above
+  uint16_t* start;      // [num_sets + 1] first binned slot, by set key
+  // R, binning: live arrivals by set, then each ranking warp's counters by set
+  uint16_t* cnt;        // [num_sets]
+  uint16_t* rank;       // [rankers][num_sets]
+  // R, walk and after: by set key
+  uint16_t* nflush;     // [num_sets] flush groups
+  uint16_t* ndrain;     // [num_sets] drain group size
+  uint16_t* drain_off;  // [num_sets] drain offset within the partition
+  uint16_t* hot;        // [num_sets] the sets walked by walk_set
+  uint32_t* walk;       // [kWinWalkWarps][5][kWarp] walk_set's shared copies
+  int* pc;              // [nparts + 1] live lanes, by partition
+  int* dense;           // [nparts + 1] 1: the partition takes the round-cap fallback
+  int* heads;           // [nparts + 1] a capped partition's survivors
+  int* pfront;          // [nparts + 1] a partition's first front slot
+  int* ptail;           // [nparts + 1] a partition's first tail slot
+  int* pfilt;           // [nparts + 1] a partition's filtered lanes
+  int* phead;           // [nparts + 1] capped partitions' survivors before the partition
+  int* pd;              // [nparts + 1] drain prefix at a partition's first set
+  int* pf;              // [nparts + 1] flush prefix at a partition's first set
+  int rankers;          // warps that rank the binning, one stretch of lanes each
+};
 
 __host__ __device__ inline unsigned char* smem_take(unsigned char* base, long long& off,
                                                     long long bytes) {
@@ -939,105 +1008,237 @@ __host__ __device__ inline long long win_carve(unsigned char* b, int w, int num_
                                                WinSmem* sm) {
   long long off = 0;
   WinSmem v;
-  v.keys = (uint64_t*)smem_take(b, off, 8LL * pow2_ceil(w));
   v.s_idx = (int*)smem_take(b, off, 4LL * w);
   v.s_val = (uint32_t*)smem_take(b, off, 4LL * w);
-  v.b_lane = (uint16_t*)smem_take(b, off, 2LL * w);
-  v.mark = smem_take(b, off, w);
-  int** per_set[] = {&v.cnt, &v.nflush, &v.ndrain, &v.drain_off, &v.hot};
-  for (int** a : per_set) *a = (int*)smem_take(b, off, 4LL * num_sets);
-  v.start = (int*)smem_take(b, off, 4LL * (num_sets + 1));
-  int** per_part[] = {&v.pc, &v.dense, &v.heads, &v.pfront, &v.ptail,
-                      &v.pfilt, &v.phead, &v.pd, &v.pf};
+  v.order = (uint16_t*)smem_take(b, off, 2LL * w);
+  v.aux = (uint16_t*)smem_take(b, off, 2LL * w);
+  v.start = (uint16_t*)smem_take(b, off, 2LL * (num_sets + 1));
+  const long long per_set = (2LL * num_sets + 15) / 16 * 16;
+  const long long r_bytes = 4 * per_set + 4LL * kWinWalkWarps * 5 * kWarp;
+  unsigned char* r = smem_take(b, off, r_bytes);
+  uint16_t** walk_sets[] = {&v.nflush, &v.ndrain, &v.drain_off, &v.hot};
+  for (int i = 0; i < 4; ++i) *walk_sets[i] = r ? (uint16_t*)(r + i * per_set) : nullptr;
+  v.walk = r ? (uint32_t*)(r + 4 * per_set) : nullptr;
+  // the ranking warps' counters: in the payload region (payloads load
+  // after the binning) or in R after cnt, whichever holds more warps
+  v.cnt = (uint16_t*)r;
+  const long long in_val = 4LL * w / (2LL * num_sets);
+  const long long in_r = (r_bytes - per_set) / (2LL * num_sets);
+  const long long rankers = in_val > in_r ? in_val : in_r;
+  v.rankers = (int)(rankers < kWinMaxRankers ? rankers : kWinMaxRankers);
+  v.rank = in_val > in_r ? (uint16_t*)v.s_val : r ? (uint16_t*)(r + per_set) : nullptr;
+  int** per_part[] = {&v.pc,    &v.dense, &v.heads, &v.pfront, &v.ptail,
+                      &v.pfilt, &v.phead, &v.pd,    &v.pf};
   for (int** a : per_part) *a = (int*)smem_take(b, off, 4LL * (nparts + 1));
-  v.walk = (uint32_t*)smem_take(b, off, 4LL * kWinWarps * 5 * kWarp);
   if (sm) *sm = v;
   return off;
 }
 
-// ascending bitonic sort of a[0, n2) (n2 a power of two) by one block; the
-// caller synchronises before, and the sort after its last step
-__device__ void bitonic_sort(uint64_t* a, int n2) {
-  for (int k = 2; k <= n2; k <<= 1)
-    for (int j = k >> 1; j > 0; j >>= 1) {
+// ascending sort of the lanes a[0, n), any n, by (index, lane), one block:
+// the bitonic network whose first step of each merge compares mirrored
+// pairs, so that every comparator is ascending and the padding past n
+// (larger than every lane) never moves; the caller synchronises before
+__device__ void sort_lanes_by_index(uint16_t* a, int n, const int* s_idx) {
+  auto swap_if = [&](int lo, int hi) {
+    if (hi >= n) return;
+    const int x = a[lo], y = a[hi], ix = s_idx[x], iy = s_idx[y];
+    if (ix > iy || (ix == iy && x > y)) {
+      a[lo] = (uint16_t)y;
+      a[hi] = (uint16_t)x;
+    }
+  };
+  int n2 = 1;
+  while (n2 < n) n2 <<= 1;
+  for (int k = 2; k <= n2; k <<= 1) {
+    for (int i = threadIdx.x; i < n2 / 2; i += blockDim.x) {
+      const int lo = i / (k / 2) * k + i % (k / 2);
+      swap_if(lo, lo ^ (k - 1));
+    }
+    __syncthreads();
+    for (int j = k >> 2; j > 0; j >>= 1) {
       for (int i = threadIdx.x; i < n2 / 2; i += blockDim.x) {
-        const int lo = 2 * i - (i & (j - 1)), hi = lo + j;
-        const uint64_t x = a[lo], y = a[hi];
-        if ((x > y) == ((lo & k) == 0)) {
-          a[lo] = y;
-          a[hi] = x;
-        }
+        const int lo = 2 * i - (i & (j - 1));
+        swap_if(lo, lo + j);
       }
       __syncthreads();
     }
+  }
+  __syncthreads();
 }
 
-// walk_set's view of one set of a window: its arrivals are the binned
-// order's lanes; a kept entry's lane is put at its binned slot and its
-// merged payload over its own
+// walk_set's view of one hot set of a window: its arrivals are the binned
+// order's lanes; a kept entry's lane is put at its kept slot (over an
+// arrival already loaded) and its merged payload over its own
 struct WindowSet {
-  const uint64_t* keys;
   const int* s_idx;
   uint32_t* s_val;
-  uint16_t* b_lane;
-  uint8_t* marks;
+  uint16_t* order;
+  uint16_t* aux;
   int start;
+  int key;
   __device__ void load(int k, uint2& iv, int& pos) const {
-    pos = (int)(keys[start + k] & kLaneMask);
+    pos = order[start + k];
     iv = make_uint2((uint32_t)s_idx[pos], s_val[pos]);
   }
   __device__ void put(int q, int, uint32_t bits, int pos) const {
-    b_lane[start + q] = (uint16_t)pos;
+    order[start + q] = (uint16_t)pos;
     s_val[pos] = bits;
   }
-  __device__ void mark(int pos, uint8_t kind) const { marks[pos] = kind; }
+  __device__ void mark(int pos, uint8_t kind) const { aux[pos] = (uint16_t)(key << 2 | kind); }
 };
 
-// A set of at most `slots` arrivals fills at most once, at its last
-// arrival, so one thread walks it in a single round (the whole-stream
-// walk's result on such a set): an arrival whose index a kept entry holds
-// is filtered and folds into that entry, in stream order; the others are
-// kept in arrival order.  The set flushes when its `slots` arrivals are all
-// kept (the last one the trigger), else drains.  Returns the flush groups
-// (0 or 1); `drained` is the drain group's size.
+// the position of the (n+1)-th set bit of m
+__device__ __forceinline__ int nth_bit(unsigned m, int n) {
+  for (int i = 0; i < n; ++i) m &= m - 1;
+  return __ffs(m) - 1;
+}
+
+// One warp walks the small sets (1 to `slots` arrivals, in a hash
+// partition) among the keys [k0, k0 + 32), several sets a step: a step takes
+// the next pending sets whose arrivals fit in 32 lanes, lane l one arrival.
+// A small set fills at most once, at its last arrival, so one round is its
+// whole walk: an arrival is kept if no earlier arrival has its index
+// (__match_any_sync; an index has one set), else it is filtered and its
+// first arrival folds it, in lane (stream) order.  The kept entries are put
+// in arrival order over the set's arrivals; the set flushes when all
+// `slots` are kept, the last one the trigger, else it drains.
 template <typename T, int OP>
-__device__ int walk_small_set(const WinSmem& sm, int start, int len, int slots, int& drained) {
-  int kept = 0;
-  for (int k = 0; k < len; ++k) {
-    const int ln = (int)(sm.keys[start + k] & kLaneMask);
-    const int x = sm.s_idx[ln];
-    int into = -1;
-    if (OP != kNone)
-      for (int j = 0; j < kept && into < 0; ++j)
-        if (sm.s_idx[sm.b_lane[start + j]] == x) into = sm.b_lane[start + j];
-    if (into < 0) {
-      sm.b_lane[start + kept++] = (uint16_t)ln;
-      continue;
-    }
-    sm.s_val[into] = to_bits(combine<T, OP>(from_bits<T>(sm.s_val[into]),
-                                            from_bits<T>(sm.s_val[ln])));
-    sm.mark[ln] = kFiltered;
+__device__ void walk_small_sets(const WinSmem& sm, const WinGeo& g, int k0, const Div& qdiv) {
+  const int lane = threadIdx.x % kWarp;
+  const unsigned below = (1u << lane) - 1u;
+  const int key = k0 + lane;
+  int st = 0, len = 0;
+  if (key < g.num_sets) {
+    st = sm.start[key];
+    len = sm.start[key + 1] - st;
   }
-  const bool flush = kept == slots;
-  if (flush) sm.mark[sm.b_lane[start + slots - 1]] = kTrigger;
-  drained = flush ? 0 : kept;
-  return flush ? 1 : 0;
+  const bool small = len > 0 && len <= g.slots && !sm.dense[qdiv.div(key)];
+  unsigned pending = __ballot_sync(kFull, small);
+  int upto_me = small ? len : 0;  // the chunk's small sets' arrivals up to mine
+  for (int off = 1; off < kWarp; off <<= 1) {
+    const int y = __shfl_up_sync(kFull, upto_me, off);
+    if (lane >= off) upto_me += y;
+  }
+  int done = 0;  // arrivals of the sets already walked
+  while (pending) {
+    // lanes the pending sets take, the first pending set first
+    const int c = upto_me - done;
+    const unsigned take = __ballot_sync(kFull, (pending >> lane & 1u) && c <= kWarp);
+    pending &= ~take;
+    done = __shfl_sync(kFull, upto_me, 31 - __clz(take));
+    // bit e of ends: a taken set's last arrival is at lane e
+    const unsigned ends =
+        __reduce_or_sync(kFull, (take >> lane & 1u) ? 1u << (c - 1) : 0u);
+    const bool valid = lane < 32 - __clz(ends);
+    const unsigned ends_below = ends & below;
+    const int first = ends_below ? 32 - __clz(ends_below) : 0;  // my set's first lane
+    const int last = __ffs(ends & ~below) - 1;                   // and its last
+    const int src = valid ? nth_bit(take, __popc(ends_below)) : 0;
+    const int set_st = __shfl_sync(kFull, st, src);
+    const int set_key = k0 + src;
+    const unsigned in_set = valid ? upto(last) & ~((1u << first) - 1u) : 0u;
+    const int ln = valid ? sm.order[set_st + lane - first] : 0;
+    const int x = valid ? sm.s_idx[ln] : 0;
+    const uint32_t vb = valid ? sm.s_val[ln] : 0u;
+    const unsigned peers = OP != kNone ? __match_any_sync(kFull, x) & in_set : 1u << lane;
+    const bool kept = valid && (peers & below) == 0;
+    const unsigned kmask = __ballot_sync(kFull, kept);
+    const int rank = __popc(kmask & in_set & below);
+    const int nk = __popc(kmask & in_set);
+    T acc = from_bits<T>(vb);
+    if (OP != kNone) {  // the first arrival of an index folds the rest, in lane order
+      unsigned rest = kept ? peers & ~(1u << lane) : 0u;
+      while (__any_sync(kFull, rest != 0)) {
+        const int d = rest ? __ffs(rest) - 1 : lane;
+        const uint32_t b = __shfl_sync(kFull, vb, d);
+        if (rest) {
+          acc = combine<T, OP>(acc, from_bits<T>(b));
+          rest &= rest - 1u;
+        }
+      }
+    }
+    __syncwarp();  // the arrivals are read before the kept entries are put
+    if (valid) {
+      const bool flush = nk == g.slots;
+      if (kept) {
+        sm.order[set_st + rank] = (uint16_t)ln;
+        sm.s_val[ln] = to_bits(acc);
+        if (flush && rank == g.slots - 1) sm.aux[ln] = (uint16_t)(set_key << 2 | kTrigger);
+      } else {
+        sm.aux[ln] = (uint16_t)(set_key << 2 | kFiltered);
+      }
+      if (lane == first) {
+        sm.nflush[set_key] = flush ? 1 : 0;
+        sm.ndrain[set_key] = (uint16_t)(flush ? 0 : nk);
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// A lane's contribution to the mark scan's packed counters of partitions
+// p0..p0+3: word p - p0 counts triggers in its low 16 bits and filtered
+// lanes in its high 16 (a window's counts stay below 2^16).  A marked
+// lane's partition comes from its index: an earlier pass may have put its
+// rank or tail slot in its aux word.
+struct MarkCounts {
+  uint32_t c[4];
+};
+
+__device__ __forceinline__ MarkCounts mark_zero() { return MarkCounts{{0u, 0u, 0u, 0u}}; }
+
+__device__ __forceinline__ void mark_add(MarkCounts& m, int p, uint32_t inc) {
+  m.c[0] += p == 0 ? inc : 0u;
+  m.c[1] += p == 1 ? inc : 0u;
+  m.c[2] += p == 2 ? inc : 0u;
+  m.c[3] += p == 3 ? inc : 0u;
+}
+
+__device__ __forceinline__ uint32_t mark_get(const MarkCounts& m, int p) {
+  return p == 0 ? m.c[0] : p == 1 ? m.c[1] : p == 2 ? m.c[2] : m.c[3];
+}
+
+__device__ __forceinline__ MarkCounts mark_sum(MarkCounts a, const MarkCounts& b) {
+  for (int i = 0; i < 4; ++i) a.c[i] += b.c[i];
+  return a;
+}
+
+__device__ __forceinline__ MarkCounts mark_shfl_up(const MarkCounts& m, int off) {
+  MarkCounts r;
+  for (int i = 0; i < 4; ++i) r.c[i] = __shfl_up_sync(kFull, m.c[i], off);
+  return r;
+}
+
+// partition (relative to p0) and increment of lane j with aux word a, or
+// inc 0 when it counts for none of p0..p0+3
+__device__ __forceinline__ uint32_t mark_of(const WinSmem& sm, const WinGeo& g, int j, unsigned a,
+                                            const Div& pdiv, int p0, int& p) {
+  const unsigned mk = a & 3u;
+  if (mk == kKept) return 0u;
+  p = pdiv.mod(win_hash(sm.s_idx[j], g));
+  p -= p0;
+  if (p < 0 || p >= 4) return 0u;
+  return mk == kTrigger ? 1u : 0x10000u;
 }
 
 // One CTA per window of g.w lanes (the last one ragged).  The result of a
 // window equals ragged_oracle(hash_reorder_ref_banked, ...) of ref.py on it
 // (round_cap included), positions offset by the window's start.
-template <typename T, int OP>
-__global__ void __launch_bounds__(kWinThreads, 1)
-win_reorder(const int* idx, const uint32_t* val, const int* n_live, WinGeo g, int* out_idx,
-            uint32_t* out_val, int* out_pos, uint8_t* out_act) {
+template <typename T, int OP, bool STAMP>
+__global__ void __launch_bounds__(kWinThreads, 2)
+win_reorder(const int* __restrict__ idx, const uint32_t* __restrict__ val, const int* n_live,
+            WinGeo g, int* out_idx, uint32_t* out_val, int* out_pos, uint8_t* out_act,
+            long long* stamps) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int nhot, queue, parts_sh, survivors_sh, any_dense;
+  __shared__ int parts_sh, any_dense, nhot, hot_q, small_q, survivors_sh;
+  __shared__ MarkCounts warp_marks[kWinWarps];
   const int tid = threadIdx.x, lane = tid % kWarp, wid = tid / kWarp;
   const long long base = (long long)blockIdx.x * g.w;
   const int span = (int)min((long long)g.w, g.n - base);
   const int m = (int)max(0LL, min((long long)span, live_count(n_live, g.n) - base));
+  win_stamp<STAMP>(stamps, 0);
   if (m == 0) {  // a dead window is the identity layout
+    for (int ph = 1; ph <= kWinPhases; ++ph) win_stamp<STAMP>(stamps, ph);
     for (int j = tid; j < span; j += kWinThreads) {
       out_idx[base + j] = idx[base + j];
       out_val[base + j] = val[base + j];
@@ -1048,23 +1249,55 @@ win_reorder(const int* idx, const uint32_t* val, const int* n_live, WinGeo g, in
   }
   WinSmem sm;
   win_carve(smem, g.w, g.num_sets, g.nparts, &sm);
-  const int S = g.num_sets, P = g.nparts;
-  for (int j = tid; j < m; j += kWinThreads) {
-    sm.s_idx[j] = idx[base + j];
-    sm.s_val[j] = val[base + j];
-    sm.mark[j] = kKept;
-  }
-  for (int s = tid; s < S; s += kWinThreads) sm.cnt[s] = sm.nflush[s] = sm.ndrain[s] = 0;
+  const int S = g.num_sets, P = g.nparts, G = sm.rankers;
+  // ---- load + histogram: warp w < G loads its stretch of the window
+  // (whole 32-lane steps, eight loads in flight a thread) and counts its
+  // lanes' sets into its own 16-bit counters (shared atomics)
+  const int per = ((m + G - 1) / G + kWarp - 1) / kWarp * kWarp;  // lanes a stretch
+  const int r0 = wid * per, r1 = min(m, r0 + per);                  // this warp's
+  for (int i = tid; i < (G * S + 1) / 2; i += kWinThreads)
+    reinterpret_cast<uint32_t*>(sm.rank)[i] = 0;
   for (int p = tid; p <= P; p += kWinThreads) sm.pc[p] = sm.dense[p] = sm.heads[p] = 0;
-  if (tid == 0) {
-    nhot = queue = any_dense = 0;
+  if (tid == 0) any_dense = nhot = hot_q = small_q = 0;
+  __syncthreads();
+  constexpr int kLoads = 8;
+  if (wid < G) {
+    for (int jb = r0; jb < r1; jb += kLoads * kWarp) {
+      int x[kLoads];
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int j = jb + u * kWarp + lane;
+        x[u] = j < r1 ? idx[base + j] : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int j = jb + u * kWarp + lane;
+        if (j >= r1) break;
+        const int s = win_hash(x[u], g);
+        sm.s_idx[j] = x[u];
+        sm.aux[j] = (uint16_t)s;
+        const int c = wid * S + s;  // the 16-bit counter, in its 32-bit word
+        atomicAdd(reinterpret_cast<uint32_t*>(sm.rank) + c / 2, 1u << (16 * (c % 2)));
+      }
+    }
   }
   __syncthreads();
-  for (int j = tid; j < m; j += kWinThreads)
-    atomicAdd(&sm.cnt[hash_set(sm.s_idx[j], g.epb, S)], 1);
-  __syncthreads();
-  for (int s = tid; s < S; s += kWinThreads)
-    if (sm.cnt[s]) atomicAdd(&sm.pc[s % P], sm.cnt[s]);
+  for (int s0 = wid * kWarp; s0 < S; s0 += kWinThreads) {  // per-set and per-partition counts
+    const int s = s0 + lane;
+    int c = 0;  // the set's lanes; each stretch's counter becomes its first
+    if (s < S) {  // rank in the set
+      for (int r = 0; r < G; ++r) {
+        const int n = sm.rank[r * S + s];
+        sm.rank[r * S + s] = (uint16_t)c;
+        c += n;
+      }
+      sm.cnt[s] = (uint16_t)c;
+    }
+    const int p = s < S ? s % P : P;
+    const unsigned peers = __match_any_sync(kFull, p);
+    const int sum = __reduce_add_sync(peers, c);
+    if (p < P && sum && lane == __ffs(peers) - 1) atomicAdd(&sm.pc[p], sum);
+  }
   __syncthreads();
   if (tid == 0) {  // the bank bypass: the window laid out as one partition
     int parts = P, worst = 0;
@@ -1074,96 +1307,145 @@ win_reorder(const int* idx, const uint32_t* val, const int* n_live, WinGeo g, in
   }
   __syncthreads();
   const int parts = parts_sh, q = S / parts;
+  const Div pdiv = Div::of(parts), qdiv = Div::of(q);
   if (OP != kNone && g.round_cap > 0) {  // the round-cap fallback, by partition
     const long long most = (long long)g.round_cap * g.slots;
     for (int s = tid; s < S; s += kWinThreads)
       if (sm.cnt[s] > most) {
-        sm.dense[s % parts] = 1;
+        sm.dense[pdiv.mod(s)] = 1;
         any_dense = 1;
       }
   }
   __syncthreads();
-  // bin: (partition, set within it, lane) keys, or (partition, index, lane)
-  // in a capped partition
-  const int n2 = pow2_ceil(m);
-  for (int j = tid; j < n2; j += kWinThreads) {
-    uint64_t key = ~0ull;
-    if (j < m) {
-      const int x = sm.s_idx[j], s = hash_set(x, g.epb, S), p = s % parts;
-      const uint64_t mid = sm.dense[p] ? (uint64_t)((uint32_t)x ^ 0x80000000u)
-                                       : (uint64_t)(s / parts);
-      key = (uint64_t)p << kPartShift | mid << kLaneBits | (uint64_t)j;
-    }
-    sm.keys[j] = key;
-  }
-  __syncthreads();
-  bitonic_sort(sm.keys, n2);
+  win_stamp<STAMP>(stamps, 1);
+  // ---- binning: a stable counting sort by set key.  Each set's first
+  // slot (a scan over the set keys); then a warp a stretch places its
+  // lanes in stream order after the earlier stretches' lanes of their set,
+  // ranked within a 32-lane step by __match_any_sync.
   stretch_scan<kWinThreads>(
-      S, [&](int k) { return make_int2(sm.cnt[set_of_key(k, q, parts)], 0); },
-      [&](int k, int2 before, int2 x) {
-        sm.start[k] = before.x;
-        if (x.x > g.slots && !sm.dense[k / q]) sm.hot[atomicAdd(&nhot, 1)] = k;
-      });
-  if (tid == 0) sm.start[S] = m;
+      S, [&](int k) { return make_int2(sm.cnt[qdiv.mod(k) * parts + qdiv.div(k)], 0); },
+      [&](int k, int2 before, int2) { sm.start[k] = (uint16_t)before.x; });
+  if (tid == 0) sm.start[S] = (uint16_t)m;
+  // the payloads go where the counters may lie: loaded now, stored after
+  constexpr int kPerThread = kMaxWindow / kWinThreads;
+  uint32_t v[kPerThread];
+#pragma unroll
+  for (int u = 0; u < kPerThread; ++u) {
+    const int j = tid + u * kWinThreads;
+    v[u] = j < m ? val[base + j] : 0u;
+  }
   __syncthreads();
-  // walk the hash partitions' sets, the grain chosen from the histogram: a
-  // set of at most `slots` arrivals by one thread, a larger one by a warp
-  for (int k = tid; k < S; k += kWinThreads) {
-    const int len = sm.cnt[set_of_key(k, q, parts)];
-    if (len > 0 && len <= g.slots && !sm.dense[k / q])
-      sm.nflush[k] = walk_small_set<T, OP>(sm, sm.start[k], len, g.slots, sm.ndrain[k]);
-  }
-  uint32_t* ws = sm.walk + wid * 5 * kWarp;
-  const WalkScratch sh{ws, (int*)ws + kWarp, (int*)ws + 2 * kWarp, (int*)ws + 3 * kWarp,
-                       (int*)ws + 4 * kWarp};
-  for (;;) {
-    int i = lane == 0 ? atomicAdd(&queue, 1) : 0;
-    i = __shfl_sync(kFull, i, 0);
-    if (i >= nhot) break;
-    const int k = sm.hot[i];
-    const WindowSet src{sm.keys, sm.s_idx, sm.s_val, sm.b_lane, sm.mark, sm.start[k]};
-    int drained;
-    const int flushes =
-        walk_set<T, OP>(src, sm.cnt[set_of_key(k, q, parts)], g.slots, sh, drained);
-    if (lane == 0) {
-      sm.nflush[k] = flushes;
-      sm.ndrain[k] = drained;
-    }
-  }
-  // a capped partition (ref.dense_merge_ref): each run of equal indices
-  // folds into its first lane, in stream order
-  auto dense_head = [&](int r) {
-    const uint64_t key = sm.keys[r];
-    return sm.dense[key >> kPartShift] &&
-           (r == 0 || (sm.keys[r - 1] >> kLaneBits) != (key >> kLaneBits));
-  };
-  if (any_dense) {
-    for (int r = tid; r < m; r += kWinThreads) {
-      if (!dense_head(r)) continue;
-      const uint64_t key = sm.keys[r];
-      atomicAdd(&sm.heads[key >> kPartShift], 1);
-      const int head = (int)(key & kLaneMask);
-      T acc = from_bits<T>(sm.s_val[head]);
-      for (int r2 = r + 1; r2 < m && (sm.keys[r2] >> kLaneBits) == (key >> kLaneBits); ++r2) {
-        const int dup = (int)(sm.keys[r2] & kLaneMask);
-        sm.mark[dup] = kFiltered;
-        acc = combine<T, OP>(acc, from_bits<T>(sm.s_val[dup]));
+  if (wid < G) {
+    uint16_t* rc = sm.rank + wid * S;
+    for (int j0 = r0; j0 < r1; j0 += kWarp) {
+      const int j = j0 + lane;
+      const int s = j < r1 ? sm.aux[j] : S;
+      const unsigned peers = __match_any_sync(kFull, s);
+      const int before = __popc(peers & ((1u << lane) - 1u));
+      if (s < S) {
+        const int k = pdiv.mod(s) * q + pdiv.div(s);
+        sm.order[sm.start[k] + rc[s] + before] = (uint16_t)j;
+        sm.aux[j] = (uint16_t)(k << 2);
       }
-      sm.s_val[head] = to_bits(acc);
+      __syncwarp();
+      if (s < S && before == 0) rc[s] += __popc(peers);
+      __syncwarp();
     }
   }
   __syncthreads();
-  // drain offsets within each partition, and the partitions' fronts and tails
+#pragma unroll
+  for (int u = 0; u < kPerThread; ++u) {
+    const int j = tid + u * kWinThreads;
+    if (j < m) sm.s_val[j] = v[u];
+  }
+  for (int k = tid; k < S; k += kWinThreads) {  // R now holds the walk's arrays
+    sm.nflush[k] = sm.ndrain[k] = 0;
+    if (sm.start[k + 1] - sm.start[k] > g.slots && !sm.dense[qdiv.div(k)])
+      sm.hot[atomicAdd(&nhot, 1)] = k;
+  }
+  if (any_dense)  // a capped partition's lanes by (index, lane)
+    for (int p = 0; p < parts; ++p)
+      if (sm.dense[p])
+        sort_lanes_by_index(sm.order + sm.start[p * q], sm.start[(p + 1) * q] - sm.start[p * q],
+                            sm.s_idx);
+  __syncthreads();
+  win_stamp<STAMP>(stamps, 2);
+  // ---- walk the hash partitions' sets: the hot ones (past `slots`
+  // arrivals) by walk_set, a warp each, first, since the longest set bounds
+  // the window; the small ones a chunk of 32 set keys a warp
+  auto walk_hot = [&]() {
+    if (wid >= kWinWalkWarps) return;
+    uint32_t* ws = sm.walk + wid * 5 * kWarp;
+    const WalkScratch sh{ws, (int*)ws + kWarp, (int*)ws + 2 * kWarp, (int*)ws + 3 * kWarp,
+                         (int*)ws + 4 * kWarp};
+    for (;;) {
+      int i = lane == 0 ? atomicAdd(&hot_q, 1) : 0;
+      i = __shfl_sync(kFull, i, 0);
+      if (i >= nhot) break;
+      const int k = sm.hot[i];
+      const WindowSet src{sm.s_idx, sm.s_val, sm.order, sm.aux, sm.start[k], k};
+      int drained;
+      const int flushes =
+          walk_set<T, OP>(src, sm.start[k + 1] - sm.start[k], g.slots, sh, drained);
+      if (lane == 0) {
+        sm.nflush[k] = (uint16_t)flushes;
+        sm.ndrain[k] = (uint16_t)drained;
+      }
+    }
+  };
+  auto walk_small = [&]() {
+    for (;;) {
+      int c = lane == 0 ? atomicAdd(&small_q, 1) : 0;
+      c = __shfl_sync(kFull, c, 0);
+      if (c * kWarp >= S) break;
+      walk_small_sets<T, OP>(sm, g, c * kWarp, qdiv);
+    }
+  };
+  if (STAMP) {
+    walk_small();
+    win_stamp<STAMP>(stamps, 3);
+    walk_hot();
+  } else {
+    walk_hot();
+    walk_small();
+  }
+  __syncthreads();
+  win_stamp<STAMP>(stamps, 4);
+  // ---- a capped partition (ref.dense_merge_ref): each run of equal
+  // indices folds into its first lane, in stream order
+  if (any_dense) {
+    for (int p = 0; p < parts; ++p) {
+      if (!sm.dense[p]) continue;
+      const int lo = sm.start[p * q], hi = sm.start[(p + 1) * q];
+      for (int r = lo + tid; r < hi; r += kWinThreads) {
+        const int ln = sm.order[r], x = sm.s_idx[ln];
+        if (r > lo && sm.s_idx[sm.order[r - 1]] == x) continue;
+        atomicAdd(&sm.heads[p], 1);
+        T acc = from_bits<T>(sm.s_val[ln]);
+        for (int r2 = r + 1; r2 < hi; ++r2) {
+          const int d = sm.order[r2];
+          if (sm.s_idx[d] != x) break;
+          sm.aux[d] |= kFiltered;
+          acc = combine<T, OP>(acc, from_bits<T>(sm.s_val[d]));
+        }
+        sm.s_val[ln] = to_bits(acc);
+      }
+    }
+  }
+  __syncthreads();
+  win_stamp<STAMP>(stamps, 5);
+  // ---- scans.  Drain offsets within each partition, and the partitions'
+  // fronts and tails
   const int2 tot = stretch_scan<kWinThreads>(
       S,
       [&](int k) {
-        return sm.dense[k / q] ? make_int2(0, 0) : make_int2(sm.ndrain[k], sm.nflush[k]);
+        return sm.dense[qdiv.div(k)] ? make_int2(0, 0) : make_int2(sm.ndrain[k], sm.nflush[k]);
       },
       [&](int k, int2 before, int2) {
-        sm.drain_off[k] = before.x;
-        if (k % q == 0) {
-          sm.pd[k / q] = before.x;
-          sm.pf[k / q] = before.y;
+        sm.drain_off[k] = (uint16_t)before.x;
+        if (qdiv.mod(k) == 0) {
+          sm.pd[qdiv.div(k)] = before.x;
+          sm.pf[qdiv.div(k)] = before.y;
         }
       });
   if (tid == 0) {
@@ -1171,7 +1453,7 @@ win_reorder(const int* idx, const uint32_t* val, const int* n_live, WinGeo g, in
     sm.pf[parts] = tot.y;
   }
   __syncthreads();
-  for (int k = tid; k < S; k += kWinThreads) sm.drain_off[k] -= sm.pd[k / q];
+  for (int k = tid; k < S; k += kWinThreads) sm.drain_off[k] -= (uint16_t)sm.pd[qdiv.div(k)];
   if (tid == 0) {
     int survivors = 0;
     for (int p = 0; p < parts; ++p)
@@ -1185,7 +1467,7 @@ win_reorder(const int* idx, const uint32_t* val, const int* n_live, WinGeo g, in
                            : (sm.pf[p + 1] - sm.pf[p]) * g.slots + sm.pd[p + 1] - sm.pd[p];
       sm.pfront[p] = front;
       sm.pfilt[p] = lanes - kept;
-      sm.ptail[p] = span - (m - survivors) + tail;
+      sm.ptail[p] = tail;  // within the window's tail
       sm.phead[p] = heads;
       front += kept;
       tail += lanes - kept;
@@ -1196,101 +1478,201 @@ win_reorder(const int* idx, const uint32_t* val, const int* n_live, WinGeo g, in
   __syncthreads();
   // a capped partition's survivors: its runs' first lanes, by index
   if (any_dense)
-    stretch_scan<kWinThreads>(
-        m, [&](int r) { return make_int2(dense_head(r), 0); },
-        [&](int r, int2 before, int2 x) {
-          if (!x.x) return;
-          const uint64_t key = sm.keys[r];
-          const int p = (int)(key >> kPartShift), ln = (int)(key & kLaneMask);
-          const long long o = base + sm.pfront[p] + before.x - sm.phead[p];
-          out_idx[o] = sm.s_idx[ln];
-          out_val[o] = sm.s_val[ln];
-          out_pos[o] = (int)(base + ln);
-          out_act[o] = 1;
-        });
-  __syncthreads();  // the keys are free: the triggers' ranks take their place
-  int* trig_rank = reinterpret_cast<int*>(sm.keys);
-  // by partition, in stream order: each trigger's flush rank, and each
-  // filtered lane's tail slot (the first detected last)
-  for (int p = 0; p < parts; ++p)
-    stretch_scan<kWinThreads>(
-        m,
-        [&](int j) {
-          const uint8_t k = sm.mark[j];
-          if (k == kKept || (parts > 1 && hash_set(sm.s_idx[j], g.epb, S) % parts != p))
-            return make_int2(0, 0);
-          return make_int2(k == kTrigger, k == kFiltered);
-        },
-        [&](int j, int2 before, int2 x) {
-          if (x.x) trig_rank[j] = before.x;
-          if (x.y) {
-            const long long o = base + sm.ptail[p] + sm.pfilt[p] - 1 - before.y;
-            out_idx[o] = sm.s_idx[j];
-            out_val[o] = sm.s_val[j];
-            out_pos[o] = (int)(base + j);
-            out_act[o] = 0;
-          }
-        });
-  __syncthreads();
-  // the hash partitions' kept entries, one thread a binned slot
+    for (int p = 0; p < parts; ++p) {
+      if (!sm.dense[p]) continue;
+      const int lo = sm.start[p * q];
+      stretch_scan<kWinThreads>(
+          sm.start[(p + 1) * q] - lo,
+          [&](int r) {
+            return make_int2(r == 0 || sm.s_idx[sm.order[lo + r - 1]] !=
+                                           sm.s_idx[sm.order[lo + r]], 0);
+          },
+          [&](int r, int2 before, int2 x) {
+            if (!x.x) return;
+            const int ln = sm.order[lo + r];
+            const long long o = base + sm.pfront[p] + before.x;
+            out_idx[o] = sm.s_idx[ln];
+            out_val[o] = sm.s_val[ln];
+            out_pos[o] = (int)(base + ln);
+            out_act[o] = 1;
+          });
+    }
+  // One mark scan over the lanes in stream order for four partitions at a
+  // time (one pass at the paper's geometry): each trigger's flush rank
+  // within its partition, and each filtered lane's slot in the window's
+  // tail (the first detected last), go to its aux word.  Warp w takes `rounds` runs of 256
+  // lanes from lane 256 * rounds * w, a thread eight consecutive lanes a
+  // run: one 16-byte load of aux words, a warp's loads on distinct banks.
+  const int rounds = (m + kWinThreads * 8 - 1) / (kWinThreads * 8);  // 1 or 2
+  for (int p0 = 0; p0 < parts; p0 += 4) {
+    MarkCounts mine[2], incl[2], wtot = mark_zero();
+#pragma unroll
+    for (int rd = 0; rd < 2; ++rd) {
+      mine[rd] = mark_zero();
+      const int j = ((wid * rounds + rd) * kWarp + lane) * 8;
+      if (rd < rounds && j < m) {
+        const uint4 a4 = *reinterpret_cast<const uint4*>(sm.aux + j);
+        const uint32_t words[4] = {a4.x, a4.y, a4.z, a4.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          int p;
+          const uint32_t inc = j + i < m ? mark_of(sm, g, j + i, words[i / 2] >> (16 * (i % 2)) &
+                                                   0xffffu, pdiv, p0, p)
+                                         : 0u;
+          if (inc) mark_add(mine[rd], p, inc);
+        }
+      }
+      incl[rd] = mine[rd];
+      for (int off = 1; off < kWarp; off <<= 1) {
+        const MarkCounts y = mark_shfl_up(incl[rd], off);
+        if (lane >= off) incl[rd] = mark_sum(incl[rd], y);
+      }
+      MarkCounts last;
+      for (int i = 0; i < 4; ++i) last.c[i] = __shfl_sync(kFull, incl[rd].c[i], kWarp - 1);
+      wtot = mark_sum(wtot, last);
+    }
+    if (lane == 0) warp_marks[wid] = wtot;
+    __syncthreads();
+    MarkCounts run;  // the earlier warps' total: every warp scans the totals
+    {
+      const MarkCounts mw = lane < kWinWarps ? warp_marks[lane] : mark_zero();
+      MarkCounts iw = mw;
+      for (int off = 1; off < kWinWarps; off <<= 1) {
+        const MarkCounts y = mark_shfl_up(iw, off);
+        if (lane >= off) iw = mark_sum(iw, y);
+      }
+      for (int i = 0; i < 4; ++i) run.c[i] = __shfl_sync(kFull, iw.c[i] - mw.c[i], wid);
+    }
+#pragma unroll
+    for (int rd = 0; rd < 2; ++rd) {
+      const int j = ((wid * rounds + rd) * kWarp + lane) * 8;
+      if (rd < rounds && j < m) {
+        MarkCounts at = run;  // this thread's exclusive prefix
+        for (int i = 0; i < 4; ++i) at.c[i] += incl[rd].c[i] - mine[rd].c[i];
+        const uint4 a4 = *reinterpret_cast<const uint4*>(sm.aux + j);
+        const uint32_t words[4] = {a4.x, a4.y, a4.z, a4.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          int p;
+          const int ln = j + i;
+          const uint32_t inc = ln < m ? mark_of(sm, g, ln, words[i / 2] >> (16 * (i % 2)) &
+                                                0xffffu, pdiv, p0, p)
+                                      : 0u;
+          if (!inc) continue;
+          const uint32_t before = mark_get(at, p);
+          const int rank = inc == 1u ? (int)(before & 0xffffu)
+                                     : sm.ptail[p0 + p] + sm.pfilt[p0 + p] - 1 - (int)(before >> 16);
+          sm.aux[ln] = (uint16_t)(rank << 2 | (inc == 1u ? kTrigger : kFiltered));
+          mark_add(at, p, inc);
+        }
+      }
+      MarkCounts last;
+      for (int i = 0; i < 4; ++i) last.c[i] = __shfl_sync(kFull, incl[rd].c[i], kWarp - 1);
+      run = mark_sum(run, last);
+    }
+    __syncthreads();  // warp_marks is read before the next pass writes it
+  }
+  win_stamp<STAMP>(stamps, 6);
+  // ---- emission: the hash partitions' kept entries, one thread a binned
+  // slot (a flush group's slots and a partition's drained slots are
+  // consecutive, so consecutive threads write consecutive addresses)
   for (int r = tid; r < m; r += kWinThreads) {
-    int lo = 0, hi = S;  // last k with start[k] <= r
-    while (hi - lo > 1) {
-      const int mid = (lo + hi) / 2;
-      if (sm.start[mid] <= r) lo = mid; else hi = mid;
-    }
-    const int k = lo, p = k / q;
-    const int local = r - sm.start[k], nf = sm.nflush[k] * g.slots;
-    if (sm.dense[p] || local >= nf + sm.ndrain[k]) continue;
-    long long o = base + sm.pfront[p];
-    if (local < nf) {
-      const int trig = sm.b_lane[sm.start[k] + (local / g.slots) * g.slots + g.slots - 1];
-      o += (long long)trig_rank[trig] * g.slots + local % g.slots;
+    const int ln = sm.order[r];
+    const unsigned a = sm.aux[ln];
+    const unsigned mk = a & 3u;
+    if (mk == kFiltered) continue;
+    int p;
+    long long o;
+    if (mk == kTrigger) {  // the last entry of its flush group; a
+      // consumed arrival's slot may hold it too, and writes the same
+      int lo = 0, hi = parts;  // the partition whose binned slots hold r
+      while (hi - lo > 1) {
+        const int mid = (lo + hi) / 2;
+        if (sm.start[mid * q] <= r) lo = mid; else hi = mid;
+      }
+      p = lo;
+      o = sm.pfront[p] + (long long)(a >> 2) * g.slots + g.slots - 1;
     } else {
-      o += (long long)(sm.pf[p + 1] - sm.pf[p]) * g.slots + sm.drain_off[k] + (local - nf);
+      const int k = (int)(a >> 2);
+      p = qdiv.div(k);
+      if (sm.dense[p]) continue;
+      const int st = sm.start[k], local = r - st, nf = sm.nflush[k] * g.slots;
+      if (local < nf) {
+        const int grp = g.per_group.div(local);
+        const int trig = sm.order[st + grp * g.slots + g.slots - 1];
+        o = sm.pfront[p] + (long long)(sm.aux[trig] >> 2) * g.slots + (local - grp * g.slots);
+      } else if (local < nf + sm.ndrain[k]) {
+        o = sm.pfront[p] + (long long)(sm.pf[p + 1] - sm.pf[p]) * g.slots + sm.drain_off[k] +
+            (local - nf);
+      } else {
+        continue;  // a consumed arrival past the set's kept entries
+      }
     }
-    const int ln = sm.b_lane[r];
-    out_idx[o] = sm.s_idx[ln];
-    out_val[o] = sm.s_val[ln];
-    out_pos[o] = (int)(base + ln);
-    out_act[o] = 1;
+    out_idx[base + o] = sm.s_idx[ln];
+    out_val[base + o] = sm.s_val[ln];
+    out_pos[base + o] = (int)(base + ln);
+    out_act[base + o] = 1;
   }
-  // the dead lanes, between the fronts and the tails
-  for (int j = m + tid; j < span; j += kWinThreads) {
-    const long long o = base + survivors_sh + (j - m);
-    out_idx[o] = idx[base + j];
-    out_val[o] = val[base + j];
-    out_pos[o] = (int)(base + j);
-    out_act[o] = 0;
+  // the filtered lanes, staged by tail slot in the binned order's place,
+  // then the dead lanes and the tail in one contiguous pass
+  __syncthreads();
+  for (int j = tid; j < m; j += kWinThreads) {
+    const unsigned a = sm.aux[j];
+    if ((a & 3u) == kFiltered) sm.order[a >> 2] = (uint16_t)j;
   }
+  __syncthreads();
+  for (int o = survivors_sh + tid; o < span; o += kWinThreads) {
+    const int t = o - survivors_sh - (span - m);  // < 0: a dead lane
+    const int j = t < 0 ? m + (o - survivors_sh) : sm.order[t];
+    out_idx[base + o] = t < 0 ? idx[base + j] : sm.s_idx[j];
+    out_val[base + o] = t < 0 ? val[base + j] : sm.s_val[j];
+    out_pos[base + o] = (int)(base + j);
+    out_act[base + o] = 0;
+  }
+  win_stamp<STAMP>(stamps, 7);
 }
 
 long long win_smem(int w, int num_sets, int nparts) {
+  if (num_sets > kWinMaxSets) return LLONG_MAX;  // a set key must fit beside the mark
   return win_carve(nullptr, w, num_sets, nparts, nullptr);
 }
 
+// One launch of the windowed body; with `stamps` (windows x (kWinPhases +
+// 1) int64 on the device) its stamped build, else `occupancy` (when not
+// null) takes the CTAs resident per SM and nothing launches.
 template <typename T, int OP>
 int win_one(const int* idx, const uint32_t* val, const int* n_live, WinGeo g, int* out_idx,
-            uint32_t* out_val, int* out_pos, uint8_t* out_act, cudaStream_t st) {
+            uint32_t* out_val, int* out_pos, uint8_t* out_act, long long* stamps,
+            int* occupancy, cudaStream_t st) {
   const long long smem = win_smem(g.w, g.num_sets, g.nparts);
+  auto kernel = stamps ? win_reorder<T, OP, true> : win_reorder<T, OP, false>;
   int e;
-  if ((e = (int)cudaFuncSetAttribute(win_reorder<T, OP>,
-                                     cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
+  if ((e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)smem)))
     return e;
+  if (occupancy)
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, kernel, kWinThreads,
+                                                              (size_t)smem);
   const long long windows = (g.n + g.w - 1) / g.w;
-  win_reorder<T, OP><<<(unsigned)windows, kWinThreads, (size_t)smem, st>>>(
-      idx, val, n_live, g, out_idx, out_val, out_pos, out_act);
+  kernel<<<(unsigned)windows, kWinThreads, (size_t)smem, st>>>(idx, val, n_live, g, out_idx,
+                                                               out_val, out_pos, out_act, stamps);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int win_launch(int op, const int* idx, const uint32_t* val, const int* n_live, WinGeo g,
-               int* out_idx, uint32_t* out_val, int* out_pos, uint8_t* out_act, cudaStream_t st) {
+               int* out_idx, uint32_t* out_val, int* out_pos, uint8_t* out_act,
+               long long* stamps, int* occupancy, cudaStream_t st) {
   switch (op) {
-    case kNone: return win_one<T, kNone>(idx, val, n_live, g, out_idx, out_val, out_pos, out_act, st);
-    case kAdd: return win_one<T, kAdd>(idx, val, n_live, g, out_idx, out_val, out_pos, out_act, st);
-    case kMin: return win_one<T, kMin>(idx, val, n_live, g, out_idx, out_val, out_pos, out_act, st);
-    case kMax: return win_one<T, kMax>(idx, val, n_live, g, out_idx, out_val, out_pos, out_act, st);
+#define WIN_CASE(OP)                                                                        \
+  case OP:                                                                                  \
+    return win_one<T, OP>(idx, val, n_live, g, out_idx, out_val, out_pos, out_act, stamps, \
+                          occupancy, st);
+    WIN_CASE(kNone)
+    WIN_CASE(kAdd)
+    WIN_CASE(kMin)
+    WIN_CASE(kMax)
+#undef WIN_CASE
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1350,6 +1732,32 @@ int iru_win_reorder_max_window(int num_sets, int nparts) {
   return w;
 }
 
+static int win_entry(const int* idx, const void* val, const int* n_live, int* out_idx,
+                     void* out_val, int* out_pos, uint8_t* out_act, long long n, int w,
+                     int num_sets, int slots, int epb, int nparts, int round_cap, int dtype,
+                     int op, long long* stamps, int* occupancy, void* stream) {
+  if (n <= 0 && occupancy == nullptr) return 0;
+  if (n >= INT_MAX || w < 1 || w > kMaxWindow || num_sets < 1 || slots < 1 || slots > kWarp ||
+      epb < 1 || nparts < 1 || num_sets % nparts != 0 || round_cap < 0 || op < kNone ||
+      op > kMax || win_smem(w, num_sets, nparts) > kWinMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  int shift = -1;
+  for (int b = 0; b < 31; ++b)
+    if (epb == 1 << b) shift = b;
+  const WinGeo g{n,     w,     num_sets, slots, epb, nparts, round_cap, shift,
+                 (num_sets & (num_sets - 1)) == 0, Div::of(slots)};
+  const uint32_t* v = (const uint32_t*)val;
+  uint32_t* ov = (uint32_t*)out_val;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return win_launch<float>(op, idx, v, n_live, g, out_idx, ov, out_pos, out_act, stamps,
+                             occupancy, st);
+  if (dtype == 1)
+    return win_launch<int>(op, idx, v, n_live, g, out_idx, ov, out_pos, out_act, stamps,
+                           occupancy, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 // The windowed body: independent windows of w lanes, one CTA each.  dtype
 // and n_live as above; op: 0-3; round_cap: 0 for none.  Payloads travel as
 // 32-bit words.
@@ -1357,18 +1765,31 @@ int iru_win_reorder(const int* idx, const void* val, const int* n_live, int* out
                     void* out_val, int* out_pos, uint8_t* out_act, long long n, int w,
                     int num_sets, int slots, int epb, int nparts, int round_cap, int dtype, int op,
                     void* stream) {
-  if (n <= 0) return 0;
-  if (n >= INT_MAX || w < 1 || w > kMaxWindow || num_sets < 1 || slots < 1 || slots > kWarp ||
-      epb < 1 || nparts < 1 || num_sets % nparts != 0 || round_cap < 0 || op < kNone ||
-      op > kMax || win_smem(w, num_sets, nparts) > kWinMaxSmem)
-    return (int)cudaErrorInvalidValue;
-  const WinGeo g{n, w, num_sets, slots, epb, nparts, round_cap};
-  const uint32_t* v = (const uint32_t*)val;
-  uint32_t* ov = (uint32_t*)out_val;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return win_launch<float>(op, idx, v, n_live, g, out_idx, ov, out_pos, out_act, st);
-  if (dtype == 1) return win_launch<int>(op, idx, v, n_live, g, out_idx, ov, out_pos, out_act, st);
-  return (int)cudaErrorInvalidValue;
+  return win_entry(idx, val, n_live, out_idx, out_val, out_pos, out_act, n, w, num_sets, slots,
+                   epb, nparts, round_cap, dtype, op, nullptr, nullptr, stream);
+}
+
+// The same launch through the stamped build: stamps holds windows x
+// (kWinPhases + 1) int64 on the device, each CTA's clock64() at its phase
+// boundaries (a measurement of where a window's time goes).
+int iru_win_reorder_stamped(const int* idx, const void* val, const int* n_live, int* out_idx,
+                            void* out_val, int* out_pos, uint8_t* out_act, long long n, int w,
+                            int num_sets, int slots, int epb, int nparts, int round_cap,
+                            int dtype, int op, long long* stamps, void* stream) {
+  if (stamps == nullptr) return (int)cudaErrorInvalidValue;
+  return win_entry(idx, val, n_live, out_idx, out_val, out_pos, out_act, n, w, num_sets, slots,
+                   epb, nparts, round_cap, dtype, op, stamps, nullptr, stream);
+}
+
+// the phases of the stamped build
+int iru_win_reorder_phases(void) { return kWinPhases; }
+
+// CTAs of the windowed body resident on one SM at this geometry
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor); a cudaError_t code
+int iru_win_reorder_occupancy(int w, int num_sets, int nparts, int dtype, int op, int* blocks) {
+  if (blocks == nullptr) return (int)cudaErrorInvalidValue;
+  return win_entry(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0, w, num_sets,
+                   1, 1, nparts, 0, dtype, op, nullptr, blocks, nullptr);
 }
 
 const char* iru_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

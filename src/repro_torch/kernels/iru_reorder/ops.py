@@ -16,8 +16,11 @@ has two bodies:
   launch, one CTA a window, with ``n_partitions``, ``round_cap`` and
   ``n_live``, for ``filter_op`` in {None, add, min, max}, f32 or int32
   ``[n]`` payloads and ``slots <= 32``; ``w`` is bounded by the body's
-  shared memory (``_window_limit``).  Launches count under
-  ``iru_reorder_windowed``.
+  shared memory, half an SM's so that two windows reside on an SM
+  (``_window_limit``).  Launches count under ``iru_reorder_windowed``.
+  ``windowed_phase_stamps`` runs its stamped build (each window's clock
+  at its phase boundaries) and ``windowed_occupancy`` reads its CTAs
+  resident per SM: measurements, not the main path.
 
 Over a group mesh (``mesh=``, ``launch.mesh.make_iru_mesh(P, group=...)``)
 each rank reorders its own block of the banked layout's partitions: on CUDA
@@ -68,6 +71,12 @@ def _lib() -> ctypes.CDLL:
     lib.iru_win_reorder_smem_limit.restype = _LL
     lib.iru_win_reorder_max_window.argtypes = [_I, _I]
     lib.iru_win_reorder_max_window.restype = _I
+    stamped = lib.iru_win_reorder_stamped
+    stamped.argtypes = list(win.argtypes[:-1]) + [_P, _P]
+    stamped.restype = _I
+    lib.iru_win_reorder_phases.restype = _I
+    lib.iru_win_reorder_occupancy.argtypes = [_I, _I, _I, _I, _I, _P]
+    lib.iru_win_reorder_occupancy.restype = _I
     return lib
 
 
@@ -232,7 +241,9 @@ def _live(n_live, dev):
 
 
 def _launch_windowed(indices, secondary, w, num_sets, slots, epb,
-                     n_partitions, round_cap, filter_op, n_live):
+                     n_partitions, round_cap, filter_op, n_live, stamps=None):
+    """One launch of the windowed body; with ``stamps`` (int64 ``[windows,
+    len(WINDOW_PHASES) + 1]`` on the device) its stamped build."""
     dev = indices.device
     n = indices.shape[0]
     idx = indices.contiguous()
@@ -242,16 +253,69 @@ def _launch_windowed(indices, secondary, w, num_sets, slots, epb,
         return out
     live = _live(n_live, dev)
     lib = _lib()
-    code = lib.iru_win_reorder(
-        idx.data_ptr(), sec.data_ptr(),
-        None if live is None else live.data_ptr(),
-        *(o.data_ptr() for o in out), n, w, num_sets, slots, epb,
-        n_partitions, 0 if round_cap is None else min(round_cap, 2**31 - 1),
-        _DTYPES[sec.dtype], _OPS[filter_op],
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, code, "iru_reorder windowed")
-    launch_counts["iru_reorder_windowed"] += 1
+    args = [idx.data_ptr(), sec.data_ptr(),
+            None if live is None else live.data_ptr(),
+            *(o.data_ptr() for o in out), n, w, num_sets, slots, epb,
+            n_partitions,
+            0 if round_cap is None else min(round_cap, 2**31 - 1),
+            _DTYPES[sec.dtype], _OPS[filter_op]]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if stamps is None:
+        code = lib.iru_win_reorder(*args, stream)
+        key = "iru_reorder_windowed"
+    else:
+        code = lib.iru_win_reorder_stamped(*args, stamps.data_ptr(), stream)
+        key = "iru_reorder_windowed_stamped"
+    _build.check(lib, code, key)
+    launch_counts[key] += 1
     return out
+
+
+# the stamped build's phases, in order (iru_reorder.cu: kWinPhases)
+WINDOW_PHASES = ("load+histogram", "binning", "small-set walk",
+                 "hot-set walk", "fallback", "scans", "emission")
+
+
+def windowed_phase_stamps(indices, secondary, *, window_elems, num_sets=1024,
+                          slots=32, elem_bytes=4, block_bytes=128,
+                          filter_op=None, round_cap=None, n_partitions=1,
+                          n_live=None):
+    """One launch of B3's windowed body in its stamped build (CUDA
+    tensors only): the same result as ``hash_reorder(window_elems=...)``
+    and, per window, each CTA's ``clock64()`` at the start and after each
+    of ``WINDOW_PHASES`` (an int64 ``[windows, len(WINDOW_PHASES) + 1]``
+    tensor on the device).  A measurement of where a window's time goes;
+    launches count under ``iru_reorder_windowed_stamped``."""
+    if not indices.is_cuda:
+        raise ValueError("the stamped build runs on a CUDA tensor only")
+    epb = block_bytes // elem_bytes
+    _refuse(secondary, num_sets=num_sets, slots=slots, epb=epb,
+            round_cap=round_cap, n_partitions=n_partitions,
+            window_elems=window_elems, n_live=n_live, tag_table=None,
+            device=indices.device)
+    if _lib().iru_win_reorder_phases() != len(WINDOW_PHASES):
+        raise RuntimeError("the stamped build's phases differ from "
+                           "WINDOW_PHASES: the library is stale")
+    stamps = torch.zeros(-(-indices.shape[0] // window_elems),
+                         len(WINDOW_PHASES) + 1, dtype=torch.int64,
+                         device=indices.device)
+    out = _launch_windowed(indices.to(torch.int32), secondary, window_elems,
+                           num_sets, slots, epb, n_partitions, round_cap,
+                           filter_op, n_live, stamps)
+    return out, stamps
+
+
+def windowed_occupancy(window_elems, num_sets, n_partitions) -> int:
+    """CTAs (windows) of B3's windowed body resident on one SM at this
+    geometry (f32 add), as ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    gives them; needs a card."""
+    lib = _lib()
+    blocks = ctypes.c_int(0)
+    code = lib.iru_win_reorder_occupancy(window_elems, num_sets, n_partitions,
+                                         _DTYPES[torch.float32], _OPS["add"],
+                                         ctypes.addressof(blocks))
+    _build.check(lib, code, "iru_reorder windowed occupancy")
+    return blocks.value
 
 
 def _launch(indices, secondary, num_sets, slots, epb, n_partitions,

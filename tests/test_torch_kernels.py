@@ -428,11 +428,51 @@ def _same_set_stream(length, rng, *, num_sets, sets=1):
             + rng.integers(0, 32, length)).astype(np.int32)
 
 
-def _geo_stream(kind, length, rng, num_sets):
+def _blocks_of(num_sets, want, count):
+    """The first ``count`` blocks whose set satisfies ``want(set)``."""
+    b = np.arange(1 << 16)
+    return b[want(hash_ref.hash_set(b, num_sets))][:count]
+
+
+def _full_sets_stream(length, rng, num_sets, slots, w):
+    """Each window of ``w`` lanes: ``slots`` distinct indices of one set (a
+    small set that flushes at its last arrival), ``slots`` arrivals of
+    another with a duplicate (a small set that drains), ``slots`` distinct
+    indices of a third with three duplicates between them, the last
+    distinct one last (a hot set that flushes at its last arrival), the
+    rest spread over the other sets; the four interleaved at random, each
+    in its order."""
+    b1, b2, b3 = (_blocks_of(num_sets, lambda s, k=k: s == k, 1)[0]
+                  for k in (1, 2, 3))
+    others = _blocks_of(num_sets, lambda s: s >= 4, 500)
+    distinct = lambda b: b * 32 + rng.permutation(32)[:slots]
+    out = []
+    for s0 in range(0, length, w):
+        span = min(w, length - s0)
+        full, dup, hot = distinct(b1), distinct(b2), distinct(b3)
+        dup[-1] = dup[0]
+        hot = np.concatenate([hot[:-1], hot[[0, 1, 0]], hot[-1:]])
+        rest = max(span - 3 * slots - 3, 0)
+        filler = (others[rng.integers(0, others.size, rest)] * 32
+                  + rng.integers(0, 32, rest))
+        seqs = [list(full), list(dup), list(hot), list(filler)]
+        tags = np.repeat(np.arange(4), [len(q) for q in seqs])
+        rng.shuffle(tags)
+        out += [seqs[k].pop(0) for k in tags]
+    return np.asarray(out[:length], np.int32)
+
+
+def _geo_stream(kind, length, rng, num_sets, slots=None, w=None):
     if kind == "one_set":
         return _same_set_stream(length, rng, num_sets=num_sets)
     if kind == "two_sets":
         return _same_set_stream(length, rng, num_sets=num_sets, sets=2)
+    if kind == "full_sets":
+        return _full_sets_stream(length, rng, num_sets, slots, w)
+    if kind == "one_partition":  # every lane in partition 0 (of 1, 2 or 4)
+        pool = _blocks_of(num_sets, lambda s: s % 4 == 0, 300)
+        return (pool[rng.integers(0, pool.size, length)] * 32
+                + rng.integers(0, 32, length)).astype(np.int32)
     return _hash_stream(kind, length, rng)
 
 
@@ -452,7 +492,9 @@ def _check_stream(got, plain, oracle, op, dtype):
 
 
 # (geometry, stream, length, window): ragged last windows, n <= w (one
-# window), the paper's 8192-lane window, hot and one-set windows
+# window), the paper's 8192-lane window, hot and one-set windows; full sets
+# (small ones that flush at their last arrival or drain with a duplicate, a
+# hot one that flushes at its last arrival) and every lane in one partition
 WINDOW_CASES = [((1024, 32), "wide", 20_000, 8192),
                 ((1024, 32), "kron", 65_536, 8192),
                 ((1024, 32), "wide", 3000, 8192),
@@ -461,12 +503,16 @@ WINDOW_CASES = [((1024, 32), "wide", 20_000, 8192),
                 ((16, 4), "wide", 3000, 256),
                 ((16, 4), "hot", 3000, 333),
                 ((16, 4), "two_sets", 4000, 512),
-                ((8, 2), "lanes", 3000, 1024)]
+                ((8, 2), "lanes", 3000, 1024),
+                ((1024, 32), "full_sets", 20_000, 8192),
+                ((16, 4), "full_sets", 3000, 256),
+                ((1024, 32), "one_partition", 20_000, 8192),
+                ((16, 4), "one_partition", 3000, 512)]
 
 
 @pytest.mark.parametrize("geometry,kind,length,w", WINDOW_CASES)
 @pytest.mark.parametrize("n_partitions", [1, 2, 4])
-@pytest.mark.parametrize("live", [None, 0, "part", "all"])
+@pytest.mark.parametrize("live", [None, 0, "part", "all", "mid_warp"])
 @pytest.mark.parametrize("op,dtype,cap", [
     ("add", "float32", None), ("add", "float32", "trip"),
     ("min", "int32", "no_trip"), ("min", "int32", "trip"),
@@ -483,11 +529,12 @@ def test_windowed_body_matches_oracle_and_plain(cuda, geometry, kind, length,
     if num_sets % n_partitions:
         pytest.skip("the geometry does not split over the partitions")
     rng = np.random.default_rng(length + w + n_partitions)
-    idx = _geo_stream(kind, length, rng, num_sets)
+    idx = _geo_stream(kind, length, rng, num_sets, slots, w)
     vals = (rng.uniform(0.0, 1.0, length).astype(np.float32)
             if dtype == "float32"
             else rng.integers(-1000, 1000, length).astype(np.int32))
-    m = {None: length, 0: 0, "part": length * 3 // 5, "all": length}[live]
+    m = {None: length, 0: 0, "part": length * 3 // 5, "all": length,
+         "mid_warp": min(length, w + 13)}[live]  # 13 lanes into window 2
     round_cap = {None: None, "trip": 2, "no_trip": 64}[cap]
     cfg = iru.IRUConfig(mode="hash", num_sets=num_sets, slots=slots,
                         n_partitions=n_partitions, n_banks=1, filter_op=op,

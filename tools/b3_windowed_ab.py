@@ -1,0 +1,276 @@
+#!/usr/bin/env python3
+"""Kernel B3's bodies from several source trees, side by side on one card.
+
+Each tree (``--tree NAME=PATH``, a checkout of this repository, e.g. the
+parent commit unpacked with ``git archive``) has its
+``src/repro_torch/kernels/iru_reorder/iru_reorder.cu`` built with ``nvcc``
+(all trees at once, the port's flags) and loaded with ``ctypes``; the
+input is kron-20's PageRank stream (every edge's destination in CSR order,
+carrying ``rank[src] / deg[src]``), built once by the port of the tree
+this script lives in.  For each variant every tree's result must equal
+the first tree's bit for bit; then each tree's CUDA-event mean of 10 calls
+is taken twice, in the order first..last, last..first.  Variants: the
+windowed body at the paper's geometry (1024 x 32 sets, 4 partitions,
+8192-lane windows, round cap 64, f32 add), the sweep of chip_smoke's
+phase 3 (w = 1024, 2048, 4096; no merge; one partition) and the stream's
+first 6144 and 49152 lanes (one partial window, six windows: a
+high-diameter traversal's levels, where a window's latency counts); the whole-stream
+body (add), its tagged fold (families ``(idx >> 17) & 1``) and its banked
+layout (4 partitions, add).  A tree whose library has the stamped build
+also gives the windowed body's time by phase (clock64 cycles a window) and
+its CTAs resident per SM.
+
+    python3 tools/b3_windowed_ab.py --tree parent=build/parent --tree change=.
+
+Prints one line per measurement and the card's name and power limit; with
+``--out FILE`` also writes the numbers as JSON.  Needs a card.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+from repro_torch.kernels import _build  # noqa: E402
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+GEO = dict(num_sets=1024, slots=32, epb=32, round_cap=64)
+WINDOWED = {  # label -> (window, partitions, op, lanes: None for all)
+    "IRU_HASH add": (8192, 4, 1, None),
+    "w=1024": (1024, 4, 1, None),
+    "w=2048": (2048, 4, 1, None),
+    "w=4096": (4096, 4, 1, None),
+    "no merge": (8192, 4, 0, None),
+    "1 partition": (8192, 1, 1, None),
+    # a high-diameter traversal's levels: one partial window, a few windows
+    "6144 lanes": (8192, 4, 1, 6144),
+    "49152 lanes": (8192, 4, 1, 49152),
+}
+WHOLE = {  # label -> (partitions, op)
+    "whole-stream add": (1, 1),
+    "tagged fold": (1, 4),
+    "banked layout": (4, 1),
+}
+
+
+def build(trees: dict) -> dict:
+    """Every tree's iru_reorder.cu compiled at once; name -> CDLL."""
+    out_dir = ROOT / "build" / "ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, path in trees.items():
+        src = Path(path) / "src/repro_torch/kernels/iru_reorder/iru_reorder.cu"
+        lib = out_dir / f"libiru_reorder_{name}.so"
+        procs[name] = (lib, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        entry = ""
+        for ln in log.splitlines():  # ptxas -v: each entry, then its use
+            if "Compiling entry function" in ln:
+                entry = ln.split("'")[1]
+            elif ("Used" in ln or "spill" in ln) and "win_reorder" in entry:
+                print(f"built {name}: {entry[-40:]}: "
+                      f"{ln.split('info    : ')[-1].strip()}")
+        libs[name] = ctypes.CDLL(str(lib))
+    return libs
+
+
+def pagerank_stream(dev):
+    from repro_torch.graphs.csr import from_edges
+    from repro_torch.graphs.generators import kron_edges
+
+    src, dst, n = kron_edges(20, 16)
+    w = np.random.default_rng(0).uniform(1.0, 64.0, src.shape[0])
+    g = from_edges(src, dst, n, w.astype(np.float32), symmetrize=True,
+                   device=dev)
+    deg = g.degrees().clamp(min=1).float()
+    ids = torch.arange(g.n_nodes + 1, device=dev)
+    tags = ((ids >> 17) & 1).bool()
+    tags[-1] = False
+    return (g.col_idx.to(torch.int32).contiguous(),
+            (1.0 / g.n_nodes / deg)[g.edge_sources().long()].contiguous(),
+            tags.contiguous())
+
+
+def outputs(idx, val):
+    n = idx.numel()
+    return (torch.empty_like(idx), torch.empty_like(val),
+            torch.empty_like(idx), torch.empty(n, dtype=torch.bool,
+                                               device=idx.device))
+
+
+def windowed_call(lib, idx, val, w, parts, op, stamps=None):
+    out = outputs(idx, val)
+    st = torch.cuda.current_stream().cuda_stream
+    args = [idx.data_ptr(), val.data_ptr(), None,
+            *(o.data_ptr() for o in out), idx.numel(), w, GEO["num_sets"],
+            GEO["slots"], GEO["epb"], parts, GEO["round_cap"], 0, op]
+    if stamps is None:
+        fn = lib.iru_win_reorder
+        fn.argtypes = [_P] * 7 + [_LL] + [_I] * 8 + [_P]
+        code = fn(*args, st)
+    else:
+        fn = lib.iru_win_reorder_stamped
+        fn.argtypes = [_P] * 7 + [_LL] + [_I] * 8 + [_P, _P]
+        code = fn(*args, stamps.data_ptr(), st)
+    if code:
+        raise RuntimeError(f"windowed launch failed: CUDA error {code}")
+    return out
+
+
+def whole_call(lib, idx, val, tags, parts, op):
+    lib.iru_hash_reorder_workspace.argtypes = [_LL, _I, _I]
+    lib.iru_hash_reorder_workspace.restype = _LL
+    n = idx.numel()
+    work = torch.empty(lib.iru_hash_reorder_workspace(n, GEO["num_sets"],
+                                                      parts),
+                       dtype=torch.uint8, device=idx.device)
+    out = outputs(idx, val)
+    fn = lib.iru_hash_reorder
+    fn.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _LL] + [_I] * 6 \
+        + [_P]
+    tagged = op == 4
+    code = fn(idx.data_ptr(), val.data_ptr(), None,
+              tags.data_ptr() if tagged else None,
+              tags.numel() if tagged else 0, *(o.data_ptr() for o in out),
+              work.data_ptr(), n, GEO["num_sets"], GEO["slots"], GEO["epb"],
+              parts, 0, op, torch.cuda.current_stream().cuda_stream)
+    if code:
+        raise RuntimeError(f"whole-stream launch failed: CUDA error {code}")
+    return out
+
+
+def same(a, b) -> bool:
+    return all(torch.equal(x.view(torch.int32) if x.is_floating_point()
+                           else x, y.view(torch.int32)
+                           if y.is_floating_point() else y)
+               for x, y in zip(a, b))
+
+
+def event_ms(fn, reps=10) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_split(lib, idx, val):
+    """(cycles a window by phase, share of all windows' cycles) of the
+    stamped build at the paper's geometry, or None without one."""
+    try:
+        phases = lib.iru_win_reorder_phases()
+    except AttributeError:
+        return None
+    w, parts, op, _ = WINDOWED["IRU_HASH add"]
+    stamps = torch.zeros(-(-idx.numel() // w), phases + 1, dtype=torch.int64,
+                         device=idx.device)
+    windowed_call(lib, idx, val, w, parts, op, stamps)  # warm-up
+    windowed_call(lib, idx, val, w, parts, op, stamps)
+    torch.cuda.synchronize()
+    d = stamps.diff(dim=1).double()
+    total = d.sum()
+    return ([round(x, 1) for x in d.mean(0).tolist()],
+            [round(x, 4) for x in (d.sum(0) / total).tolist()])
+
+
+def occupancy(lib):
+    try:
+        fn = lib.iru_win_reorder_occupancy
+    except AttributeError:
+        return None
+    fn.argtypes = [_I, _I, _I, _I, _I, _P]
+    blocks = ctypes.c_int(0)
+    code = fn(8192, GEO["num_sets"], 4, 0, 1, ctypes.addressof(blocks))
+    if code:
+        raise RuntimeError(f"occupancy query failed: CUDA error {code}")
+    smem = lib.iru_win_reorder_smem
+    smem.argtypes = [_I, _I, _I]
+    smem.restype = _LL
+    return blocks.value, smem(8192, GEO["num_sets"], 4)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", action="append", required=True,
+                    help="NAME=PATH of a source tree (the first is the "
+                         "reference of the equality checks)")
+    ap.add_argument("--out", help="write the numbers as JSON here")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("b3_windowed_ab: no CUDA device", file=sys.stderr)
+        return 2
+    trees = dict(t.split("=", 1) for t in args.tree)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader", "-i", "0"],
+                          capture_output=True, text=True,
+                          check=True).stdout.strip()
+    print(f"card: {card}")
+    t0 = time.perf_counter()
+    libs = build(trees)
+    print(f"build {time.perf_counter() - t0:.1f} s")
+    dev = torch.device("cuda", 0)
+    idx, val, tags = pagerank_stream(dev)
+    print(f"kron-20 PageRank stream: {idx.numel()} lanes")
+    calls = {label: (lambda lib, w=w, p=p, op=op, k=k:
+                     windowed_call(lib, idx[:k], val[:k], w, p, op))
+             for label, (w, p, op, k) in WINDOWED.items()}
+    calls.update({label: (lambda lib, p=p, op=op:
+                          whole_call(lib, idx, val, tags, p, op))
+                  for label, (p, op) in WHOLE.items()})
+    names = list(libs)
+    record = {"card": card, "trees": trees, "ms": {}, "phases": {},
+              "occupancy": {}}
+    for label, call in calls.items():
+        ref = call(libs[names[0]])
+        for name in names[1:]:
+            if not same(call(libs[name]), ref):
+                raise RuntimeError(f"{label}: {name} differs from "
+                                   f"{names[0]}")
+        times = {name: [] for name in names}
+        for name in names + names[::-1]:
+            times[name].append(event_ms(lambda: call(libs[name])))
+        record["ms"][label] = times
+        print(f"{label:16s}: " + ", ".join(
+            f"{name} {np.mean(t):.4f} ms ({t[0]:.4f}, {t[1]:.4f})"
+            for name, t in times.items())
+            + f"; all equal to {names[0]} bit for bit")
+    for name, lib in libs.items():
+        split = phase_split(lib, idx, val)
+        occ = occupancy(lib)
+        if split is not None:
+            record["phases"][name] = split
+            print(f"phases {name} (clock64 cycles a window, share): "
+                  + ", ".join(f"{c} ({s})" for c, s in zip(*split)))
+        if occ is not None:
+            record["occupancy"][name] = occ
+            print(f"occupancy {name}: {occ[0]} CTAs per SM, {occ[1]} bytes "
+                  f"of shared memory a window")
+    print(f"card: {card}")
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(record, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
