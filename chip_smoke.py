@@ -1145,9 +1145,12 @@ def phase_serving_kernels(view, g):
     check_tagged(got.secondary, want.secondary, table[got.indices.long()],
                  "B3 tagged serving tick")
     b3_err = max_abs_err(got.secondary, want.secondary)
+    # every lane's 8 B read and 13 B written, and the tag table read once
+    bound_ms = (21 * idx.numel() + table.numel()) / HBM_BYTES_PER_S * 1e3
     print(f"B3 tagged serving tick: {lanes} lanes ({least['live']} live), "
           f"{int(got.active.sum())} survivors, max abs err {b3_err:.3g}, "
-          f"matches plain; kernel {b3_ms:.4f} ms, plain {t_plain:.1f} s")
+          f"matches plain; kernel {b3_ms:.4f} ms, bound {bound_ms:.4f} ms, "
+          f"plain {t_plain:.1f} s")
     return {"segment_merge_tagged": b2_err, "iru_reorder_tagged": b3_err}
 
 

@@ -66,13 +66,19 @@ def pagerank(graph: CSRGraph, *, iters: int = 20, damping: float = 0.85,
 def pagerank_app(iters: int = 20, damping: float = 0.85) -> FrontierApp:
     """PR as a frontier app: the frontier is all nodes, convergence is the
     iteration budget, and the merged scatter-add accumulates contributions
-    into a fresh per-iteration ``acc`` target."""
+    into a fresh per-iteration ``acc`` target.
+
+    ``acc`` is float64, as the PPR apps' is: on the card the scatter's
+    atomics add a hub's f32 contributions in a new order every run, and
+    summed in float64 and rounded to f32 once (in ``update``) the ranks do
+    not depend on that order; the reference's f32 accumulator is within
+    the parity tests' tolerances of it."""
 
     def init(graph: CSRGraph, source: int):
         n, dev = graph.n_nodes, graph.device
         state = {"rank": torch.full((n,), 1.0 / n, dtype=torch.float32,
                                     device=dev),
-                 "acc": torch.zeros(n, dtype=torch.float32, device=dev),
+                 "acc": torch.zeros(n, dtype=torch.float64, device=dev),
                  "it": torch.zeros((), dtype=torch.int32, device=dev)}
         return state, torch.ones(n, dtype=torch.bool, device=dev)
 
@@ -81,13 +87,14 @@ def pagerank_app(iters: int = 20, damping: float = 0.85) -> FrontierApp:
         # padding srcs (== n) clamp in range, as the reference's gather does
         return (state["rank"] / deg)[ef.srcs.clamp(max=graph.n_nodes - 1)]
 
-    def update(state, acc, graph: CSRGraph):
+    def update(state, acc64, graph: CSRGraph):
         n = graph.n_nodes
+        acc = acc64.to(torch.float32)
         dangling = graph.degrees() == 0
         leak = torch.where(dangling, state["rank"], 0.0).sum()
         rank = ((1.0 - damping) / n
                 + damping * (acc + leak / n)).to(torch.float32)
-        state = {"rank": rank, "acc": torch.zeros_like(acc),
+        state = {"rank": rank, "acc": torch.zeros_like(acc64),
                  "it": state["it"] + 1}
         return state, torch.ones(n, dtype=torch.bool, device=acc.device)
 

@@ -25,16 +25,22 @@
 // Replaces the TPU kernel repro/kernels/iru_reorder/iru_reorder.py
 // (hash_reorder_pallas, _kernel, _hash_set): there one core streamed the
 // elements through a VMEM table one at a time.  Here sets are independent,
-// so the stream is binned set-major and each set is walked by its own warp:
+// so the stream is binned set-major and each set is walked by its own warp.
+// Every stage but the dead lanes' copy works on the live prefix [0, n_live)
+// only: the grids are sized from n on the host, and persistent CTAs stride
+// over the live chunks, tiles and slots that n_live (read on the device)
+// leaves, so a dead tile costs nothing.
 //   bin     a stable counting sort by set: per-chunk histograms (one warp
-//           per 8192-lane chunk, __match_any_sync ranks lanes of one set
-//           within a 32-lane step) and an exclusive scan of the set-major
-//           histogram; then one CTA per chunk ranks the chunk's lanes by set
-//           in shared memory (each warp counts its stretch, a scan over warps
-//           and sets gives each (warp, set) its local offset, a second
-//           ranking places the lanes) and writes each set's run of the chunk
-//           to its global offset, consecutive threads to consecutive
-//           addresses, as packed 8-byte (index, payload) words and positions;
+//           per live 8192-lane chunk, __match_any_sync ranks lanes of one
+//           set within a 32-lane step) laid out set-major with the live
+//           chunk count as the stride, so the live columns are contiguous,
+//           and a single-pass scan of them; then one CTA per live chunk
+//           ranks the chunk's lanes by set in shared memory (each warp
+//           counts its stretch, a scan over warps and sets gives each
+//           (warp, set) its local offset, a second ranking places the
+//           lanes) and writes each set's run of the chunk to its global
+//           offset, consecutive threads to consecutive addresses, as
+//           packed 8-byte (index, payload) words and positions;
 //   walk    one warp per set, lane j holding slot j.  Arrivals are taken 32
 //           at a time (the next batch loads meanwhile).  A batch is cut into
 //           sub-steps at triggers; in each, an arrival is filtered if its
@@ -42,26 +48,43 @@
 //           copy of the resident indices, 16 bytes a load) or an earlier
 //           arrival's of the sub-step (__match_any_sync), and the others
 //           take slots in lane order, the one that fills the set being the
-//           trigger.  Each slot's owner folds its filtered arrivals in lane
-//           order from the warp's shared copy of the batch, so f32 sums add
-//           in the oracle's (stream) order.  Tagged, each slot folds under
-//           its resident's family, which the binning packs into bit 31 of
-//           the arrival's position (positions are below 2^31).  A full set is written back into
-//           its own (already consumed) stretch of the binned arrays and its
-//           trigger's stream position is marked;
-//   emit    no sorts: a flush group's rank within its partition is an
-//           exclusive scan of its partition's trigger marks over stream
-//           positions (triggers are distinct positions), a filtered lane's
-//           tail slot a scan of its partition's filtered marks (one scan
-//           pass a partition), drain offsets a scan of the per-set drain
-//           counts in partition-major set order.
+//           trigger.  Every arrival's mark (kept, trigger or filtered, and
+//           its set's partition) goes to its stream position: no memset.
+//           Untagged (walk_set), each slot's owner folds its filtered
+//           arrivals in lane order from the warp's shared copy of the batch,
+//           so f32 sums add in the oracle's (stream) order, and a full set
+//           is written back into its own (already consumed) stretch of the
+//           binned arrays.  Tagged, the walk is split in two: the chain
+//           (one warp a set) reads indices and positions only, 8 bytes an
+//           arrival, and writes each arrival's slot (and whether it was
+//           kept) and each flush group's end; the fold (fold_emit) then
+//           takes the groups, independent of each other (about 590,000 at
+//           kron-20's PageRank stream against 1024 chains), one warp a span
+//           of 32 of a set's groups: each slot's filtered arrivals fold in
+//           stream order under its resident's family (the tag table's
+//           entry for its index), and the group goes to its place in the
+//           front;
+//   emit    no sorts: a flush group's rank within its partition and a
+//           filtered lane's tail slot come from one single-pass scan of the
+//           marks over stream positions (decoupled look-back, 4096 lanes a
+//           tile, a thread's 16 marks one 16-byte load) that counts up to
+//           eight partitions' triggers and filtered lanes at once, from the
+//           partition in each mark byte (more partitions take more passes
+//           of the same kernel, eight a pass); drain offsets are a scan of
+//           the per-set drain counts in partition-major set order; the dead
+//           lanes go to [survivors, survivors + n - n_live) in one
+//           contiguous copy, 16-byte stores (and loads where the input's
+//           alignment allows); kept entries are placed one thread a live
+//           binned slot (untagged) or by the fold (tagged).
 //
 // What bounds it on an H100: the walk.  It is sequential within a set, so
 // the busiest set's arrival count sets the time: one sub-step per batch of
 // 32 arrivals plus one per flush (kron-20 PageRank: 86,047 arrivals and
 // about a thousand flushes in the busiest of 1024 sets, against a mean of
-// 30,666 arrivals), each a chain of shared-memory loads, ballots and folds
-// in one warp.  The byte bound is 8 B read and 13 B written a lane.
+// 30,666 arrivals), each a chain of shared-memory loads and ballots in one
+// warp; the tagged chain leaves the folds to a parallel pass.  On a padded
+// stream (a serving tick: 2.5e8 lanes, 3.1e7 live) the dead lanes' copy is
+// the floor.  The byte bound is 8 B read and 13 B written a lane.
 // Spreading a hot set over several warps is later work.
 //
 // The windowed body (win_reorder) reorders independent windows of w lanes
@@ -122,19 +145,33 @@ constexpr int kMaxSets = 8192;    // binning keeps num_sets counters a warp
 constexpr int kScatterMaxWarps = 8;
 constexpr long long kMaxSmem = 232448;  // shared memory a block can use (227 KB)
 constexpr int kScanThreads = 256;
-constexpr int kScanItems = 8;
-constexpr int kScanTile = kScanThreads * kScanItems;
 constexpr int kWalkWarps = 4;
+constexpr int kFoldWarps = 8;
 constexpr int kEmitThreads = 256;
+// the single-pass scans: a tile of 4096 entries, 16 a thread
+constexpr int kTileThreads = 256;
+constexpr int kTileItems = 16;
+constexpr int kTile = kTileThreads * kTileItems;
+constexpr int kTileWarps = kTileThreads / kWarp;
+constexpr int kMarkWords = 8;         // partitions one mark-scan pass counts
+constexpr int kMaxMarkParts = 64;     // a mark byte: kind (2 bits), partition (6 bits)
+constexpr int kTickHist = 0;          // ticket counters: the histogram scan's,
+constexpr int kTickScatter = 1;       // the scatter's,
+constexpr int kTickMark = 2;          // then one a mark-scan pass
+constexpr unsigned long long kValid = 1ull << 63;  // a published status word
 
 enum Op { kNone = 0, kAdd = 1, kMin = 2, kMax = 3, kTagged = 4 };
 enum Mark : uint8_t { kKept = 0, kTrigger = 1, kFiltered = 2 };
+constexpr int kKeptCode = 32;  // the chain's code of an arrival: its slot, | 32 when kept
 
 __device__ __forceinline__ int live_count(const int* n_live, long long n) {
   if (n_live == nullptr) return (int)n;
   const int m = *n_live;
   return m < 0 ? 0 : (m > n ? (int)n : m);
 }
+
+// histogram columns (kChunk-lane chunks) of the live prefix
+__device__ __forceinline__ int live_chunks(long long m) { return (int)((m + kChunk - 1) / kChunk); }
 
 // uint32 Knuth hash of the block key idx // epb (floor division)
 __device__ __forceinline__ int hash_set(int idx, int epb, int num_sets) {
@@ -153,31 +190,206 @@ __device__ __forceinline__ T combine(T a, T b) {
   return a;
 }
 
-// a slot's fold of one filtered arrival; tagged, by the slot's family
-template <typename T, int OP>
-__device__ __forceinline__ T fold(T a, T b, bool add) {
-  if (OP == kTagged) return add ? a + b : (b < a ? b : a);
-  return combine<T, OP>(a, b);
+// the tagged fold of one filtered arrival, by the slot's family (add or min)
+template <typename T>
+__device__ __forceinline__ T tagged_fold(T a, T b, bool add) {
+  return add ? a + b : (b < a ? b : a);
 }
 
-constexpr int kPosMask = INT_MAX;  // a binned position; bit 31 = the add family
 
 struct Geo {
   long long n;
   int num_sets;
   int slots;
   int epb;
-  int nchunks;
+  int nchunks;          // histogram columns of n lanes
   int nparts;           // partitions: sets stripe as set % nparts
   const uint8_t* tags;  // op = tagged: the family of each index (1 = add)
   int ntags;
 };
 
-// bit 31 of a binned position: set when idx's family is add
-__device__ __forceinline__ int family_bit(int idx, const Geo& g) {
-  if (g.tags == nullptr) return 0;
-  const int i = idx < 0 ? 0 : (idx >= g.ntags ? g.ntags - 1 : idx);
-  return g.tags[i] != 0 ? INT_MIN : 0;
+// the partition field of a set's mark bytes (unused past kMaxMarkParts
+// partitions, where the mark scan hashes the lane's index again)
+__device__ __forceinline__ uint8_t mark_part(int s, const Geo& g) {
+  return (uint8_t)(g.nparts <= kMaxMarkParts ? (s % g.nparts) << 2 : 0);
+}
+
+// per-partition layout, written by finalize: the front's first slot, its
+// flush groups, the tail's first slot and its length
+struct Part {
+  int front;
+  int flushes;
+  int tail;
+  int filtered;
+};
+
+// ------------------------------------------------------------- workspace
+struct Work {
+  int* hist;                 // [nchunks * num_sets] set-major, live chunk count as the stride
+  unsigned long long* hstat; // the histogram scan's status words, two a tile
+  unsigned long long* mstat; // the mark scan's, 2 * kMarkWords a tile, two buffers
+  long long mstride;         // words of one mark-scan buffer
+  int* tick;                 // ticket counters
+  int nticks;
+  int* set_start;
+  int* nflush;
+  int* ndrain;
+  int* drain_off;
+  int* gkey;                 // [num_sets + 1] the tagged fold's spans before each set key
+  int* meta;                 // {flush groups, survivors, partitions of the layout}
+  Part* part;
+  int* pd;
+  int* pf;
+  uint2* b_iv;               // binned (index, payload bits), set-major
+  int* b_pos;                // binned positions
+  uint8_t* mark;             // by stream position: kind | partition << 2
+  int* rank;                 // by stream position: a trigger's flush rank in its partition
+  uint8_t* code;             // tagged chain, by binned slot: the arrival's slot | kKeptCode
+  int* gend;                 // tagged chain: each flush group's end, set s from set_start[s] / slots
+};
+
+long long align(long long b) { return (b + 255) / 256 * 256; }
+
+long long carve(char* base, long long n, int num_sets, int nparts, Work* w) {
+  const long long nchunks = (n + kChunk - 1) / kChunk;
+  const long long h = nchunks * num_sets;
+  const long long htiles = (h + kTile - 1) / kTile, mtiles = (n + kTile - 1) / kTile;
+  const int passes = (nparts + kMarkWords - 1) / kMarkWords;
+  long long off = 0;
+  auto take = [&](long long bytes) {
+    char* p = base ? base + off : nullptr;
+    off += align(bytes);
+    return p;
+  };
+  Work v;
+  v.hist = (int*)take(h * 4);
+  v.hstat = (unsigned long long*)take(std::max(htiles, 1LL) * 2 * 8);
+  v.mstride = std::max(mtiles, 1LL) * 2 * kMarkWords;
+  v.mstat = (unsigned long long*)take(2 * v.mstride * 8);
+  v.nticks = kTickMark + passes;
+  v.tick = (int*)take(v.nticks * 4LL);
+  v.set_start = (int*)take((num_sets + 1) * 4LL);
+  v.nflush = (int*)take(num_sets * 4LL);
+  v.ndrain = (int*)take(num_sets * 4LL);
+  v.drain_off = (int*)take(num_sets * 4LL);
+  v.gkey = (int*)take((num_sets + 1) * 4LL);
+  v.meta = (int*)take(16);
+  v.part = (Part*)take(nparts * (long long)sizeof(Part));
+  v.pd = (int*)take((nparts + 1) * 4LL);
+  v.pf = (int*)take((nparts + 1) * 4LL);
+  v.b_iv = (uint2*)take(n * 8);
+  v.b_pos = (int*)take(n * 4);
+  v.mark = (uint8_t*)take(n);
+  v.rank = (int*)take(n * 4);
+  v.code = (uint8_t*)take(n);
+  v.gend = (int*)take((n / 2 + 1) * 4);  // slots >= 2; one slot needs none
+  if (w) *w = v;
+  return off;
+}
+
+// ---------------------------------------------------- single-pass scans
+__device__ __forceinline__ void store_status(unsigned long long* p, unsigned long long w) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(w) : "memory");
+}
+__device__ __forceinline__ unsigned long long load_status(const unsigned long long* p) {
+  unsigned long long w;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(w) : "l"(p) : "memory");
+  return w;
+}
+
+// lanes up to and including `last`
+__device__ __forceinline__ unsigned upto(int last) { return last >= 31 ? kFull : (2u << last) - 1u; }
+
+__device__ __forceinline__ unsigned long long warp_sum64(unsigned long long x) {
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(kFull, x, off);
+  return x;
+}
+
+// Decoupled look-back of tile t (t > 0) by one warp, over W-word status
+// records: st[u * 2W, +W) holds tile u's aggregate, st[u * 2W + W, +W) its
+// inclusive prefix, each word published alone (bit 63 valid; the sum
+// of any prefix of tiles fits in the other 63 bits).  Lane i reads tile
+// t-1-i (then 32 further back while no inclusive prefix was found); the
+// nearest inclusive prefix and the aggregates after it make the exclusive
+// prefix.  Returns word `lane` of it (lanes < W).  A predecessor that never
+// publishes (a fault) traps after about a second instead of hanging.
+template <int W>
+__device__ unsigned long long look_back(const unsigned long long* st, long long t) {
+  const int lane = threadIdx.x % kWarp;
+  long long polls = 0;
+  unsigned long long acc[W];
+#pragma unroll
+  for (int q = 0; q < W; ++q) acc[q] = 0;
+  for (long long top = t - 1;; top -= kWarp) {
+    const long long u = top - lane;
+    unsigned long long v[W];
+    int state = u < 0 ? 2 : 0;  // 0 not ready, 1 aggregate, 2 inclusive prefix
+#pragma unroll
+    for (int q = 0; q < W; ++q) v[q] = 0;
+    bool found;
+    for (;;) {
+      if (state < 2) {
+        unsigned long long x[W];
+        bool ok = true;
+#pragma unroll
+        for (int q = 0; q < W; ++q) {
+          x[q] = load_status(st + u * 2 * W + W + q);
+          ok = ok && (x[q] & kValid);
+        }
+        if (!ok && state == 0) {
+          ok = true;
+#pragma unroll
+          for (int q = 0; q < W; ++q) {
+            x[q] = load_status(st + u * 2 * W + q);
+            ok = ok && (x[q] & kValid);
+          }
+          if (ok) state = 1;
+        } else if (ok) {
+          state = 2;
+        }
+        if (ok) {
+#pragma unroll
+          for (int q = 0; q < W; ++q) v[q] = x[q] & ~kValid;
+        }
+      }
+      const unsigned ready = __ballot_sync(kFull, state >= 1);
+      const unsigned incl = __ballot_sync(kFull, state == 2);
+      const int first = incl ? __ffs(incl) - 1 : kWarp;
+      const unsigned need = first < kWarp ? upto(first) : kFull;
+      if ((ready & need) == need) {
+#pragma unroll
+        for (int q = 0; q < W; ++q) acc[q] += warp_sum64((need >> lane & 1u) ? v[q] : 0ull);
+        found = first < kWarp;
+        break;
+      }
+      if (++polls > (1LL << 25)) __trap();
+      __nanosleep(32);
+    }
+    if (found) break;
+  }
+  unsigned long long mine = 0;
+#pragma unroll
+  for (int q = 0; q < W; ++q)
+    if (lane == q) mine = acc[q];
+  return mine;
+}
+
+// Tile t's exclusive prefix by warp 0 (lane q < W holds word q of the
+// tile's aggregate in `agg`): publishes the aggregate, looks back, publishes
+// the inclusive prefix, and leaves the exclusive prefix in excl[0, W).
+template <int W>
+__device__ void tile_prefix(unsigned long long* st, long long t, unsigned long long agg,
+                            unsigned long long* excl) {
+  const int lane = threadIdx.x % kWarp;
+  unsigned long long ex = 0;
+  if (t > 0) {
+    if (lane < W) store_status(st + t * 2 * W + lane, agg | kValid);
+    ex = look_back<W>(st, t);
+  }
+  if (lane < W) {
+    store_status(st + t * 2 * W + W + lane, (ex + agg) | kValid);
+    excl[lane] = ex;
+  }
 }
 
 // ---------------------------------------------------------------- binning
@@ -196,27 +408,104 @@ __device__ void count_sets(const int* idx, long long p0, long long p1, const Geo
   }
 }
 
-// Count: one warp per kChunk-lane chunk counts each set's live lanes into
-// hist[s * nchunks + c].
+// Count: warps stride over the live chunks; each counts its chunk's lanes
+// of every set into hist[s * live chunks + c].  The CTAs also zero the
+// scans' status words of the live tiles and the ticket counters.
 __global__ void __launch_bounds__(kBinWarps * kWarp)
-bin_count(const int* idx, const int* n_live, Geo g, int* hist) {
+bin_count(const int* idx, const int* n_live, Geo g, Work w) {
   extern __shared__ int counters[];
+  const long long m = live_count(n_live, g.n);
+  const int lc = live_chunks(m);
+  {
+    const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    const long long hz = 2 * (((long long)g.num_sets * lc + kTile - 1) / kTile);
+    const long long mz = 2LL * kMarkWords * ((m + kTile - 1) / kTile);
+    for (long long i = tid; i < hz; i += stride) w.hstat[i] = 0;
+    for (long long i = tid; i < mz; i += stride) w.mstat[i] = w.mstat[w.mstride + i] = 0;
+    for (long long i = tid; i < w.nticks; i += stride) w.tick[i] = 0;
+  }
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int chunk = blockIdx.x * kBinWarps + warp;
-  if (chunk >= g.nchunks) return;  // whole warps only; no block barrier below
   int* cnt = counters + warp * g.num_sets;
-  for (int s = lane; s < g.num_sets; s += kWarp) cnt[s] = 0;
-  __syncwarp();
-  const long long p0 = (long long)chunk * kChunk;
-  count_sets(idx, p0, min(p0 + kChunk, (long long)live_count(n_live, g.n)), g, cnt);
-  for (int s = lane; s < g.num_sets; s += kWarp) hist[(long long)s * g.nchunks + chunk] = cnt[s];
+  for (int c = blockIdx.x * kBinWarps + warp; c < lc; c += gridDim.x * kBinWarps) {
+    for (int s = lane; s < g.num_sets; s += kWarp) cnt[s] = 0;
+    __syncwarp();
+    const long long p0 = (long long)c * kChunk;
+    count_sets(idx, p0, min(p0 + kChunk, m), g, cnt);
+    __syncwarp();
+    for (int s = lane; s < g.num_sets; s += kWarp) w.hist[(long long)s * lc + c] = cnt[s];
+    __syncwarp();
+  }
+}
+
+// The live histogram's exclusive scan in place, one pass: persistent CTAs
+// take 4096-entry tiles by ticket, a thread's 16 entries four 16-byte loads.
+__global__ void __launch_bounds__(kTileThreads)
+hist_scan(const int* n_live, Geo g, Work w) {
+  __shared__ uint32_t warp_tot[kTileWarps];
+  __shared__ unsigned long long excl[1];
+  __shared__ long long tile_sh;
+  const long long m = live_count(n_live, g.n);
+  const long long h = (long long)g.num_sets * live_chunks(m);
+  const long long tiles = (h + kTile - 1) / kTile;
+  const int tid = threadIdx.x, lane = tid % kWarp, wid = tid / kWarp;
+  for (;;) {
+    if (tid == 0) tile_sh = atomicAdd(&w.tick[kTickHist], 1);
+    __syncthreads();
+    const long long t = tile_sh;
+    if (t >= tiles) break;
+    const long long j0 = t * kTile + (long long)tid * kTileItems;
+    int4 x[kTileItems / 4];
+    uint32_t sum = 0;
+#pragma unroll
+    for (int i = 0; i < kTileItems / 4; ++i) {
+      x[i] = j0 < h ? reinterpret_cast<const int4*>(w.hist + j0)[i] : make_int4(0, 0, 0, 0);
+      const long long j = j0 + 4 * i;  // entries past h are another column's garbage
+      if (j >= h) x[i].x = 0;
+      if (j + 1 >= h) x[i].y = 0;
+      if (j + 2 >= h) x[i].z = 0;
+      if (j + 3 >= h) x[i].w = 0;
+      sum += x[i].x + x[i].y + x[i].z + x[i].w;
+    }
+    uint32_t inc = sum;
+    for (int off = 1; off < kWarp; off <<= 1) {
+      const uint32_t y = __shfl_up_sync(kFull, inc, off);
+      if (lane >= off) inc += y;
+    }
+    if (lane == kWarp - 1) warp_tot[wid] = inc;
+    __syncthreads();
+    uint32_t before = inc - sum, total = 0;
+    for (int k = 0; k < kTileWarps; ++k) {
+      if (k < wid) before += warp_tot[k];
+      total += warp_tot[k];
+    }
+    if (wid == 0) tile_prefix<1>(w.hstat, t, total, excl);
+    __syncthreads();
+    if (j0 < h) {
+      uint32_t run = (uint32_t)excl[0] + before;
+#pragma unroll
+      for (int i = 0; i < kTileItems / 4; ++i) {
+        const int4 c = x[i];
+        int4 o;
+        o.x = (int)run;
+        o.y = (int)(run += c.x);
+        o.z = (int)(run += c.y);
+        o.w = (int)(run += c.z);
+        run += c.w;
+        reinterpret_cast<int4*>(w.hist + j0)[i] = o;
+      }
+    }
+    __syncthreads();  // tile_sh and warp_tot are read before the next tile
+  }
 }
 
 // set_start[s] = first set-major slot of set s; set_start[num_sets] = n_live
-__global__ void set_starts(const int* hist, const int* n_live, Geo g, int* set_start) {
+__global__ void set_starts(const int* n_live, Geo g, Work w) {
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s < g.num_sets) set_start[s] = hist[(long long)s * g.nchunks];
-  if (s == g.num_sets) set_start[s] = live_count(n_live, g.n);
+  const long long m = live_count(n_live, g.n);
+  const int lc = live_chunks(m);
+  if (s < g.num_sets) w.set_start[s] = lc ? w.hist[(long long)s * lc] : 0;
+  if (s == g.num_sets) w.set_start[s] = (int)m;
 }
 
 // shared memory of bin_scatter with `warps` warps: the chunk's lanes laid
@@ -226,82 +515,89 @@ long long scatter_smem(int num_sets, int warps) {
   return (long long)kChunk * (8 + 2) + num_sets * 4LL + (long long)warps * num_sets * 2;
 }
 
-// Scatter: one CTA per chunk ranks the chunk's lanes by set in shared memory,
-// stable by stream position, then writes each set's run of the chunk to the
-// set's scanned offset hist[s * nchunks + c], so consecutive threads write
-// consecutive addresses.  Warp w takes the w-th stretch of the chunk: it
-// counts its lanes per set, a per-set scan over the warps and a block scan
-// over the sets give each (warp, set) its local offset, and a second ranking
-// places the lanes.
+// Scatter: persistent CTAs take the live chunks by ticket; a CTA ranks a
+// chunk's lanes by set in shared memory, stable by stream position, then
+// writes each set's run of the chunk to the set's scanned offset
+// hist[s * live chunks + c], so consecutive threads write consecutive
+// addresses.  Warp w takes the w-th stretch of the chunk: it counts its
+// lanes per set, a per-set scan over the warps and a block scan over the
+// sets give each (warp, set) its local offset, and a second ranking places
+// the lanes.
 __global__ void __launch_bounds__(kScatterMaxWarps * kWarp)
-bin_scatter(const int* idx, const uint32_t* val, const int* n_live, Geo g, const int* hist,
-            uint2* b_iv, int* b_pos) {
+bin_scatter(const int* idx, const uint32_t* val, const int* n_live, Geo g, Work w) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int warp_sum[kScatterMaxWarps];
+  __shared__ int chunk_sh;
   const int warps = blockDim.x / kWarp;
   uint2* buf_iv = reinterpret_cast<uint2*>(smem);
   int* delta = reinterpret_cast<int*>(buf_iv + kChunk);  // global slot - local slot, by set
   uint16_t* buf_pos = reinterpret_cast<uint16_t*>(delta + g.num_sets);
   uint16_t* wcnt = buf_pos + kChunk;  // [warps][num_sets]
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int chunk = blockIdx.x;
   const long long m = live_count(n_live, g.n);
-  const long long p0 = (long long)chunk * kChunk;
-  const int len = (int)max(0LL, min((long long)kChunk, m - p0));
-  if (len == 0) return;  // the whole block
+  const int lc = live_chunks(m);
   const int per = kChunk / warps;
-  const int w0 = warp * per, w1 = min(w0 + per, len);  // this warp's stretch
   uint16_t* cnt = wcnt + warp * g.num_sets;
-  for (int s = lane; s < g.num_sets; s += kWarp) cnt[s] = 0;
-  __syncwarp();
-  count_sets(idx, p0 + w0, p0 + w1, g, cnt);
-  __syncthreads();
-  // local layout: set-major, warps in order within a set
-  const int sper = (g.num_sets + blockDim.x - 1) / blockDim.x;
-  const int s0 = min((int)threadIdx.x * sper, g.num_sets), s1 = min(s0 + sper, g.num_sets);
-  int mine = 0;
-  for (int s = s0; s < s1; ++s)
-    for (int w = 0; w < warps; ++w) mine += wcnt[w * g.num_sets + s];
-  int inc = mine;
-  for (int off = 1; off < kWarp; off <<= 1) {
-    const int x = __shfl_up_sync(kFull, inc, off);
-    if (lane >= off) inc += x;
-  }
-  if (lane == kWarp - 1) warp_sum[warp] = inc;
-  __syncthreads();
-  int run = inc - mine;
-  for (int w = 0; w < warp; ++w) run += warp_sum[w];
-  for (int s = s0; s < s1; ++s) {
-    delta[s] = hist[(long long)s * g.nchunks + chunk] - run;
-    for (int w = 0; w < warps; ++w) {
-      const int c = wcnt[w * g.num_sets + s];
-      wcnt[w * g.num_sets + s] = (uint16_t)run;
-      run += c;
-    }
-  }
-  __syncthreads();
-  for (int q0 = w0; q0 < w1; q0 += kWarp) {
-    const int q = q0 + lane;
-    const bool live = q < w1;
-    const int x = live ? idx[p0 + q] : 0;
-    const int s = live ? hash_set(x, g.epb, g.num_sets) : g.num_sets;
-    const unsigned peers = __match_any_sync(kFull, s);
-    const int before = __popc(peers & ((1u << lane) - 1u));
-    if (live) {
-      const int at = cnt[s] + before;
-      buf_iv[at] = make_uint2((uint32_t)x, val[p0 + q]);
-      buf_pos[at] = (uint16_t)q;
-    }
+  for (;;) {
+    if (threadIdx.x == 0) chunk_sh = atomicAdd(&w.tick[kTickScatter], 1);
+    __syncthreads();
+    const int chunk = chunk_sh;
+    if (chunk >= lc) break;
+    const long long p0 = (long long)chunk * kChunk;
+    const int len = (int)min((long long)kChunk, m - p0);
+    const int w0 = warp * per, w1 = min(w0 + per, len);  // this warp's stretch
+    for (int s = lane; s < g.num_sets; s += kWarp) cnt[s] = 0;
     __syncwarp();
-    if (live && before == 0) cnt[s] += __popc(peers);
-    __syncwarp();
-  }
-  __syncthreads();
-  for (int q = threadIdx.x; q < len; q += blockDim.x) {
-    const uint2 iv = buf_iv[q];
-    const int at = q + delta[hash_set((int)iv.x, g.epb, g.num_sets)];
-    b_iv[at] = iv;
-    b_pos[at] = (int)(p0 + buf_pos[q]) | family_bit((int)iv.x, g);
+    count_sets(idx, p0 + w0, p0 + w1, g, cnt);
+    __syncthreads();
+    // local layout: set-major, warps in order within a set
+    const int sper = (g.num_sets + blockDim.x - 1) / blockDim.x;
+    const int s0 = min((int)threadIdx.x * sper, g.num_sets), s1 = min(s0 + sper, g.num_sets);
+    int mine = 0;
+    for (int s = s0; s < s1; ++s)
+      for (int v = 0; v < warps; ++v) mine += wcnt[v * g.num_sets + s];
+    int inc = mine;
+    for (int off = 1; off < kWarp; off <<= 1) {
+      const int x = __shfl_up_sync(kFull, inc, off);
+      if (lane >= off) inc += x;
+    }
+    if (lane == kWarp - 1) warp_sum[warp] = inc;
+    __syncthreads();
+    int run = inc - mine;
+    for (int v = 0; v < warp; ++v) run += warp_sum[v];
+    for (int s = s0; s < s1; ++s) {
+      delta[s] = w.hist[(long long)s * lc + chunk] - run;
+      for (int v = 0; v < warps; ++v) {
+        const int c = wcnt[v * g.num_sets + s];
+        wcnt[v * g.num_sets + s] = (uint16_t)run;
+        run += c;
+      }
+    }
+    __syncthreads();
+    for (int q0 = w0; q0 < w1; q0 += kWarp) {
+      const int q = q0 + lane;
+      const bool live = q < w1;
+      const int x = live ? idx[p0 + q] : 0;
+      const int s = live ? hash_set(x, g.epb, g.num_sets) : g.num_sets;
+      const unsigned peers = __match_any_sync(kFull, s);
+      const int before = __popc(peers & ((1u << lane) - 1u));
+      if (live) {
+        const int at = cnt[s] + before;
+        buf_iv[at] = make_uint2((uint32_t)x, val[p0 + q]);
+        buf_pos[at] = (uint16_t)q;
+      }
+      __syncwarp();
+      if (live && before == 0) cnt[s] += __popc(peers);
+      __syncwarp();
+    }
+    __syncthreads();
+    for (int q = threadIdx.x; q < len; q += blockDim.x) {
+      const uint2 iv = buf_iv[q];
+      const int at = q + delta[hash_set((int)iv.x, g.epb, g.num_sets)];
+      w.b_iv[at] = iv;
+      w.b_pos[at] = (int)(p0 + buf_pos[q]);
+    }
+    __syncthreads();  // the shared buffers and chunk_sh are read before the next chunk
   }
 }
 
@@ -314,9 +610,6 @@ template <>
 __device__ __forceinline__ int from_bits<int>(uint32_t b) { return (int)b; }
 __device__ __forceinline__ uint32_t to_bits(float v) { return __float_as_uint(v); }
 __device__ __forceinline__ uint32_t to_bits(int v) { return (uint32_t)v; }
-
-// lanes up to and including `last`
-__device__ __forceinline__ unsigned upto(int last) { return last >= 31 ? kFull : (2u << last) - 1u; }
 
 // The warp's shared copies of walk_set: the batch's payload bits and
 // positions, each slot's index, the lane a new slot takes its arrival from,
@@ -346,10 +639,11 @@ struct WalkScratch {
 // batch, so f32 sums add in the oracle's order.
 //
 // Src gives arrival k of the set (load: packed (index, payload bits) and
-// position, bit 31 of the position the add family), takes kept entry q of
+// position), takes kept entry q of
 // the set (put: flush groups first, then the drain group), and marks an
-// arrival's position as a trigger or filtered (mark).  Returns the number
-// of flush groups; `drained` is the drain group's size.
+// arrival's position as a trigger or filtered (mark; with Src::kMarkAll
+// kept arrivals too).  Returns the number of flush groups; `drained` is the
+// drain group's size.
 template <typename T, int OP, class Src>
 __device__ int walk_set(const Src& src, int len, int slots, const WalkScratch& sh,
                         int& drained) {
@@ -360,7 +654,6 @@ __device__ int walk_set(const Src& src, int len, int slots, const WalkScratch& s
   const unsigned below = (1u << lane) - 1u;
   int r_idx = 0, r_pos = 0;  // slot `lane` of this set
   T r_val = T(0);
-  bool r_add = false;        // tagged: the slot's family
   int cnt = 0, wc = 0, flushes = 0;  // warp-uniform
   uint2 nx_iv = make_uint2(0, 0);
   int nx_pos = 0;
@@ -370,7 +663,7 @@ __device__ int walk_set(const Src& src, int len, int slots, const WalkScratch& s
     const unsigned valid = upto(steps - 1);
     const bool have = lane < steps;
     const int ei = (int)nx_iv.x;
-    const int ep = nx_pos & kPosMask;
+    const int ep = nx_pos;
     sh.payload[lane] = nx_iv.y;
     sh.position[lane] = nx_pos;
     // the next batch is never put before it is loaded (a flush group is
@@ -424,8 +717,7 @@ __device__ int walk_set(const Src& src, int len, int slots, const WalkScratch& s
         const int t = sh.taken_from[lane];
         r_idx = sh.resident[lane];
         r_val = from_bits<T>(sh.payload[t]);
-        r_pos = sh.position[t] & kPosMask;
-        r_add = sh.position[t] < 0;
+        r_pos = sh.position[t];
       }
       if (OP != kNone && fm) {
         // each slot's owner folds the arrivals that name it, in lane order
@@ -433,10 +725,10 @@ __device__ int walk_set(const Src& src, int len, int slots, const WalkScratch& s
         for (int q = 0; q < kWarp / 4; ++q) {
           const int4 o = into4[q];
           const uint4 b = pay4[q];
-          if (o.x == lane) r_val = fold<T, OP>(r_val, from_bits<T>(b.x), r_add);
-          if (o.y == lane) r_val = fold<T, OP>(r_val, from_bits<T>(b.y), r_add);
-          if (o.z == lane) r_val = fold<T, OP>(r_val, from_bits<T>(b.z), r_add);
-          if (o.w == lane) r_val = fold<T, OP>(r_val, from_bits<T>(b.w), r_add);
+          if (o.x == lane) r_val = combine<T, OP>(r_val, from_bits<T>(b.x));
+          if (o.y == lane) r_val = combine<T, OP>(r_val, from_bits<T>(b.y));
+          if (o.z == lane) r_val = combine<T, OP>(r_val, from_bits<T>(b.z));
+          if (o.w == lane) r_val = combine<T, OP>(r_val, from_bits<T>(b.w));
         }
       }
       __syncwarp();  // the shared copies are read before they change
@@ -450,8 +742,13 @@ __device__ int walk_set(const Src& src, int len, int slots, const WalkScratch& s
       }
       a = last + 1;
     }
-    if (have && ((filtered | triggers) >> lane & 1u))
+    if constexpr (Src::kMarkAll) {
+      if (have)
+        src.mark(ep, (filtered >> lane & 1u) ? kFiltered
+                     : (triggers >> lane & 1u) ? kTrigger : kKept);
+    } else if (have && ((filtered | triggers) >> lane & 1u)) {
       src.mark(ep, (filtered >> lane & 1u) ? kFiltered : kTrigger);
+    }
   }
   if (lane < cnt) src.put(wc + lane, r_idx, to_bits(r_val), r_pos);  // drain group
   drained = cnt;
@@ -460,12 +757,14 @@ __device__ int walk_set(const Src& src, int len, int slots, const WalkScratch& s
 
 // walk_set's view of one set of the whole-stream body: its stretch of the
 // binned arrays, into whose consumed part the kept entries are put, and the
-// stream's marks
+// stream's marks (every arrival's: the marks are not cleared first)
 struct BinnedSet {
+  static constexpr bool kMarkAll = true;
   uint2* b_iv;
   int* b_pos;
   uint8_t* marks;
   int start;
+  uint8_t part;  // the set's partition field of a mark byte
   __device__ void load(int k, uint2& iv, int& pos) const {
     iv = b_iv[start + k];
     pos = b_pos[start + k];
@@ -474,14 +773,13 @@ struct BinnedSet {
     b_iv[start + q] = make_uint2((uint32_t)idx, bits);
     b_pos[start + q] = pos;
   }
-  __device__ void mark(int pos, uint8_t kind) const { marks[pos] = kind; }
+  __device__ void mark(int pos, uint8_t kind) const { marks[pos] = kind | part; }
 };
 
 // One warp per set (kWalkWarps a CTA).
 template <typename T, int OP>
 __global__ void __launch_bounds__(kWalkWarps * kWarp)
-walk(const int* set_start, Geo g, uint2* b_iv, int* b_pos, uint8_t* mark, int* nflush,
-     int* ndrain) {
+walk(Geo g, Work w) {
   __shared__ __align__(16) uint32_t payload[kWalkWarps][kWarp];
   __shared__ __align__(16) int position[kWalkWarps][kWarp];
   __shared__ __align__(16) int resident[kWalkWarps][kWarp];
@@ -492,12 +790,111 @@ walk(const int* set_start, Geo g, uint2* b_iv, int* b_pos, uint8_t* mark, int* n
   if (s >= g.num_sets) return;
   const WalkScratch sh{payload[wid], position[wid], resident[wid], taken_from[wid],
                        folds_into[wid]};
-  const BinnedSet src{b_iv, b_pos, mark, set_start[s]};
+  const BinnedSet src{w.b_iv, w.b_pos, w.mark, w.set_start[s], mark_part(s, g)};
   int drained;
-  const int flushes = walk_set<T, OP>(src, set_start[s + 1] - set_start[s], g.slots, sh, drained);
+  const int flushes =
+      walk_set<T, OP>(src, w.set_start[s + 1] - w.set_start[s], g.slots, sh, drained);
   if (lane == 0) {
-    nflush[s] = flushes;
-    ndrain[s] = drained;
+    w.nflush[s] = flushes;
+    w.ndrain[s] = drained;
+  }
+}
+
+// The tagged walk's chain: one warp walks one set's arrivals as walk_set
+// does (32 a batch, sub-steps cut at triggers), but reads only their
+// indices and positions and folds nothing.  Each arrival's code (the slot
+// it takes, | kKeptCode, or the slot it folds into) goes to its binned
+// slot, its mark (kind and partition) to its stream position, and each
+// flush group's end (the arrival after its trigger) to gend; the folds
+// are fold_emit's.
+__global__ void __launch_bounds__(kWalkWarps * kWarp)
+chain(Geo g, Work w) {
+  __shared__ __align__(16) int resident[kWalkWarps][kWarp];
+  const int lane = threadIdx.x % kWarp, wid = threadIdx.x / kWarp;
+  const int s = blockIdx.x * kWalkWarps + wid;
+  if (s >= g.num_sets) return;
+  int* res = resident[wid];
+  const int4* res4 = reinterpret_cast<const int4*>(res);
+  const unsigned below = (1u << lane) - 1u;
+  const int slots = g.slots;
+  const int start = w.set_start[s], len = w.set_start[s + 1] - start;
+  int* gend = w.gend + start / slots;
+  const uint8_t part = mark_part(s, g);
+  const int* b_idx = reinterpret_cast<const int*>(w.b_iv) + 2LL * start;  // the index words
+  const int* b_pos = w.b_pos + start;
+  int cnt = 0, groups = 0;  // warp-uniform
+  // the next two batches load while this one is walked
+  int nx_idx = 0, nx_pos = 0, nx2_idx = 0, nx2_pos = 0;
+  if (lane < len) {
+    nx_idx = b_idx[2 * lane];
+    nx_pos = b_pos[lane];
+  }
+  if (kWarp + lane < len) {
+    nx2_idx = b_idx[2 * (kWarp + lane)];
+    nx2_pos = b_pos[kWarp + lane];
+  }
+  for (int k0 = 0; k0 < len; k0 += kWarp) {
+    const int steps = min(kWarp, len - k0);
+    const unsigned valid = upto(steps - 1);
+    const int ei = nx_idx, ep = nx_pos;
+    nx_idx = nx2_idx;
+    nx_pos = nx2_pos;
+    if (k0 + 2 * kWarp + lane < len) {
+      nx2_idx = b_idx[2 * (k0 + 2 * kWarp + lane)];
+      nx2_pos = b_pos[k0 + 2 * kWarp + lane];
+    }
+    const unsigned peers = __match_any_sync(kFull, ei) & valid;
+    int code = 0;
+    uint8_t kind = kKept;
+    int a = 0;
+    while (a < steps) {
+      const unsigned sub = valid & ~((1u << a) - 1u);
+      int own = -1;
+#pragma unroll
+      for (int q = 0; q < kWarp / 4; ++q) {
+        const int4 r = res4[q];
+        if (4 * q < cnt && r.x == ei) own = 4 * q;
+        if (4 * q + 1 < cnt && r.y == ei) own = 4 * q + 1;
+        if (4 * q + 2 < cnt && r.z == ei) own = 4 * q + 2;
+        if (4 * q + 3 < cnt && r.w == ei) own = 4 * q + 3;
+      }
+      const unsigned hit = __ballot_sync(kFull, own >= 0) & sub;
+      const unsigned newm = __ballot_sync(kFull, (peers & sub & below) == 0) & sub & ~hit;
+      const bool is_new = newm >> lane & 1u;
+      const int rank = __popc(newm & below);
+      const unsigned tmask = __ballot_sync(kFull, is_new && rank == slots - cnt - 1);
+      const bool trig = tmask != 0;
+      const int last = trig ? __ffs(tmask) - 1 : steps - 1;
+      const unsigned range = sub & upto(last);
+      const unsigned ins = newm & range;
+      if (ins >> lane & 1u) {
+        res[cnt + rank] = ei;
+        code = (cnt + rank) | kKeptCode;
+      }
+      if ((range & ~ins) >> lane & 1u) {
+        if (own < 0)  // a duplicate of a new arrival of this sub-step
+          own = cnt + __popc(ins & ((1u << (__ffs(peers & sub) - 1)) - 1u));
+        code = own;
+        kind = kFiltered;
+      }
+      __syncwarp();  // the residents are written before the next sub-step reads them
+      cnt += __popc(ins);
+      if (trig) {
+        if (lane == last) kind = kTrigger;
+        if (lane == 0 && slots > 1) gend[groups] = k0 + last + 1;
+        ++groups;
+        cnt = 0;
+      }
+      a = last + 1;
+    }
+    if (lane < steps) {
+      w.code[start + k0 + lane] = (uint8_t)code;
+      w.mark[ep] = kind | part;
+    }
+  }
+  if (lane == 0) {
+    w.nflush[s] = groups;
+    w.ndrain[s] = cnt;
   }
 }
 
@@ -549,132 +946,6 @@ __device__ int2 stretch_scan(int count, const Load& load, const Use& use) {
   return total;
 }
 
-// in-place exclusive scan of the set-major histogram
-struct HistScan {
-  int* data;
-  long long n;
-  __device__ bool skip() const { return false; }
-  __device__ int2 load(long long j) const { return make_int2(data[j], 0); }
-  __device__ void store(long long j, int2 before, int2) const { data[j] = before.x; }
-};
-
-// per-partition layout, written by finalize: the front's first slot, its
-// flush groups, the tail's first slot and its length
-struct Part {
-  int front;
-  int flushes;
-  int tail;
-  int filtered;
-};
-
-// One scan pass of the walk's marks over stream positions for partition p
-// (of meta[2] partitions): x counts its triggers, y its filtered lanes.
-// store() records each trigger's flush rank within the partition and
-// places the partition's filtered lanes; pass 0 also places the dead lanes
-// (their final slots need only the survivors' count).
-template <typename T>
-struct MarkScan {
-  const uint8_t* mark;
-  long long n;
-  const int* idx;
-  const T* val;
-  const int* n_live;
-  const int* meta;  // [1] = survivors, [2] = partitions of the layout
-  const Part* part;
-  Geo g;
-  int p;
-  int* rank;
-  int* out_idx;
-  T* out_val;
-  int* out_pos;
-  uint8_t* out_act;
-  __device__ bool skip() const { return p >= meta[2]; }
-  __device__ bool mine(long long j) const {
-    const int parts = meta[2];
-    return parts == 1 || hash_set(idx[j], g.epb, g.num_sets) % parts == p;
-  }
-  __device__ int2 load(long long j) const {
-    const uint8_t k = mark[j];
-    if (k == kKept || !mine(j)) return make_int2(0, 0);
-    return make_int2(k == kTrigger, k == kFiltered);
-  }
-  __device__ void store(long long j, int2 before, int2 x) const {
-    const long long m = live_count(n_live, n);
-    long long o;
-    if (j >= m) {
-      if (p != 0) return;
-      o = meta[1] + (j - m);  // dead lane
-    } else if (x.y) {
-      o = part[p].tail + part[p].filtered - 1 - before.y;  // filtered lane
-    } else {
-      if (x.x) rank[j] = before.x;
-      return;
-    }
-    out_idx[o] = idx[j];
-    out_val[o] = val[j];
-    out_pos[o] = (int)j;
-    out_act[o] = 0;
-  }
-};
-
-template <class F>
-__device__ __forceinline__ int2 thread_sum(const F& f, long long j0) {
-  int2 v = make_int2(0, 0);
-  for (int k = 0; k < kScanItems; ++k)
-    if (j0 + k < f.n) v = add2(v, f.load(j0 + k));
-  return v;
-}
-
-template <class F>
-__global__ void __launch_bounds__(kScanThreads) scan_reduce(F f, int2* agg) {
-  if (f.skip()) return;
-  const long long j0 = (long long)blockIdx.x * kScanTile + (long long)threadIdx.x * kScanItems;
-  int2 total;
-  block_scan<kScanThreads>(thread_sum(f, j0), total);
-  if (threadIdx.x == 0) agg[blockIdx.x] = total;
-}
-
-// one CTA: agg[t] becomes the exclusive prefix of tile t
-__global__ void __launch_bounds__(kScanThreads) scan_tiles(int2* agg, long long tiles) {
-  const long long per = (tiles + kScanThreads - 1) / kScanThreads;
-  const long long t0 = (long long)threadIdx.x * per;
-  const long long t1 = min(t0 + per, tiles);
-  int2 v = make_int2(0, 0);
-  for (long long t = t0; t < t1; ++t) v = add2(v, agg[t]);
-  int2 total;
-  int2 run = block_scan<kScanThreads>(v, total);
-  for (long long t = t0; t < t1; ++t) {
-    const int2 x = agg[t];
-    agg[t] = run;
-    run = add2(run, x);
-  }
-}
-
-template <class F>
-__global__ void __launch_bounds__(kScanThreads) scan_apply(F f, const int2* agg) {
-  if (f.skip()) return;
-  const long long j0 = (long long)blockIdx.x * kScanTile + (long long)threadIdx.x * kScanItems;
-  int2 total;
-  int2 run = add2(agg[blockIdx.x], block_scan<kScanThreads>(thread_sum(f, j0), total));
-  for (int k = 0; k < kScanItems; ++k) {
-    const long long j = j0 + k;
-    if (j >= f.n) break;
-    const int2 x = f.load(j);
-    f.store(j, run, x);
-    run = add2(run, x);
-  }
-}
-
-template <class F>
-int scan(const F& f, int2* agg, cudaStream_t st) {
-  const long long tiles = (f.n + kScanTile - 1) / kScanTile;
-  if (tiles == 0) return 0;
-  scan_reduce<F><<<(unsigned)tiles, kScanThreads, 0, st>>>(f, agg);
-  scan_tiles<<<1, kScanThreads, 0, st>>>(agg, tiles);
-  scan_apply<F><<<(unsigned)tiles, kScanThreads, 0, st>>>(f, agg);
-  return (int)cudaGetLastError();
-}
-
 // partition_capacity of ref.py: the most live lanes a partition's bank row
 // holds before the stream bypasses the banks
 __device__ __forceinline__ long long partition_capacity(long long m, int parts) {
@@ -688,15 +959,17 @@ __device__ __forceinline__ int set_of_key(int k, int q, int parts) { return (k %
 
 // One CTA: the bank bypass (from the per-set live counts), then drain
 // offsets within each partition (a scan of the drain counts in
-// partition-major set order) and each partition's front and tail; meta =
-// {flush groups, survivors, partitions of the layout}.  pd and pf (nparts+1
-// entries each) hold the drain and flush prefixes at each partition's first
-// set.
+// partition-major set order), the fold's spans before each set key (gkey:
+// 32 of a set's groups a span, its flush groups and one drain group) and
+// each partition's front and tail; meta = {flush groups, survivors,
+// partitions of the layout}.  pd and
+// pf (nparts+1 entries each) hold the drain and flush prefixes at each
+// partition's first set.
 __global__ void __launch_bounds__(kScanThreads)
-finalize(const int* set_start, const int* nflush, const int* ndrain, const int* n_live, Geo g,
-         int* drain_off, int* meta, Part* part, int* pd, int* pf) {
+finalize(const int* n_live, Geo g, Work w) {
   __shared__ int parts_sh;
   const long long m = live_count(n_live, g.n);
+  const int* set_start = w.set_start;
   if (threadIdx.x == 0) {
     int parts = g.nparts;
     if (parts > 1) {
@@ -716,21 +989,26 @@ finalize(const int* set_start, const int* nflush, const int* ndrain, const int* 
       g.num_sets,
       [&](int k) {
         const int s = set_of_key(k, q, parts);
-        return make_int2(ndrain[s], nflush[s]);
+        return make_int2(w.ndrain[s], w.nflush[s]);
       },
       [&](int k, int2 before, int2) {
-        drain_off[set_of_key(k, q, parts)] = before.x;
+        w.drain_off[set_of_key(k, q, parts)] = before.x;
         if (k % q == 0) {
-          pd[k / q] = before.x;
-          pf[k / q] = before.y;
+          w.pd[k / q] = before.x;
+          w.pf[k / q] = before.y;
         }
       });
+  const int2 spans = stretch_scan<kScanThreads>(
+      g.num_sets,
+      [&](int k) { return make_int2(w.nflush[set_of_key(k, q, parts)] / kWarp + 1, 0); },
+      [&](int k, int2 before, int2) { w.gkey[k] = before.x; });
   if (threadIdx.x == 0) {
-    pd[parts] = total.x;
-    pf[parts] = total.y;
+    w.pd[parts] = total.x;
+    w.pf[parts] = total.y;
+    w.gkey[g.num_sets] = spans.x;
   }
   __syncthreads();
-  for (int s = threadIdx.x; s < g.num_sets; s += blockDim.x) drain_off[s] -= pd[s % parts];
+  for (int s = threadIdx.x; s < g.num_sets; s += blockDim.x) w.drain_off[s] -= w.pd[s % parts];
   if (threadIdx.x == 0) {
     long long front = 0, tail = 0;
     const long long survivors = (long long)total.y * g.slots + total.x;
@@ -740,126 +1018,422 @@ finalize(const int* set_start, const int* nflush, const int* ndrain, const int* 
         lanes = 0;
         for (int s = p; s < g.num_sets; s += parts) lanes += set_start[s + 1] - set_start[s];
       }
-      const int flushes = pf[p + 1] - pf[p];
-      const long long kept = (long long)flushes * g.slots + (pd[p + 1] - pd[p]);
-      part[p] = Part{(int)front, flushes, (int)(g.n - (m - survivors) + tail),
-                     (int)(lanes - kept)};
+      const int flushes = w.pf[p + 1] - w.pf[p];
+      const long long kept = (long long)flushes * g.slots + (w.pd[p + 1] - w.pd[p]);
+      w.part[p] = Part{(int)front, flushes, (int)(g.n - (m - survivors) + tail),
+                       (int)(lanes - kept)};
       front += kept;
       tail += lanes - kept;
     }
-    meta[0] = total.y;
-    meta[1] = (int)survivors;
-    meta[2] = parts;
+    w.meta[0] = total.y;
+    w.meta[1] = (int)survivors;
+    w.meta[2] = parts;
+  }
+}
+
+template <typename T>
+struct Out {
+  int* idx;
+  T* val;
+  int* pos;
+  uint8_t* act;
+};
+
+// One pass of the mark scan, for partitions [8 pass, 8 pass + W) of the
+// layout's: persistent CTAs take 4096-lane tiles of the live prefix by
+// ticket.  A thread loads its 16 marks in one 16-byte load and counts each
+// partition's triggers (low 16 bits) and filtered lanes (high 16) in one
+// word (a tile's counts stay below 2^16); the warps' sums make the tile's aggregate, and the look-back its
+// exclusive prefix (31-bit trigger and filtered counts in one 64-bit word a
+// partition).  Then each warp takes its 512 lanes 32 at a time in stream
+// order: one ballot a (kind, partition) ranks a lane among the step's, so
+// a trigger gets its flush rank and a filtered lane its tail slot (the
+// first detected last), written with consecutive lanes on consecutive
+// addresses.  A pass zeroes the next pass's status words of its tiles (the
+// buffers alternate).
+template <typename T, int W>
+__global__ void __launch_bounds__(kTileThreads)
+mark_scan(const int* idx, const T* val, const int* n_live, Geo g, Work w, Out<T> out, int pass) {
+  __shared__ __align__(16) uint8_t smark[kTile];
+  __shared__ uint32_t warp_tot[kTileWarps][W];
+  __shared__ unsigned long long excl[W];
+  __shared__ long long tile_sh;
+  const int parts = w.meta[2], p0 = pass * kMarkWords;
+  if (p0 >= parts) return;
+  const long long m = live_count(n_live, g.n);
+  const long long tiles = (m + kTile - 1) / kTile;
+  unsigned long long* st = w.mstat + (pass & 1) * w.mstride;
+  unsigned long long* st_next = w.mstat + ((pass + 1) & 1) * w.mstride;
+  const int tid = threadIdx.x, lane = tid % kWarp, wid = tid / kWarp;
+  const unsigned below = (1u << lane) - 1u;
+  // a marked lane's partition, relative to p0 (-1: past this pass's)
+  auto part_of = [&](unsigned b, long long j) {
+    int p = parts == 1 ? 0
+            : g.nparts <= kMaxMarkParts ? (int)(b >> 2)
+                                        : hash_set(idx[j], g.epb, g.num_sets) % parts;
+    p -= p0;
+    return p < W ? p : -1;
+  };
+  for (;;) {
+    if (tid == 0) tile_sh = atomicAdd(&w.tick[kTickMark + pass], 1);
+    __syncthreads();
+    const long long t = tile_sh;
+    if (t >= tiles) break;
+    if (tid < 2 * W) st_next[t * 2 * W + tid] = 0;
+    const long long base = t * kTile, j0 = base + (long long)tid * kTileItems;
+    uint4 b4[kTileItems / 16];
+#pragma unroll
+    for (int v = 0; v < kTileItems / 16; ++v) {
+      b4[v] = j0 + 16 * v < m ? reinterpret_cast<const uint4*>(w.mark + j0)[v]
+                              : make_uint4(0, 0, 0, 0);
+      reinterpret_cast<uint4*>(smark + tid * kTileItems)[v] = b4[v];
+    }
+    uint32_t mine[W];
+#pragma unroll
+    for (int q = 0; q < W; ++q) mine[q] = 0;
+#pragma unroll
+    for (int i = 0; i < kTileItems; ++i) {
+      const uint4 v4 = b4[i / 16];
+      const uint32_t word = i % 16 < 4 ? v4.x : i % 16 < 8 ? v4.y : i % 16 < 12 ? v4.z : v4.w;
+      const unsigned b = word >> (8 * (i % 4)) & 0xffu;
+      const unsigned kind = b & 3u;
+      if (kind == kKept || j0 + i >= m) continue;
+      const int p = part_of(b, j0 + i);
+      const uint32_t inc = kind == kTrigger ? 1u : 0x10000u;
+#pragma unroll
+      for (int q = 0; q < W; ++q) mine[q] += p == q ? inc : 0u;
+    }
+#pragma unroll
+    for (int q = 0; q < W; ++q) {
+      const uint32_t s = __reduce_add_sync(kFull, mine[q]);
+      if (lane == 0) warp_tot[wid][q] = s;
+    }
+    __syncthreads();
+    if (wid == 0) {
+      // word q of the tile's aggregate: 31-bit trigger count over 31-bit filtered count
+      unsigned long long agg = 0;
+#pragma unroll
+      for (int q = 0; q < W; ++q) {
+        uint32_t c = 0;
+        for (int k = 0; k < kTileWarps; ++k) c += warp_tot[k][q];
+        if (lane == q) agg = (unsigned long long)(c & 0xffffu) << 31 | (c >> 16);
+      }
+      tile_prefix<W>(st, t, agg, excl);
+    }
+    __syncthreads();
+    int rt[W], rf[W];  // this warp's running counts, warp-uniform
+#pragma unroll
+    for (int q = 0; q < W; ++q) {
+      uint32_t c = 0;
+      for (int k = 0; k < wid; ++k) c += warp_tot[k][q];
+      rt[q] = (int)(excl[q] >> 31) + (int)(c & 0xffffu);
+      rf[q] = (int)(excl[q] & 0x7fffffffu) + (int)(c >> 16);
+    }
+    // eight steps at a time: ranks and tail slots, the filtered lanes'
+    // loads all issued, then the stores
+    constexpr int kSteps = kTile / kTileWarps / kWarp, kBatch = 8;
+    for (int s0 = 0; s0 < kSteps; s0 += kBatch) {
+      int what[kBatch], at[kBatch], xi[kBatch];  // what: kKept (none), kTrigger, kFiltered
+      T xv[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int l = wid * (kTile / kTileWarps) + (s0 + u) * kWarp + lane;
+        const long long j = base + l;
+        const unsigned b = smark[l];
+        const unsigned kind = j < m ? b & 3u : (unsigned)kKept;
+        const int p = kind != kKept ? part_of(b, j) : -1;
+        int before = 0;
+#pragma unroll
+        for (int q = 0; q < W; ++q) {
+          const unsigned tm = __ballot_sync(kFull, kind == kTrigger && p == q);
+          const unsigned fm = __ballot_sync(kFull, kind == kFiltered && p == q);
+          if (p == q) before = kind == kTrigger ? rt[q] + __popc(tm & below) : rf[q] + __popc(fm & below);
+          rt[q] += __popc(tm);
+          rf[q] += __popc(fm);
+        }
+        what[u] = p < 0 ? (int)kKept : (int)kind;
+        at[u] = before;
+        if (what[u] == kFiltered) {
+          const Part pt = w.part[p0 + p];
+          at[u] = pt.tail + pt.filtered - 1 - before;
+          xi[u] = idx[j];
+          xv[u] = val[j];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const long long j = base + wid * (kTile / kTileWarps) + (s0 + u) * kWarp + lane;
+        if (what[u] == kTrigger) {
+          w.rank[j] = at[u];
+        } else if (what[u] == kFiltered) {
+          out.idx[at[u]] = xi[u];
+          out.val[at[u]] = xv[u];
+          out.pos[at[u]] = (int)j;
+          out.act[at[u]] = 0;
+        }
+      }
+    }
+    __syncthreads();  // smark, warp_tot and tile_sh are read before the next tile
   }
 }
 
 // ------------------------------------------------------------------ emit
-// one thread per set-major slot q < n_live: kept entries go to their
+// The dead lanes [n_live, n) to [survivors, survivors + n - n_live) in
+// stream order, inactive: a thread four consecutive lanes, 16-byte stores
+// aligned on the output (survivors has no alignment), 16-byte loads when
+// the input is aligned the same way, else four 4-byte loads (each warp's
+// loads still consecutive).
+template <typename T>
+__global__ void __launch_bounds__(kTileThreads)
+copy_dead(const int* __restrict__ idx, const T* __restrict__ val, const int* n_live, long long n,
+          const int* meta, Out<T> out) {
+  const long long m = live_count(n_live, n), d = n - m;
+  if (d <= 0) return;
+  const long long s = meta[1];
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long head = min(d, (4 - s % 4) % 4);  // lanes before an aligned output
+  const long long quads = (d - head) / 4, tail = head + 4 * quads;
+  const uint32_t* vb = reinterpret_cast<const uint32_t*>(val);
+  uint32_t* ob = reinterpret_cast<uint32_t*>(out.val);
+  auto one = [&](long long k) {
+    out.idx[s + k] = idx[m + k];
+    ob[s + k] = vb[m + k];
+    out.pos[s + k] = (int)(m + k);
+    out.act[s + k] = 0;
+  };
+  if (tid < head) one(tid);
+  if (tid < d - tail) one(tail + tid);
+  const long long o0 = s + head, j0 = m + head;
+  const bool vec_out = (reinterpret_cast<uintptr_t>(out.idx + o0) |
+                        reinterpret_cast<uintptr_t>(ob + o0) |
+                        reinterpret_cast<uintptr_t>(out.pos + o0)) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(out.act + o0) % 4 == 0;
+  const bool vec_in = (reinterpret_cast<uintptr_t>(idx + j0) |
+                       reinterpret_cast<uintptr_t>(vb + j0)) % 16 == 0;
+  for (long long qi = tid; qi < quads; qi += stride) {
+    const long long k = head + 4 * qi;
+    if (!vec_out) {
+      for (int i = 0; i < 4; ++i) one(k + i);
+      continue;
+    }
+    const long long j = m + k, o = s + k;
+    int4 xi;
+    uint4 xv;
+    if (vec_in) {
+      xi = *reinterpret_cast<const int4*>(idx + j);
+      xv = *reinterpret_cast<const uint4*>(vb + j);
+    } else {
+      xi = make_int4(idx[j], idx[j + 1], idx[j + 2], idx[j + 3]);
+      xv = make_uint4(vb[j], vb[j + 1], vb[j + 2], vb[j + 3]);
+    }
+    *reinterpret_cast<int4*>(out.idx + o) = xi;
+    *reinterpret_cast<uint4*>(ob + o) = xv;
+    *reinterpret_cast<int4*>(out.pos + o) =
+        make_int4((int)j, (int)(j + 1), (int)(j + 2), (int)(j + 3));
+    *reinterpret_cast<uint32_t*>(out.act + o) = 0u;
+  }
+}
+
+// threads stride over the live set-major slots: kept entries go to their
 // partition's front
 template <typename T>
 __global__ void __launch_bounds__(kEmitThreads)
-emit_kept(const int* set_start, const int* nflush, const int* ndrain, const int* drain_off,
-          const int* meta, const Part* part, const int* rank, const uint2* b_iv,
-          const int* b_pos, Geo g, int* out_idx, T* out_val, int* out_pos, uint8_t* out_act) {
-  const long long q = (long long)blockIdx.x * kEmitThreads + threadIdx.x;
-  if (q >= set_start[g.num_sets]) return;
-  int lo = 0, hi = g.num_sets;  // last s with set_start[s] <= q
-  while (hi - lo > 1) {
-    const int mid = (lo + hi) / 2;
-    if (set_start[mid] <= q) lo = mid; else hi = mid;
+emit_kept(const int* n_live, Geo g, Work w, Out<T> out) {
+  const int* set_start = w.set_start;
+  const long long m = live_count(n_live, g.n);
+  const int parts = w.meta[2];
+  for (long long q = (long long)blockIdx.x * kEmitThreads + threadIdx.x; q < m;
+       q += (long long)gridDim.x * kEmitThreads) {
+    int lo = 0, hi = g.num_sets;  // last s with set_start[s] <= q
+    while (hi - lo > 1) {
+      const int mid = (lo + hi) / 2;
+      if (set_start[mid] <= q) lo = mid; else hi = mid;
+    }
+    const int s = lo, start = set_start[s];
+    const int local = (int)(q - start);
+    const int nf = w.nflush[s] * g.slots;
+    if (local >= nf + w.ndrain[s]) continue;  // consumed arrivals past the kept entries
+    const Part pt = w.part[s % parts];
+    long long o;
+    if (local < nf) {
+      const int grp = local / g.slots, j = local % g.slots;
+      const int trig = w.b_pos[start + grp * g.slots + g.slots - 1];
+      o = pt.front + (long long)w.rank[trig] * g.slots + j;
+    } else {
+      o = pt.front + (long long)pt.flushes * g.slots + w.drain_off[s] + (local - nf);
+    }
+    const uint2 iv = w.b_iv[q];
+    out.idx[o] = (int)iv.x;
+    out.val[o] = from_bits<T>(iv.y);
+    out.pos[o] = w.b_pos[q];
+    out.act[o] = 1;
   }
-  const int s = lo, start = set_start[s];
-  const int local = (int)(q - start);
-  const int nf = nflush[s] * g.slots;
-  if (local >= nf + ndrain[s]) return;  // consumed arrivals past the kept entries
-  const Part pt = part[s % meta[2]];
-  long long o;
-  if (local < nf) {
-    const int grp = local / g.slots, j = local % g.slots;
-    const int trig = b_pos[start + grp * g.slots + g.slots - 1] & kPosMask;
-    o = pt.front + (long long)rank[trig] * g.slots + j;
-  } else {
-    o = pt.front + (long long)pt.flushes * g.slots + drain_off[s] + (local - nf);
-  }
-  const uint2 iv = b_iv[q];
-  out_idx[o] = (int)iv.x;
-  out_val[o] = from_bits<T>(iv.y);
-  out_pos[o] = b_pos[q] & kPosMask;
-  out_act[o] = 1;
 }
 
-// ------------------------------------------------------------- workspace
-struct Work {
-  int* hist;
-  int2* agg;
-  int* set_start;
-  int* nflush;
-  int* ndrain;
-  int* drain_off;
-  int* meta;
-  Part* part;
-  int* pd;
-  int* pf;
-  uint2* b_iv;  // binned (index, payload bits), set-major
-  int* b_pos;
-  uint8_t* mark;
-  int* rank;
-};
+// The tagged walk's fold: one warp a span of up to 32 consecutive groups of
+// one set (its flush groups, then its drain group; set keys in
+// partition-major order), warps striding over the spans gkey counts.  Lane
+// i holds group i of the span: its end and its place in the partition's
+// front (a flush group at its trigger's rank, the drain group after the
+// partition's flush groups), all loaded at once.  The warp then walks the
+// span's groups in order, each group's arrivals 32 at a time (the next
+// step's load issued before this one is folded), lane j holding slot j:
+// the step's payloads go to shared memory, a kept arrival's index and
+// position to its slot's entry, and five ballots (one a bit of the slot)
+// give each slot's lane its arrivals of the step.  The slot's lane takes
+// its kept arrival first (it precedes the slot's other arrivals of the
+// group: slots fill in stream order), looks up its family, then folds each
+// filtered arrival in lane (stream) order under the family, so f32 sums
+// add in the oracle's order.  A group goes out in one coalesced write.
+template <typename T>
+__global__ void __launch_bounds__(kFoldWarps * kWarp)
+fold_emit(Geo g, Work w, Out<T> out) {
+  __shared__ uint32_t pay[kFoldWarps][kWarp];   // the step's payload bits, by lane
+  __shared__ int kept_idx[kFoldWarps][kWarp];   // the step's kept arrivals, by slot
+  __shared__ int kept_pos[kFoldWarps][kWarp];
+  __shared__ uint32_t kept_val[kFoldWarps][kWarp];
+  const int lane = threadIdx.x % kWarp, wid = threadIdx.x / kWarp;
+  const int parts = w.meta[2], q = g.num_sets / parts, slots = g.slots;
+  const int total = w.gkey[g.num_sets];
+  for (int span = blockIdx.x * kFoldWarps + wid; span < total;
+       span += gridDim.x * kFoldWarps) {
+    int lo_k = 0, hi_k = g.num_sets;  // the last set key with gkey <= span
+    while (hi_k - lo_k > 1) {
+      const int mid = (lo_k + hi_k) / 2;
+      if (w.gkey[mid] <= span) lo_k = mid; else hi_k = mid;
+    }
+    const int s = set_of_key(lo_k, q, parts);
+    const int start = w.set_start[s], len = w.set_start[s + 1] - start, nf = w.nflush[s];
+    const int g0 = (span - w.gkey[lo_k]) * kWarp, gn = min(kWarp, nf + 1 - g0);
+    const int* gend = w.gend + start / slots;
+    const uint2* b_iv = w.b_iv + start;
+    const int* b_pos = w.b_pos + start;
+    const uint8_t* code = w.code + start;
+    int hi_l = 0, o_l = 0;  // group g0 + lane: its end and its first output slot
+    if (lane < gn) {
+      const int grp = g0 + lane;
+      const Part pt = w.part[s % parts];
+      if (grp < nf) {
+        hi_l = slots == 1 ? grp + 1 : gend[grp];
+        o_l = pt.front + w.rank[b_pos[hi_l - 1]] * slots;
+      } else {
+        hi_l = len;
+        o_l = pt.front + pt.flushes * slots + w.drain_off[s];
+      }
+    }
+    const int end = __shfl_sync(kFull, hi_l, gn - 1);  // the span's last arrival + 1
+    int k0 = g0 == 0 ? 0 : slots == 1 ? g0 : gend[g0 - 1];
+    auto load = [&](int k, int& c, uint2& iv, int& p) {
+      if (k < end) {
+        c = code[k];
+        iv = b_iv[k];
+        p = b_pos[k];
+      }
+    };
+    int c = 0, p = 0;
+    uint2 iv = make_uint2(0, 0);
+    load(k0 + lane, c, iv, p);
+    for (int gi = 0; gi < gn; ++gi) {
+      const int hi = __shfl_sync(kFull, hi_l, gi);
+      const long long o = __shfl_sync(kFull, o_l, gi);
+      int r_idx = 0, r_pos = 0;  // slot `lane` of this group
+      T r_val = T(0);
+      bool r_add = false;
+      for (; k0 < hi;) {
+        const bool valid = k0 + lane < hi;
+        const int nk0 = min(k0 + kWarp, hi);  // the next step: this group's, or the next one's
+        int nc = 0, np = 0;
+        uint2 niv = make_uint2(0, 0);
+        load(nk0 + lane, nc, niv, np);
+        const int slot = c & (kKeptCode - 1);
+        const bool kept = valid && (c & kKeptCode);
+        pay[wid][lane] = iv.y;
+        if (kept) {
+          kept_idx[wid][slot] = (int)iv.x;
+          kept_pos[wid][slot] = p;
+          kept_val[wid][slot] = iv.y;
+        }
+        const unsigned kmask = __ballot_sync(kFull, kept);
+        // the step's arrivals of slot `lane`: one ballot a bit of the slot
+        unsigned rest = __ballot_sync(kFull, valid);
+#pragma unroll
+        for (int b = 0; b < 5; ++b) {
+          const unsigned has = __ballot_sync(kFull, slot >> b & 1);
+          rest &= lane >> b & 1 ? has : ~has;
+        }
+        __syncwarp();  // the shared copies are written before they are read
+        if (rest & kmask) {  // the slot's kept arrival: the first of them
+          r_idx = kept_idx[wid][lane];
+          r_pos = kept_pos[wid][lane];
+          r_val = from_bits<T>(kept_val[wid][lane]);
+          r_add = g.tags[r_idx < 0 ? 0 : min(r_idx, g.ntags - 1)] != 0;
+          rest &= rest - 1u;
+        }
+        for (; rest; rest &= rest - 1u)
+          r_val = tagged_fold(r_val, from_bits<T>(pay[wid][__ffs(rest) - 1]), r_add);
+        __syncwarp();  // the shared copies are read before the next step writes them
+        k0 = nk0;
+        c = nc;
+        iv = niv;
+        p = np;
+      }
+      const int kept = gi + g0 < nf ? slots : w.ndrain[s];
+      if (lane < kept) {
+        out.idx[o + lane] = r_idx;
+        out.val[o + lane] = r_val;
+        out.pos[o + lane] = r_pos;
+        out.act[o + lane] = 1;
+      }
+    }
+  }
+}
 
-long long align(long long b) { return (b + 255) / 256 * 256; }
+// ------------------------------------------------------------------ launch
+int sm_count() {
+  static int cached[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (cached[dev] == 0) {
+    int sms = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+        sms < 1)
+      return 132;
+    cached[dev] = sms;
+  }
+  return cached[dev];
+}
 
-long long carve(char* base, long long n, int num_sets, int nparts, Work* w) {
-  const long long nchunks = (n + kChunk - 1) / kChunk;
-  const long long h = nchunks * num_sets;
-  const long long tiles = (std::max(h, n) + kScanTile - 1) / kScanTile;
-  long long off = 0;
-  auto take = [&](long long bytes) {
-    char* p = base ? base + off : nullptr;
-    off += align(bytes);
-    return p;
-  };
-  Work v;
-  v.hist = (int*)take(h * 4);
-  v.agg = (int2*)take(std::max(tiles, 1LL) * 8);
-  v.set_start = (int*)take((num_sets + 1) * 4LL);
-  v.nflush = (int*)take(num_sets * 4LL);
-  v.ndrain = (int*)take(num_sets * 4LL);
-  v.drain_off = (int*)take(num_sets * 4LL);
-  v.meta = (int*)take(16);
-  v.part = (Part*)take(nparts * (long long)sizeof(Part));
-  v.pd = (int*)take((nparts + 1) * 4LL);
-  v.pf = (int*)take((nparts + 1) * 4LL);
-  v.b_iv = (uint2*)take(n * 8);
-  v.b_pos = (int*)take(n * 4);
-  v.mark = (uint8_t*)take(n);
-  v.rank = (int*)take(n * 4);
-  if (w) *w = v;
-  return off;
+// blocks of a persistent grid: as many as reside on the card, at most `want`
+template <class K>
+int persistent(K kernel, int threads, long long smem, long long want, unsigned& grid) {
+  int per_sm = 0;
+  const int e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                                   (size_t)smem);
+  if (e) return e;
+  grid = (unsigned)std::max(1LL, std::min(want, (long long)std::max(per_sm, 1) * sm_count()));
+  return 0;
+}
+
+// the mark scan's passes, W partitions each (W: 1, 2, 4 or 8)
+template <typename T, int W>
+int mark_passes(const int* idx, const T* val, const int* n_live, const Work& w, Geo g,
+                const Out<T>& out, cudaStream_t st) {
+  unsigned grid;
+  int e;
+  if ((e = persistent(mark_scan<T, W>, kTileThreads, 0, (g.n + kTile - 1) / kTile, grid)))
+    return e;
+  for (int pass = 0; pass * kMarkWords < g.nparts; ++pass) {
+    mark_scan<T, W><<<grid, kTileThreads, 0, st>>>(idx, val, n_live, g, w, out, pass);
+    if ((e = (int)cudaGetLastError())) return e;
+  }
+  return 0;
 }
 
 template <typename T, int OP>
-int walk_one(const Work& w, Geo g, cudaStream_t st) {
-  const unsigned blocks = (g.num_sets + kWalkWarps - 1) / kWalkWarps;
-  walk<T, OP><<<blocks, kWalkWarps * kWarp, 0, st>>>(w.set_start, g, w.b_iv, w.b_pos, w.mark,
-                                                     w.nflush, w.ndrain);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int walk_launch(int op, const Work& w, Geo g, cudaStream_t st) {
-  switch (op) {
-    case kNone: return walk_one<T, kNone>(w, g, st);
-    case kAdd: return walk_one<T, kAdd>(w, g, st);
-    case kMin: return walk_one<T, kMin>(w, g, st);
-    case kMax: return walk_one<T, kMax>(w, g, st);
-    case kTagged: return walk_one<T, kTagged>(w, g, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-template <typename T>
-int run(const int* idx, const T* val, const int* n_live, int* out_idx, T* out_val, int* out_pos,
-        uint8_t* out_act, const Work& w, Geo g, int op, cudaStream_t st) {
+int run(const int* idx, const T* val, const int* n_live, const Out<T>& out, const Work& w, Geo g,
+        cudaStream_t st) {
+  constexpr bool kSplit = OP == kTagged;  // the tagged walk: a chain, then the folds
   const int count_smem = kBinWarps * g.num_sets * 4;  // above 48 KB past 3072 sets
   int warps = kScatterMaxWarps;
   while (warps > 1 && scatter_smem(g.num_sets, warps) > kMaxSmem) warps /= 2;
@@ -871,30 +1445,66 @@ int run(const int* idx, const T* val, const int* n_live, int* out_idx, T* out_va
                                      smem)))
     return e;
   const uint32_t* vbits = reinterpret_cast<const uint32_t*>(val);
-  if ((e = (int)cudaMemsetAsync(w.mark, 0, g.n, st))) return e;
-  bin_count<<<(g.nchunks + kBinWarps - 1) / kBinWarps, kBinWarps * kWarp, count_smem, st>>>(
-      idx, n_live, g, w.hist);
+  unsigned grid;
+  // binning
+  if ((e = persistent(bin_count, kBinWarps * kWarp, count_smem,
+                      (g.nchunks + kBinWarps - 1) / kBinWarps, grid)))
+    return e;
+  bin_count<<<grid, kBinWarps * kWarp, count_smem, st>>>(idx, n_live, g, w);
   if ((e = (int)cudaGetLastError())) return e;
-  if ((e = scan(HistScan{w.hist, (long long)g.nchunks * g.num_sets}, w.agg, st))) return e;
-  set_starts<<<(g.num_sets + 256) / 256, 256, 0, st>>>(w.hist, n_live, g, w.set_start);
-  bin_scatter<<<g.nchunks, warps * kWarp, smem, st>>>(idx, vbits, n_live, g, w.hist, w.b_iv,
-                                                      w.b_pos);
+  if ((e = persistent(hist_scan, kTileThreads, 0,
+                      ((long long)g.nchunks * g.num_sets + kTile - 1) / kTile, grid)))
+    return e;
+  hist_scan<<<grid, kTileThreads, 0, st>>>(n_live, g, w);
+  set_starts<<<(g.num_sets + 256) / 256, 256, 0, st>>>(n_live, g, w);
+  if ((e = persistent(bin_scatter, warps * kWarp, smem, g.nchunks, grid))) return e;
+  bin_scatter<<<grid, warps * kWarp, smem, st>>>(idx, vbits, n_live, g, w);
   if ((e = (int)cudaGetLastError())) return e;
-  if ((e = walk_launch<T>(op, w, g, st))) return e;
-  finalize<<<1, kScanThreads, 0, st>>>(w.set_start, w.nflush, w.ndrain, n_live, g, w.drain_off,
-                                       w.meta, w.part, w.pd, w.pf);
-  // one pass a partition (a pass past the layout's partitions returns at once)
-  for (int p = 0; p < g.nparts; ++p) {
-    MarkScan<T> ms{w.mark, g.n,   idx,    val,     n_live,  w.meta, w.part, g,
-                   p,      w.rank, out_idx, out_val, out_pos, out_act};
-    if ((e = scan(ms, w.agg, st))) return e;
+  // walk
+  const unsigned walk_blocks = (g.num_sets + kWalkWarps - 1) / kWalkWarps;
+  if constexpr (kSplit)
+    chain<<<walk_blocks, kWalkWarps * kWarp, 0, st>>>(g, w);
+  else
+    walk<T, OP><<<walk_blocks, kWalkWarps * kWarp, 0, st>>>(g, w);
+  finalize<<<1, kScanThreads, 0, st>>>(n_live, g, w);
+  if ((e = (int)cudaGetLastError())) return e;
+  // emit: the mark scan, the dead lanes, the kept entries
+  e = g.nparts == 1   ? mark_passes<T, 1>(idx, val, n_live, w, g, out, st)
+      : g.nparts == 2 ? mark_passes<T, 2>(idx, val, n_live, w, g, out, st)
+      : g.nparts <= 4 ? mark_passes<T, 4>(idx, val, n_live, w, g, out, st)
+                      : mark_passes<T, 8>(idx, val, n_live, w, g, out, st);
+  if (e) return e;
+  if ((e = persistent(copy_dead<T>, kTileThreads, 0, (g.n + 4 * kTileThreads - 1) /
+                                                         (4 * kTileThreads), grid)))
+    return e;
+  copy_dead<T><<<grid, kTileThreads, 0, st>>>(idx, val, n_live, g.n, w.meta, out);
+  if ((e = (int)cudaGetLastError())) return e;
+  if constexpr (kSplit) {
+    const long long spans = g.n / g.slots / kWarp + g.num_sets;
+    if ((e = persistent(fold_emit<T>, kFoldWarps * kWarp, 0,
+                        (spans + kFoldWarps - 1) / kFoldWarps, grid)))
+      return e;
+    fold_emit<T><<<grid, kFoldWarps * kWarp, 0, st>>>(g, w, out);
+  } else {
+    if ((e = persistent(emit_kept<T>, kEmitThreads, 0, (g.n + kEmitThreads - 1) / kEmitThreads,
+                        grid)))
+      return e;
+    emit_kept<T><<<grid, kEmitThreads, 0, st>>>(n_live, g, w, out);
   }
-  const unsigned emit_blocks = (unsigned)((g.n + kEmitThreads - 1) / kEmitThreads);
-  emit_kept<T><<<emit_blocks, kEmitThreads, 0, st>>>(w.set_start, w.nflush, w.ndrain,
-                                                     w.drain_off, w.meta, w.part, w.rank, w.b_iv,
-                                                     w.b_pos, g, out_idx, out_val, out_pos,
-                                                     out_act);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int run_op(int op, const int* idx, const T* val, const int* n_live, const Out<T>& out,
+           const Work& w, Geo g, cudaStream_t st) {
+  switch (op) {
+    case kNone: return run<T, kNone>(idx, val, n_live, out, w, g, st);
+    case kAdd: return run<T, kAdd>(idx, val, n_live, out, w, g, st);
+    case kMin: return run<T, kMin>(idx, val, n_live, out, w, g, st);
+    case kMax: return run<T, kMax>(idx, val, n_live, out, w, g, st);
+    case kTagged: return run<T, kTagged>(idx, val, n_live, out, w, g, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // ------------------------------------------------------------- windowed body
@@ -1070,6 +1680,7 @@ __device__ void sort_lanes_by_index(uint16_t* a, int n, const int* s_idx) {
 // order's lanes; a kept entry's lane is put at its kept slot (over an
 // arrival already loaded) and its merged payload over its own
 struct WindowSet {
+  static constexpr bool kMarkAll = false;  // the binning marked every lane kept
   const int* s_idx;
   uint32_t* s_val;
   uint16_t* order;
@@ -1709,11 +2320,11 @@ int iru_hash_reorder(const int* idx, const void* val, const int* n_live, const u
         op == kTagged ? tag_table : nullptr, ntags};
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return run<float>(idx, (const float*)val, n_live, out_idx, (float*)out_val, out_pos,
-                      out_act, w, g, op, st);
+    return run_op<float>(op, idx, (const float*)val, n_live,
+                         Out<float>{out_idx, (float*)out_val, out_pos, out_act}, w, g, st);
   if (dtype == 1)
-    return run<int>(idx, (const int*)val, n_live, out_idx, (int*)out_val, out_pos, out_act, w,
-                    g, op, st);
+    return run_op<int>(op, idx, (const int*)val, n_live,
+                       Out<int>{out_idx, (int*)out_val, out_pos, out_act}, w, g, st);
   return (int)cudaErrorInvalidValue;
 }
 

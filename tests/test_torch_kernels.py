@@ -597,6 +597,97 @@ def test_banked_b3_matches_oracle_and_plain(cuda, geometry, kind, length,
     _check_stream(got, plain, oracle, op, dtype)
 
 
+def _family_set_stream(length, rng, num_sets):
+    """Half the lanes in set 3's blocks (a hot set), the rest spread."""
+    blocks = _blocks_of(num_sets, lambda s: s == 3, 4)
+    idx = rng.integers(0, 6000, length)
+    sel = rng.random(length) < 0.5
+    idx[sel] = (blocks[rng.integers(0, blocks.size, int(sel.sum()))] * 32
+                + rng.integers(0, 32, int(sel.sum())))
+    return idx.astype(np.int32), blocks
+
+
+def _padded_live(idx, vals, oracle_of, n):
+    """A live count near n / 7 that leaves an odd number of survivors and
+    n - n_live a multiple of neither 4 nor 16."""
+    for m in range(n // 7, n // 7 + 64):
+        if (n - m) % 4 == 0:
+            continue
+        if int(oracle_of(m)[3].sum()) % 2 == 1:
+            return m
+    raise AssertionError("no live count with odd survivors")
+
+
+# (geometry, stream, length): the whole-stream body on padded streams (a
+# small live prefix), over 1, 2, 4 and 8 partitions (one mark-scan pass) and
+# 16 (two passes); one_partition trips the bank bypass at every count above
+# 1, family_set fills a hot set with one family's lanes
+PADDED_CASES = [((1024, 32), "wide", 40_000), ((1024, 32), "kron", 65_536),
+                ((1024, 32), "one_partition", 20_000),
+                ((1024, 32), "family_set", 30_000),
+                ((16, 4), "family_set", 5000), ((16, 4), "wide", 5000)]
+
+
+@pytest.mark.parametrize("geometry,kind,length", PADDED_CASES)
+@pytest.mark.parametrize("n_partitions", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("op,dtype", [("add", "float32"), ("min", "int32"),
+                                      (None, "float32"),
+                                      ("tagged", "float32"),
+                                      ("tagged", "int32")])
+def test_hash_reorder_on_padded_streams(cuda, geometry, kind, length,
+                                        n_partitions, op, dtype):
+    """B3's whole-stream body on a stream whose live prefix is a seventh of
+    it (odd survivors, a dead stretch of no multiple of 4): the layout and
+    folds equal ``ragged_oracle(hash_reorder_ref_banked)`` (tagged: its add
+    result on add lanes, its min result on min lanes) and the plain
+    version; one launch under the body's count."""
+    num_sets, slots = geometry
+    rng = np.random.default_rng(length + 5 * n_partitions)
+    table = None
+    if kind == "family_set":
+        idx, blocks = _family_set_stream(length, rng, num_sets)
+    else:
+        idx = _geo_stream(kind, length, rng, num_sets)
+    if op == "tagged":
+        table = rng.random(int(idx.max()) + 2) < 0.5
+        if kind == "family_set":  # set 3's lanes all in the min family
+            for b in blocks:
+                table[b * 32:(b + 1) * 32] = False
+    vals = (rng.uniform(0.0, 1.0, length).astype(np.float32)
+            if dtype == "float32"
+            else rng.integers(-1000, 1000, length).astype(np.int32))
+
+    def oracle_of(m, fold=op):
+        return hash_ref.ragged_oracle(
+            hash_ref.hash_reorder_ref_banked, idx, vals, m,
+            num_sets=num_sets, slots=slots,
+            filter_op="add" if fold == "tagged" else fold,
+            n_partitions=n_partitions)
+
+    m = _padded_live(idx, vals, oracle_of, length)
+    kw = dict(num_sets=num_sets, slots=slots, filter_op=op,
+              n_partitions=n_partitions,
+              n_live=torch.tensor(m, dtype=torch.int32, device=cuda),
+              tag_table=None if table is None else t(table, cuda))
+    key = ("iru_reorder_tagged" if op == "tagged" else "iru_reorder_banked"
+           if n_partitions > 1 else "iru_reorder")
+    before = dict(launch_counts)
+    got = hash_ops.hash_reorder(t(idx, cuda), t(vals, cuda), **kw)
+    torch.cuda.synchronize()
+    assert launch_counts[key] == before.get(key, 0) + 1
+    assert sum(launch_counts.values()) == sum(before.values()) + 1
+    plain = hash_ops.hash_reorder(t(idx, cuda), t(vals, cuda), kernels=False,
+                                  **kw)
+    oracle = oracle_of(m)
+    if op == "tagged":
+        low = oracle_of(m, "min")
+        fam = table[np.clip(oracle[0], 0, table.size - 1)]
+        oracle = (oracle[0], np.where(fam, oracle[1], low[1]), oracle[2],
+                  oracle[3])
+    _check_stream(got, plain, oracle, "add" if op == "tagged" else op,
+                  dtype)
+
+
 @pytest.mark.parametrize("kw,err", [
     (dict(window_elems=256, payload="2d"), NotImplementedError),
     (dict(window_elems=256, filter_op="tagged", tag_table="bool"),

@@ -289,6 +289,50 @@ def test_scatter_add_accumulates_in_float64():
     np.testing.assert_allclose(got[0], want, rtol=1e-5)
 
 
+@pytest.mark.parametrize("mode", ["baseline", "hash"])
+def test_pagerank_ranks_do_not_depend_on_lane_order(monkeypatch, mode):
+    """The pipeline's PageRank sums each node's contributions in float64
+    and rounds to f32 once, so its ranks are bit-equal when every step's
+    lanes reach the scatter in another order (the card's atomics add in a
+    new order every run); with an f32 accumulator the unmerged (baseline)
+    stream's are not."""
+    tg = jax_graph_to_torch(_weighted(generators.kron_edges(scale=9), 4))
+    scatter = tpipe._scatter
+    rng = np.random.default_rng(9)
+
+    def permuted(target, idx, val, act, op, tags=None):
+        p = torch.from_numpy(rng.permutation(idx.shape[0]))
+        return scatter(target, idx[p], val[p], act[p], op,
+                       None if tags is None else tags[p])
+
+    def f32_app(iters):
+        app = tpr.pagerank_app(iters)
+
+        def init(graph, source):
+            state, mask = app.init(graph, source)
+            return {**state, "acc": state["acc"].float()}, mask
+
+        return dataclasses.replace(app, init=init)
+
+    def ranks(app, shuffle):
+        if shuffle:
+            monkeypatch.setattr(tpipe, "_scatter", permuted)
+        pipe = tpipe.FrontierPipeline(tg, app, mode=mode, max_iters=8,
+                                      device="cpu")
+        out = n(pipe.run())
+        monkeypatch.setattr(tpipe, "_scatter", scatter)
+        return out
+
+    want = ranks(tpr.pagerank_app(8), False)
+    assert want.dtype == np.float32
+    for _ in range(2):
+        assert np.array_equal(ranks(tpr.pagerank_app(8), True), want)
+    f32 = ranks(f32_app(8), False)
+    np.testing.assert_allclose(f32, want, rtol=1e-5)
+    assert mode == "hash" or not all(np.array_equal(ranks(f32_app(8), True), f32)
+                   for _ in range(2))
+
+
 def test_tagged_scatter_matches_reference():
     """Min lanes exact, add lanes within rtol 1e-5; each family's lanes go
     to their sinks in the other family's pass."""

@@ -15,10 +15,14 @@ windowed body at the paper's geometry (1024 x 32 sets, 4 partitions,
 phase 3 (w = 1024, 2048, 4096; no merge; one partition) and the stream's
 first 6144 and 49152 lanes (one partial window, six windows: a
 high-diameter traversal's levels, where a window's latency counts); the whole-stream
-body (add), its tagged fold (families ``(idx >> 17) & 1``) and its banked
-layout (4 partitions, add).  A tree whose library has the stamped build
-also gives the windowed body's time by phase (clock64 cycles a window) and
-its CTAs resident per SM.
+body (add), its tagged fold (families ``(idx >> 17) & 1``), its banked
+layout (4 partitions, add) and the tagged fold on a padded serving tick
+(the stream padded with dead lanes to 251,212,640 lanes, the top rung of
+the 12-query serving mix, ``n_live`` on the device).  A tree whose library
+has the stamped build also gives the windowed body's time by phase
+(clock64 cycles a window) and its CTAs resident per SM.  With
+``--profile`` each tree's whole-stream variants are also split by kernel
+(``torch.profiler`` device time of one call, after a warm-up).
 
     python3 tools/b3_windowed_ab.py --tree parent=build/parent --tree change=.
 
@@ -45,6 +49,7 @@ from repro_torch.kernels import _build  # noqa: E402
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 GEO = dict(num_sets=1024, slots=32, epb=32, round_cap=64)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak (NVIDIA data sheet)
 WINDOWED = {  # label -> (window, partitions, op, lanes: None for all)
     "IRU_HASH add": (8192, 4, 1, None),
     "w=1024": (1024, 4, 1, None),
@@ -56,11 +61,13 @@ WINDOWED = {  # label -> (window, partitions, op, lanes: None for all)
     "6144 lanes": (8192, 4, 1, 6144),
     "49152 lanes": (8192, 4, 1, 49152),
 }
-WHOLE = {  # label -> (partitions, op)
-    "whole-stream add": (1, 1),
-    "tagged fold": (1, 4),
-    "banked layout": (4, 1),
+WHOLE = {  # label -> (partitions, op, padded)
+    "whole-stream add": (1, 1, False),
+    "tagged fold": (1, 4, False),
+    "banked layout": (4, 1, False),
+    "serving tick": (1, 4, True),
 }
+TICK_LANES = 251_212_640  # a top-rung tick of the serving mix (tile_csr(kron-20, 8))
 
 
 def build(trees: dict) -> dict:
@@ -83,7 +90,9 @@ def build(trees: dict) -> dict:
         for ln in log.splitlines():  # ptxas -v: each entry, then its use
             if "Compiling entry function" in ln:
                 entry = ln.split("'")[1]
-            elif ("Used" in ln or "spill" in ln) and "win_reorder" in entry:
+            elif ("Used" in ln or "spill" in ln) and any(
+                    k in entry for k in ("win_reorder", "chain", "fold_emit",
+                                         "mark_scan", "copy_dead", "walk")):
                 print(f"built {name}: {entry[-40:]}: "
                       f"{ln.split('info    : ')[-1].strip()}")
         libs[name] = ctypes.CDLL(str(lib))
@@ -133,7 +142,17 @@ def windowed_call(lib, idx, val, w, parts, op, stamps=None):
     return out
 
 
-def whole_call(lib, idx, val, tags, parts, op):
+def padded(idx, val, lanes):
+    """The stream followed by dead lanes up to ``lanes`` (the padding index
+    one past the last node, payload 0), and its live count on the device."""
+    pad = lanes - idx.numel()
+    sentinel = int(idx.max()) + 1
+    return (torch.cat([idx, idx.new_full((pad,), sentinel)]),
+            torch.cat([val, val.new_zeros(pad)]),
+            torch.tensor(idx.numel(), dtype=torch.int32, device=idx.device))
+
+
+def whole_call(lib, idx, val, tags, parts, op, n_live=None):
     lib.iru_hash_reorder_workspace.argtypes = [_LL, _I, _I]
     lib.iru_hash_reorder_workspace.restype = _LL
     n = idx.numel()
@@ -145,7 +164,8 @@ def whole_call(lib, idx, val, tags, parts, op):
     fn.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _LL] + [_I] * 6 \
         + [_P]
     tagged = op == 4
-    code = fn(idx.data_ptr(), val.data_ptr(), None,
+    code = fn(idx.data_ptr(), val.data_ptr(),
+              None if n_live is None else n_live.data_ptr(),
               tags.data_ptr() if tagged else None,
               tags.numel() if tagged else 0, *(o.data_ptr() for o in out),
               work.data_ptr(), n, GEO["num_sets"], GEO["slots"], GEO["epb"],
@@ -172,6 +192,26 @@ def event_ms(fn, reps=10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_split(call) -> list:
+    """(kernel, device ms) of one call, largest first (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    rows = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or getattr(
+            e, "self_cuda_time_total", 0)
+        if us > 0:
+            name = e.key.replace("(anonymous namespace)::", "").replace(
+                "void ", "").split("(")[0]
+            rows[name] = rows.get(name, 0.0) + us / 1e3
+    return sorted(rows.items(), key=lambda r: -r[1])
 
 
 def phase_split(lib, idx, val):
@@ -215,6 +255,10 @@ def main() -> int:
                     help="NAME=PATH of a source tree (the first is the "
                          "reference of the equality checks)")
     ap.add_argument("--out", help="write the numbers as JSON here")
+    ap.add_argument("--profile", action="store_true",
+                    help="split each tree's whole-stream variants by kernel")
+    ap.add_argument("--only", action="append",
+                    help="run only the variants whose label contains this")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("b3_windowed_ab: no CUDA device", file=sys.stderr)
@@ -234,14 +278,27 @@ def main() -> int:
     calls = {label: (lambda lib, w=w, p=p, op=op, k=k:
                      windowed_call(lib, idx[:k], val[:k], w, p, op))
              for label, (w, p, op, k) in WINDOWED.items()}
-    calls.update({label: (lambda lib, p=p, op=op:
-                          whole_call(lib, idx, val, tags, p, op))
-                  for label, (p, op) in WHOLE.items()})
+    tick = padded(idx, val, TICK_LANES)
+    print(f"serving tick: {TICK_LANES} lanes, {idx.numel()} live")
+    calls.update({label: (lambda lib, p=p, op=op, pad=pad:
+                          whole_call(lib, *(tick[:2] if pad else (idx, val)),
+                                     tags, p, op,
+                                     tick[2] if pad else None))
+                  for label, (p, op, pad) in WHOLE.items()})
+    if args.only:
+        calls = {k: v for k, v in calls.items()
+                 if any(o in k for o in args.only)}
     names = list(libs)
     record = {"card": card, "trees": trees, "ms": {}, "phases": {},
-              "occupancy": {}}
+              "occupancy": {}, "kernels": {}}
     for label, call in calls.items():
         ref = call(libs[names[0]])
+        if label in WHOLE:  # B3's bytes: 8 read and 13 written a lane
+            lanes = ref[0].numel()
+            live = idx.numel()
+            print(f"{label}: {int(ref[3].sum())} survivors; bound "
+                  f"{21 * lanes / HBM_BYTES_PER_S * 1e3:.4f} ms, of which "
+                  f"the dead lanes' {21 * (lanes - live) / HBM_BYTES_PER_S * 1e3:.4f}")
         for name in names[1:]:
             if not same(call(libs[name]), ref):
                 raise RuntimeError(f"{label}: {name} differs from "
@@ -254,6 +311,12 @@ def main() -> int:
             f"{name} {np.mean(t):.4f} ms ({t[0]:.4f}, {t[1]:.4f})"
             for name, t in times.items())
             + f"; all equal to {names[0]} bit for bit")
+        if args.profile and label in WHOLE:
+            for name in names:
+                split = kernel_split(lambda: call(libs[name]))
+                record["kernels"].setdefault(label, {})[name] = split
+                print(f"  kernels {name}: " + ", ".join(
+                    f"{k} {ms:.4f}" for k, ms in split))
     for name, lib in libs.items():
         split = phase_split(lib, idx, val)
         occ = occupancy(lib)
