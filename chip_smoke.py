@@ -39,18 +39,39 @@ Phases, in order (any failure exits non-zero and prints no result line):
                must be non-zero).  Whole-stream B3 with the banked layout (4
                partitions, no window) equals the banked plain version at
                PageRank's shape (add, rtol 1e-5) and, without a merge,
-               hash_reorder_ref_banked exactly.  Then BFS, SSSP and PageRank
-               (20 iterations) on kron-20 and delaunay-1024 through
-               FrontierPipeline(mode="hash", iru_config=IRUConfig(**IRU_HASH))
-               against the host oracles (BFS/SSSP exactly, PageRank rtol
-               1e-4), and reorder_frontier with IRU_HASH and with 4
-               partitions and no window, each run with its launch counts
-               zeroed before and read after; then both bodies' CUDA-event
-               times, the windowed body's by window size, without a merge
-               and in one partition, its time by phase (one call of its
-               stamped build: clock64 cycles a window and each phase's
-               share) with its CTAs resident per SM, and a profile of one
-               call of each body;
+               hash_reorder_ref_banked exactly.  The windowed body tagged
+               (families (idx >> 17) & 1) on the PageRank stream equals the
+               oracle per family (layout and add lanes on every window, min
+               lanes on the first 512) and plain there, and on a padded
+               serving tick (251,212,640 lanes, the stream live) its live
+               windows equal the unpadded call, the 128 windows around the
+               live count plain and the oracle, the rest the identity.
+               Whole-stream B3 under ROUND_CAP_4X2's cap (round cap 64, no
+               window; each call under set_sync_debug_mode("error")) on the
+               PageRank stream flat and in 4 partitions, add and tagged, the
+               half-graph expansion with its live prefix (min, int32), a
+               stream with partition 0 past the cap and the others under
+               it, and those others alone (which must equal the uncapped
+               call) equals the plain version and ragged_oracle(
+               hash_reorder_ref_banked, round_cap=64) bit for bit (tagged:
+               per family); each prints how many partitions took the
+               fallback (host numpy), non-zero where built to.  Then BFS,
+               SSSP and PageRank (20 iterations) on kron-20 and
+               delaunay-1024 through FrontierPipeline(mode="hash",
+               iru_config=IRUConfig(**IRU_HASH)) and through
+               IRUConfig(**ROUND_CAP_4X2) (the reference's examples' 4 x 2
+               geometry with round cap 64, no window) against the host
+               oracles (BFS/SSSP exactly, PageRank rtol 1e-4), and
+               reorder_frontier with IRU_HASH and with 4 partitions and no
+               window, each run with its launch counts zeroed before and
+               read after (the IRU_HASH runs must launch the windowed body,
+               the 4 x 2 runs the round-cap body); then both bodies'
+               CUDA-event times, the windowed body's by window size,
+               without a merge, in one partition and tagged (also on the
+               padded tick), its time by phase (one call of its stamped
+               build: clock64 cycles a window and each phase's share) with
+               its CTAs resident per SM (add and tagged: two each), and a
+               profile of one call of each body;
   4. apps    -- BFS and SSSP from node 0 on kron-20 and delaunay-1024, and
                PageRank on kron-20, through the kernels (kernels=True,
                3-bucket CapacityPolicy), once with mode="sort" (B1, B2) and
@@ -102,7 +123,12 @@ Phases, in order (any failure exits non-zero and prints no result line):
                the host oracles), PPR within rtol 1e-5 of solo; fused sort
                equals its plain twin.  Each run prints its wall time,
                queries/s, ticks, overflow and quarantine counts, launch
-               counts and peak device memory.  Then one more fused sort
+               counts and peak device memory.  Two more fused hash runs
+               serve the mix under the paper's geometries: IRU_HASH (B3's
+               windowed body, tagged) and ROUND_CAP_4X2 (B3's round-cap
+               body, tagged); BFS/SSSP equal their solo runs (solo
+               pipelines of the same geometry) bit for bit, PPR within rtol
+               1e-5 of them.  Then one more fused sort
                run (untimed, its launches not counted) keeps two of its
                ticks at the top rung (8 m lanes): B2's tagged body is held
                against its plain version on the sorted stream of the tick
@@ -279,10 +305,13 @@ Phases, in order (any failure exits non-zero and prints no result line):
                train_summary.json of 15 steps, 1 restart, 1 NaN event;
   11. timings -- CUDA-event times after a warm-up for each kernel, its plain
                version (B3's plain versions: the wall seconds of their calls
-               in phase 2) and one library call computing the same function
-               (B2 tagged and B3 have none), the bound (bytes over the card's
-               3.35 TB/s), at PageRank's shape; B1 also at a BFS level's
-               shape (the gappy quarter-node expansion) beside index_select;
+               in phases 2 and 3) and one library call computing the same
+               function (B2 tagged and B3 have none), the bound (bytes over
+               the card's 3.35 TB/s), at PageRank's shape; B1 also at a BFS
+               level's shape (the gappy quarter-node expansion) beside
+               index_select; B3's round-cap body (4 partitions, add) also
+               tagged and flat, beside torch.sort(stable=True) of the same
+               keys (its sort stage's library counterpart);
   12. profile -- device time by kernel and the device's busy share over short
                windows of PageRank on kron-20 (sort and hash), SSSP on
                delaunay-1024, three serving ticks (fused sort and fused
@@ -325,6 +354,7 @@ the repo.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -1021,14 +1051,21 @@ def phase_figures(graphs, oracles):
     return totals
 
 
-SERVING_RUNS = (  # label, fused, mode, kernels, kernels the run must launch
-    ("fused baseline", True, "baseline", True, ("coalesced_gather",)),
+SERVING_RUNS = (  # label, fused, mode, kernels, kernels the run must launch,
+    # the IRU geometry (None: the default config's)
+    ("fused baseline", True, "baseline", True, ("coalesced_gather",), None),
     ("fused sort", True, "sort", True,
-     ("coalesced_gather", "segment_merge_tagged")),
+     ("coalesced_gather", "segment_merge_tagged"), None),
     ("fused hash", True, "hash", True,
-     ("coalesced_gather", "iru_reorder_tagged")),
-    ("split hash", False, "hash", True, ("coalesced_gather", "iru_reorder")),
-    ("fused sort plain", True, "sort", False, ()),
+     ("coalesced_gather", "iru_reorder_tagged"), None),
+    ("split hash", False, "hash", True, ("coalesced_gather", "iru_reorder"),
+     None),
+    ("fused sort plain", True, "sort", False, (), None),
+    # the paper's geometries, served tagged
+    ("fused hash IRU_HASH", True, "hash", True,
+     ("coalesced_gather", "iru_reorder_windowed"), "IRU_HASH"),
+    ("fused hash 4x2 cap", True, "hash", True,
+     ("coalesced_gather", "iru_reorder_round_cap"), "ROUND_CAP_4X2"),
 )
 
 
@@ -1155,12 +1192,13 @@ def phase_serving_kernels(view, g):
 
 
 def phase_serving(g):
-    """Multi-tenant serving on tile_csr(kron-20, 8) in five runs (see the
+    """Multi-tenant serving on tile_csr(kron-20, 8) in seven runs (see the
     module docstring), then the tagged kernels on a serving tick's streams.
-    Returns the launch counts summed over the five runs, the tagged
+    Returns the launch counts summed over the seven runs, the tagged
     kernels' largest errors there and the fused sort and hash runs'
     queries."""
     from repro_torch.apps import bfs, sssp
+    from repro_torch.core.iru import IRUConfig
     from repro_torch.graphs.csr import tile_csr
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serve import GraphServeConfig, GraphServingEngine
@@ -1172,9 +1210,11 @@ def phase_serving(g):
           f"{t_tile:.3f} s; edge budget {cfg.query_slots * g.n_edges} lanes")
     totals = {}
     results = {}
-    for label, fused, mode, kernels, path in SERVING_RUNS:
+    for label, fused, mode, kernels, path, geo in SERVING_RUNS:
+        iru_config = (None if geo is None else
+                      IRUConfig(mode="hash", **globals()[geo]))
         eng = GraphServingEngine(view, GraphServeConfig(
-            fused=fused, mode=mode, kernels=kernels))
+            fused=fused, mode=mode, kernels=kernels, iru_config=iru_config))
         qs = serving_queries(g)
         for q in qs:
             eng.submit(q)
@@ -1488,7 +1528,79 @@ def phase_partitioned_serving(g, pview, label, solo_qs):
 # over 4 partitions x 2 banks, 8192-lane windows, round cap 64
 IRU_HASH = dict(num_sets=1024, slots=32, window_elems=8192, n_partitions=4,
                 n_banks=2, round_cap=64)
+# the reference's examples' geometry (examples/quickstart.py:44,
+# examples/graph_analytics.py:41): 4 x 2 banks and a round cap, no window
+ROUND_CAP_4X2 = dict(num_sets=1024, slots=32, n_partitions=4, n_banks=2,
+                     round_cap=64)
 FIELDS = ("indices", "secondary", "positions", "active")
+
+
+def capped_partitions(idx: np.ndarray, n_live, parts: int,
+                      geo=ROUND_CAP_4X2) -> int:
+    """How many partitions of the layout (after the bank bypass) take the
+    round-cap fallback on the live prefix, by the oracle's rules (host
+    numpy): a partition one of whose sets holds more than round_cap *
+    slots live lanes."""
+    from repro_torch.kernels.iru_reorder.ref import hash_set, partition_capacity
+
+    x = idx[:idx.size if n_live is None else int(n_live)]
+    sets = hash_set(x // np.int32(32), geo["num_sets"])
+    if parts > 1 and np.bincount(sets % parts, minlength=parts).max() > \
+            partition_capacity(x.size, parts):
+        parts = 1  # the bank bypass
+    hot = np.flatnonzero(np.bincount(sets, minlength=geo["num_sets"])
+                         > geo["round_cap"] * geo["slots"])
+    return int(np.unique(hot % parts).size)
+
+
+def _capped_oracle(idx, vals, m, op, parts):
+    """ragged_oracle(hash_reorder_ref_banked, ..., round_cap=64) of one
+    round-cap case (in a pool worker)."""
+    from repro_torch.kernels.iru_reorder.ref import (hash_reorder_ref_banked,
+                                                     ragged_oracle)
+
+    return ragged_oracle(hash_reorder_ref_banked, idx, vals, m,
+                         num_sets=1024, slots=32, filter_op=op,
+                         n_partitions=parts, round_cap=64)
+
+
+def round_cap_cases(g, pr_idx, pr_vals):
+    """The whole-stream round-cap cases of phase 3 (a), as (label, indices,
+    payload, op, n_live, partitions, built to trip): kron-20's PageRank
+    stream flat and in 4 partitions, add and tagged; the half-graph
+    expansion (phase 2's first, rebuilt from the same seed) with its live
+    prefix, min on int32; a stream whose partition 0 keeps every PageRank
+    lane (its hub sets past the cap) while the other partitions keep one
+    lane in 64 (under it); and those thin partitions alone (no set reaches
+    the cap)."""
+    from repro_torch.graphs.csr import expand_frontier, frontier_from_mask
+    from repro_torch.kernels.iru_reorder.ref import hash_set
+
+    dev = g.device
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    mask = torch.rand(g.n_nodes, generator=gen, device=dev) < 0.5
+    ef = expand_frontier(g, frontier_from_mask(mask), gather="torch")
+    depth = torch.randint(0, 64, (ef.dsts.numel(),), device=dev,
+                          dtype=torch.int32, generator=torch.Generator(
+                              device=dev).manual_seed(SEED + 1))
+    part = torch.from_numpy(hash_set(pr_idx.cpu().numpy() // np.int32(32),
+                                     1024) % 4).to(dev)
+    thin = torch.rand(pr_idx.numel(), generator=gen, device=dev) < 1 / 64
+    mixed = (part == 0) | thin
+    under = (part != 0) & thin
+    return [("pagerank add, flat", pr_idx, pr_vals, "add", None, 1, True),
+            ("pagerank tagged, flat", pr_idx, pr_vals, "tagged", None, 1,
+             True),
+            ("pagerank add, 4 partitions", pr_idx, pr_vals, "add", None, 4,
+             True),
+            ("pagerank tagged, 4 parts", pr_idx, pr_vals, "tagged", None,
+             4, True),
+            ("expansion min int32, 4 parts", ef.dsts, depth, "min",
+             ef.n_valid, 4, True),
+            ("mixed add, 4 partitions", pr_idx[mixed], pr_vals[mixed], "add",
+             None, 4, True),
+            ("under the cap add, 4 parts", pr_idx[under], pr_vals[under],
+             "add", None, 4, False)]
 
 
 def window_branches(idx: np.ndarray, n_live, geo=IRU_HASH):
@@ -1573,8 +1685,20 @@ def start_host_work(pool, graphs) -> dict:
         IRUConfig(mode="hash", filter_op=op, **IRU_HASH),
         None if n_live is None else int(n_live))
         for _, a, _, op, n_live, cut in held]
+    # the whole-stream round-cap cases: tagged ones per family (add, min)
+    capped = round_cap_cases(g, pr_idx, pr_vals)
+    capped_oracles = []
+    for _, a, v, op, n_live, parts, _ in capped:
+        a_np = idx_np if a is pr_idx else a.cpu().numpy()
+        v_np = vals_np if v is pr_vals else v.cpu().numpy()
+        m = a_np.size if n_live is None else int(n_live)
+        capped_oracles.append({f: pool.submit(_capped_oracle, a_np, v_np, m,
+                                              f, parts)
+                               for f in (("add", "min") if op == "tagged"
+                                         else (op,))})
     return {"oracles": oracles, "banked": banked, "held": held,
-            "windowed": windowed, "pr": (pr_idx, pr_vals, idx_np, vals_np)}
+            "windowed": windowed, "pr": (pr_idx, pr_vals, idx_np, vals_np),
+            "capped": capped, "capped_oracles": capped_oracles}
 
 
 def windowed_oracle(pool, idx_np, vals_np, cfg, live):
@@ -1608,7 +1732,7 @@ def hold_windowed(label, idx, vals, op, oracle, n_live=None,
     stream, or on its first ``cut_lanes`` lanes (whole windows; the plain
     loop on a second kernel call on them).  Returns (max abs error against
     plain, the plain call's seconds, windows that bypass, windows that fall
-    back)."""
+    back, the oracle's four arrays)."""
     from repro_torch.core import iru
 
     cfg = iru.IRUConfig(mode="hash", filter_op=op, **IRU_HASH)
@@ -1660,7 +1784,223 @@ def hold_windowed(label, idx, vals, op, oracle, n_live=None,
           f"numpy oracle on {held} windows (waited {t_oracle:.1f} s for it) "
           f"and to plain{cut}: max abs err {err:.3g}, max rel err "
           f"{rel:.3g} (plain {t_plain:.1f} s)")
-    return err, t_plain, bypass, dense
+    return err, t_plain, bypass, dense, want_np
+
+
+def family_oracle(table_np, add, low):
+    """The tagged oracle from the add and the min oracles: their layout
+    (it does not depend on the op), the add payloads on add-family lanes
+    and the min payloads on min-family lanes."""
+    fam = table_np[np.clip(add[0], 0, table_np.size - 1)]
+    return add[0], np.where(fam, add[1], low[1]), add[2], add[3]
+
+
+def equal_bits(got_np, want, what: str, w=None) -> None:
+    """Every field bit for bit (f32 payloads by their bits); with ``w``,
+    the differing windows are named."""
+    bad = set()
+    for field, a, b in zip(FIELDS, got_np, want):
+        if a.dtype == np.float32:
+            a, b = a.view(np.int32), b.view(np.int32)
+        diff = np.flatnonzero(a != b)
+        if diff.size:
+            bad.add(field if w is None else
+                    f"{field} in windows {sorted(set(diff // w))[:5]}")
+    check(not bad, f"{what}: equal to the numpy oracle ({sorted(bad)})")
+
+
+def hold_capped(case, oracles, table):
+    """One whole-stream round-cap case of phase 3 (a): B3 under
+    ROUND_CAP_4X2's cap (one launch, counted under
+    iru_reorder_round_cap, under set_sync_debug_mode("error")) against the
+    plain version (exact but for f32 add, rtol 1e-5) and the numpy oracle
+    (started in the pool; tagged: per family), bit for bit; the partitions
+    past the cap counted on the host.  A case built not to trip must equal
+    the uncapped call.  Returns (max abs error against plain, the plain
+    call's seconds)."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.iru_reorder import ops as hash_ops
+
+    label, idx, vals, op, n_live, parts, trips = case
+    kw = dict(num_sets=ROUND_CAP_4X2["num_sets"], slots=ROUND_CAP_4X2["slots"],
+              round_cap=ROUND_CAP_4X2["round_cap"], filter_op=op,
+              n_partitions=parts, n_live=n_live,
+              tag_table=table if op == "tagged" else None)
+    before = launch_counts["iru_reorder_round_cap"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = hash_ops.hash_reorder(idx, vals, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    check(launch_counts["iru_reorder_round_cap"] == before + 1,
+          f"B3 round cap {label}: one launch of the capped body")
+    want, t_plain = wall_s(lambda: hash_ops.hash_reorder(
+        idx, vals, kernels=False, **kw))
+    for field in ("indices", "positions", "active"):
+        check(torch.equal(getattr(got, field), getattr(want, field)),
+              f"B3 round cap {label}: {field} equal to plain")
+    if op == "tagged":
+        check_tagged(got.secondary, want.secondary, table[got.indices.long()],
+                     f"B3 round cap {label}")
+    elif op == "add":
+        check(torch.allclose(got.secondary, want.secondary, rtol=1e-5,
+                             atol=0.0), f"B3 round cap {label}: rtol 1e-5")
+    else:
+        check(torch.equal(got.secondary, want.secondary),
+              f"B3 round cap {label}: exact against plain")
+    err = max_abs_err(got.secondary, want.secondary)
+    got_np = [getattr(got, field).cpu().numpy() for field in FIELDS]
+    t0 = time.perf_counter()
+    res = {f: fut.result() for f, fut in oracles.items()}
+    t_oracle = time.perf_counter() - t0
+    oracle = (family_oracle(table.cpu().numpy(), res["add"], res["min"])
+              if op == "tagged" else res[op])
+    equal_bits(got_np, oracle, f"B3 round cap {label}")
+    idx_np = idx.cpu().numpy()
+    dense = capped_partitions(idx_np, n_live, parts)
+    if trips:
+        check(dense > 0, f"B3 round cap {label}: a partition takes the "
+              f"fallback")
+    else:
+        check(dense == 0, f"B3 round cap {label}: no set reaches the cap")
+        plain_call = hash_ops.hash_reorder(idx, vals,
+                                           **dict(kw, round_cap=None))
+        check(all(torch.equal(a, b) for a, b in zip(got, plain_call)),
+              f"B3 round cap {label}: equal to the uncapped call")
+    live = idx.numel() if n_live is None else int(n_live)
+    print(f"B3 round cap {label:28s}: {idx.numel()} lanes ({live} live), "
+          f"{parts} partition(s), {dense} take the fallback; "
+          f"{int(got.active.sum())} survivors; equal to the numpy oracle "
+          f"(waited {t_oracle:.1f} s for it) and to plain: max abs err "
+          f"{err:.3g} (plain {t_plain:.2f} s)"
+          + ("" if trips else "; equal to the uncapped call"))
+    return err, t_plain
+
+
+def tick_of(idx, vals, lanes: int):
+    """``idx`` and ``vals`` padded with dead lanes to ``lanes`` (index one
+    past the largest, payload 0), as a top-rung serving tick pads its
+    stream, and the live count on the device."""
+    pad = lanes - idx.numel()
+    return (torch.cat([idx, idx.new_full((pad,), int(idx.max()) + 1)]),
+            torch.cat([vals, vals.new_zeros(pad)]),
+            torch.tensor(idx.numel(), dtype=torch.int32, device=idx.device))
+
+
+TICK_LANES = 251_212_640  # a top-rung tick of the serving mix (phase 6)
+TICK_SLICE = 64  # windows on each side of the tick's live count held in full
+TAGGED_PLAIN_WINDOWS = 128  # windows of the tagged stream held against plain
+
+
+def hold_windowed_tagged(pr_idx, pr_vals, table, add_oracle, min_oracle,
+                         min_lanes: int):
+    """Phase 3 (c): B3's windowed body tagged at the paper's geometry, one
+    launch.  On kron-20's PageRank stream (families (idx >> 17) & 1): its
+    layout and add-family payloads equal the add oracle on every window,
+    its min-family payloads the min oracle on the first ``min_lanes``
+    lanes, and a second call on the first TAGGED_PLAIN_WINDOWS windows
+    equals the plain window loop.
+    On a padded serving tick (TICK_LANES, the same stream live): every
+    fully live window equals the unpadded call, the TICK_SLICE windows on
+    each side of the live count equal the plain loop and the oracle per
+    family on that slice, and every window past them is the identity
+    layout.  Returns
+    (max abs error against plain, the tagged call's ms on the stream, the
+    tick's ms)."""
+    from repro_torch.core import iru
+
+    cfg = iru.IRUConfig(mode="hash", filter_op="tagged", **IRU_HASH)
+    w = cfg.window_elems
+    table_np = table.cpu().numpy()
+    got = iru.iru_reorder(pr_idx, pr_vals, config=cfg, tag_table=table)
+    torch.cuda.synchronize()
+    got_np = [getattr(got, field).cpu().numpy() for field in FIELDS]
+    fam = table_np[np.clip(got_np[0], 0, table_np.size - 1)]
+    for k in (0, 2, 3):
+        check(np.array_equal(got_np[k], add_oracle[k]),
+              f"B3 windowed tagged: {FIELDS[k]} equal to the oracle")
+    check(np.array_equal(got_np[1][fam].view(np.int32),
+                         add_oracle[1][fam].view(np.int32)),
+          "B3 windowed tagged: add-family payloads equal the add oracle")
+    head = slice(0, min_lanes)
+    low = ~fam[head]
+    check(np.array_equal(got_np[1][head][low].view(np.int32),
+                         min_oracle[1][head][low].view(np.int32)),
+          "B3 windowed tagged: min-family payloads equal the min oracle")
+    cut = TAGGED_PLAIN_WINDOWS * w
+    idx_c, vals_c = pr_idx[:cut], pr_vals[:cut]
+    got_c = iru.iru_reorder(idx_c, vals_c, config=cfg, tag_table=table)
+    want_c, t_plain = wall_s(lambda: iru.iru_reorder(
+        idx_c, vals_c, config=cfg, tag_table=table, kernels=False))
+    for field in ("indices", "positions", "active"):
+        check(torch.equal(getattr(got_c, field), getattr(want_c, field)),
+              f"B3 windowed tagged: {field} equal to plain")
+    check_tagged(got_c.secondary, want_c.secondary,
+                 table[got_c.indices.long()], "B3 windowed tagged")
+    err = max_abs_err(got_c.secondary, want_c.secondary)
+    ms = event_ms(lambda: iru.iru_reorder(pr_idx, pr_vals, config=cfg,
+                                          tag_table=table))
+    # the padded tick
+    t_idx, t_vals, t_live = tick_of(pr_idx, pr_vals, TICK_LANES)
+    n = pr_idx.numel()
+    tick = iru.iru_reorder(t_idx, t_vals, config=cfg, n_live=t_live,
+                           tag_table=table)
+    full = n // w * w  # the fully live windows
+    for field in FIELDS:
+        check(torch.equal(getattr(tick, field)[:full],
+                          getattr(got, field)[:full]),
+              f"B3 windowed tagged tick: live windows' {field} equal the "
+              f"unpadded call")
+    s0, s1 = full - TICK_SLICE * w, full + TICK_SLICE * w
+    sl_idx, sl_vals = t_idx[s0:s1], t_vals[s0:s1]
+    sl_live = torch.tensor(n - s0, dtype=torch.int32, device=t_idx.device)
+    got_s = iru.iru_reorder(sl_idx, sl_vals, config=cfg, n_live=sl_live,
+                            tag_table=table)
+    for field in FIELDS:
+        a = getattr(tick, field)[s0:s1]
+        b = getattr(got_s, field)
+        if field == "positions":
+            b = b + s0
+        check(torch.equal(a, b), f"B3 windowed tagged tick: {field} of the "
+              f"slice equal to the slice's own call")
+    want_s = iru.iru_reorder(sl_idx, sl_vals, config=cfg, n_live=sl_live,
+                             tag_table=table, kernels=False)
+    for field in ("indices", "positions", "active"):
+        check(torch.equal(getattr(got_s, field), getattr(want_s, field)),
+              f"B3 windowed tagged tick: {field} equal to plain")
+    check_tagged(got_s.secondary, want_s.secondary,
+                 table[got_s.indices.long()], "B3 windowed tagged tick")
+    err = max(err, max_abs_err(got_s.secondary, want_s.secondary))
+    sl_np = (sl_idx.cpu().numpy(), sl_vals.cpu().numpy())
+    oracle = family_oracle(table_np, *(iru._hash_ref_host(
+        *sl_np, dataclasses.replace(cfg, filter_op=f), n - s0)
+        for f in ("add", "min")))
+    equal_bits([getattr(got_s, field).cpu().numpy() for field in FIELDS],
+               oracle, "B3 windowed tagged tick slice", w)
+    rest = torch.arange(s1, TICK_LANES, device=t_idx.device,
+                        dtype=torch.int32)
+    check(torch.equal(tick.positions[s1:], rest)
+          and not bool(tick.active[s1:].any())
+          and torch.equal(tick.indices[s1:], t_idx[s1:]),
+          "B3 windowed tagged tick: the dead windows are the identity")
+    tick_ms = event_ms(lambda: iru.iru_reorder(
+        t_idx, t_vals, config=cfg, n_live=t_live, tag_table=table), reps=3)
+    print(f"B3 windowed tagged pagerank: {n} lanes, "
+          f"{int(got.active.sum())} survivors; equal to the add oracle on "
+          f"every window (layout, add-family payloads) and the min oracle "
+          f"on the first {min_lanes} lanes; equal to plain on the first "
+          f"{cut} (plain "
+          f"{t_plain:.1f} s), max abs err {err:.3g}; kernel {ms:.4f} ms; "
+          f"padded tick ({TICK_LANES} lanes, {n} live): live windows equal "
+          f"the unpadded call, the {2 * TICK_SLICE} windows around the live "
+          f"count equal plain and the oracle per family, dead windows the "
+          f"identity; "
+          f"kernel {tick_ms:.4f} ms")
+    del t_idx, t_vals, tick
+    torch.cuda.empty_cache()
+    return err, ms, tick_ms
 
 
 def trip_streams(dev):
@@ -1712,15 +2052,20 @@ def window_phases(idx, vals):
     per = cycles.mean(0)
     smem = hash_ops._lib().iru_win_reorder_smem(
         kw["window_elems"], kw["num_sets"], kw["n_partitions"])
-    resident = hash_ops.windowed_occupancy(kw["window_elems"], kw["num_sets"],
-                                           kw["n_partitions"])
+    resident = {op: hash_ops.windowed_occupancy(
+        kw["window_elems"], kw["num_sets"], kw["n_partitions"], op)
+        for op in ("add", "tagged")}
+    for op, blocks in resident.items():
+        check(blocks == 2, f"two windows of the windowed body ({op}) reside "
+              f"on an SM, got {blocks}")
     print(f"time iru_reorder_windowed by phase at pagerank's shape (stamped "
           f"build, one call, {stamps.shape[0]} windows; clock64 cycles a "
           f"window, share): " + ", ".join(
               f"{name} {c:.1f} ({f:.4f})" for name, c, f in zip(
                   hash_ops.WINDOW_PHASES, per.tolist(), share.tolist()))
-          + f"; total {per.sum().item():.1f} cycles a window; {resident} "
-          f"CTAs resident per SM, {smem} bytes of shared memory a window")
+          + f"; total {per.sum().item():.1f} cycles a window; "
+          f"{resident['add']} CTAs resident per SM ({resident['tagged']} "
+          f"tagged), {smem} bytes of shared memory a window")
 
 
 def phase_windowed(graphs, oracles, work, pool):
@@ -1753,6 +2098,12 @@ def phase_windowed(graphs, oracles, work, pool):
     check(bypass > 0, "the bypass trip stream bypasses the banks")
     print(f"B3 windowed: {dense} windows took the round-cap fallback, "
           f"{bypass} bypassed the banks")
+    # (c) the windowed body tagged, on the same stream and a padded tick
+    table = family_table(g)
+    err_tag, tagged_ms, tick_ms = hold_windowed_tagged(
+        pr_idx, pr_vals, table, res[0][4], res[1][4],
+        work["held"][1][5])
+    del res
 
     # whole-stream B3, banked layout (4 partitions, no window)
     kw = BANKED
@@ -1782,6 +2133,12 @@ def phase_windowed(graphs, oracles, work, pool):
           f"{int(got.active.sum())} survivors, max abs err {err_b:.3g} "
           f"against plain (plain {t_plain_b:.1f} s); without a merge equal "
           f"to hash_reorder_ref_banked (waited {t_oracle:.1f} s for it)")
+    # (a) whole-stream B3 under the round cap, against plain and oracle
+    capped_errs, capped_plain = [], {}
+    for case, oracle in zip(work["capped"], work["capped_oracles"]):
+        err, t_plain_c = hold_capped(case, oracle, table)
+        capped_errs.append(err)
+        capped_plain[case[0]] = t_plain_c
     t0 = time.perf_counter()
     for key in work["oracles"]:  # the apps' host oracles, here and phase 4
         host_oracle(oracles, *key[:2], graphs[key[1]], key[2])
@@ -1789,41 +2146,48 @@ def phase_windowed(graphs, oracles, work, pool):
     print(f"host oracles: waited {time.perf_counter() - t0:.1f} s for the "
           f"rest of the pool's work")
 
-    # the main path: the apps with IRU_HASH, and reorder_frontier
-    cfg = IRUConfig(mode="hash", **IRU_HASH)
+    # the main path: the apps with IRU_HASH and (b) with the 4 x 2 round-cap
+    # geometry (no window), and reorder_frontier
     policy = CapacityPolicy(n_buckets=3)
-    FrontierPipeline(g, BFS_APP, mode="hash", iru_config=cfg,
-                     capacity_policy=policy, max_iters=2).run(0)  # warm-up
     totals = {}
-    for gname in ("kron20", "delaunay1024"):
-        gr = graphs[gname]
-        for name, app, iters in (("bfs", BFS_APP, None),
-                                 ("sssp", SSSP_APP, None),
-                                 ("pagerank", pagerank_app(20), 20)):
-            pipe = FrontierPipeline(gr, app, mode="hash", iru_config=cfg,
-                                    capacity_policy=policy, max_iters=iters)
-            reset_launch_counts()
-            out, secs = wall_s(lambda: pipe.run(0))
-            counts_run = dict(launch_counts)
-            for k in ("coalesced_gather", "iru_reorder_windowed"):
-                check(counts_run.get(k, 0) > 0,
-                      f"IRU_HASH {name} on {gname} launched {k}")
-            for k, v in counts_run.items():
-                totals[k] = totals.get(k, 0) + v
-            host = host_oracle(oracles, name, gname, gr, iters)
-            if iters:
-                check(torch.allclose(out, host, rtol=1e-4, atol=0.0),
-                      f"IRU_HASH pagerank on {gname} within rtol 1e-4 of the "
-                      f"host oracle")
-            else:
-                check(torch.equal(out, host),
-                      f"IRU_HASH {name} on {gname} equals the host oracle")
-            edges = gr.n_edges * (iters or 1)
-            print(f"app IRU_HASH {name:8s} {gname:12s}"
-                  f"{f' ({iters} iterations)' if iters else ''}: "
-                  f"{secs:.3f} s ({edges / secs:.4g} edges/s), launches "
-                  f"{counts_run}, {pipe.n_hops} bucket hops, host oracle "
-                  f"agrees")
+    for label, cfg, key in (
+            ("IRU_HASH", IRUConfig(mode="hash", **IRU_HASH),
+             "iru_reorder_windowed"),
+            ("4x2 round cap", IRUConfig(mode="hash", **ROUND_CAP_4X2),
+             "iru_reorder_round_cap")):
+        FrontierPipeline(g, BFS_APP, mode="hash", iru_config=cfg,
+                         capacity_policy=policy, max_iters=2).run(0)  # warm
+        for gname in ("kron20", "delaunay1024"):
+            gr = graphs[gname]
+            for name, app, iters in (("bfs", BFS_APP, None),
+                                     ("sssp", SSSP_APP, None),
+                                     ("pagerank", pagerank_app(20), 20)):
+                pipe = FrontierPipeline(gr, app, mode="hash", iru_config=cfg,
+                                        capacity_policy=policy,
+                                        max_iters=iters)
+                reset_launch_counts()
+                out, secs = wall_s(lambda: pipe.run(0))
+                counts_run = dict(launch_counts)
+                for k in ("coalesced_gather", key):
+                    check(counts_run.get(k, 0) > 0,
+                          f"{label} {name} on {gname} launched {k}")
+                for k, v in counts_run.items():
+                    totals[k] = totals.get(k, 0) + v
+                host = host_oracle(oracles, name, gname, gr, iters)
+                if iters:
+                    check(torch.allclose(out, host, rtol=1e-4, atol=0.0),
+                          f"{label} pagerank on {gname} within rtol 1e-4 of "
+                          f"the host oracle")
+                else:
+                    check(torch.equal(out, host),
+                          f"{label} {name} on {gname} equals the host "
+                          f"oracle")
+                edges = gr.n_edges * (iters or 1)
+                print(f"app {label} {name:8s} {gname:12s}"
+                      f"{f' ({iters} iterations)' if iters else ''}: "
+                      f"{secs:.3f} s ({edges / secs:.4g} edges/s), launches "
+                      f"{counts_run}, {pipe.n_hops} bucket hops, host oracle "
+                      f"agrees")
     for label, fcfg, key in (
             ("IRU_HASH", IRUConfig(mode="hash", filter_op="add", **IRU_HASH),
              "iru_reorder_windowed"),
@@ -1879,16 +2243,24 @@ def phase_windowed(graphs, oracles, work, pool):
         ms = event_ms(lambda: iru_reorder(pr_idx, pr_vals, config=cfg_v))
         parts.append(f"{label} {ms:.4f} ms")
     print("time iru_reorder_windowed by variant at pagerank's shape: "
-          + ", ".join(parts))
+          + ", ".join(parts) + f", tagged {tagged_ms:.4f} ms (families "
+          f"(idx >> 17) & 1), tagged on the padded tick ({TICK_LANES} lanes, "
+          f"{n} live) {tick_ms:.4f} ms")
     window_phases(pr_idx, pr_vals)
     profile_window("B3 windowed at pagerank's shape, one call",
                    lambda: iru_reorder(pr_idx, pr_vals, config=add_cfg))
     profile_window("B3 banked at pagerank's shape, one call",
                    lambda: hash_ops.hash_reorder(pr_idx, pr_vals,
                                                  filter_op="add", **kw))
-    errors = {"iru_reorder_windowed": max(err_w, err_min, err_cap, err_by),
-              "iru_reorder_banked": err_b}
-    return totals, errors, rows
+    errors = {"iru_reorder_windowed": max(err_w, err_min, err_cap, err_by,
+                                          err_tag),
+              "iru_reorder_banked": err_b,
+              "iru_reorder_round_cap": max(capped_errs)}
+    plain = {"iru_reorder_round_cap":
+             capped_plain["pagerank add, 4 partitions"],
+             "iru_reorder_round_cap tagged":
+             capped_plain["pagerank tagged, 4 parts"]}
+    return totals, errors, rows, plain
 
 
 # deepseek-v2-lite's MoE layer (src/repro/configs/deepseek_v2_lite_16b.py:9,
@@ -3299,6 +3671,33 @@ def phase_timings(g, dsts, contrib, sparse, plain_s):
         # B3's bytes and the tag table read once
         "bytes": n * (4 + 4) + table.numel() + n * (4 + 4 + 4 + 1),
     }
+    # B3 under the 4 x 2 round-cap geometry (no window): every partition of
+    # this stream is past the cap, so all of it takes the fallback (its own
+    # sort by index, the runs' firsts ranked, each run folded).  No PyTorch
+    # call computes the function; its sort stage is set beside
+    # torch.sort(stable=True) of the same keys.
+    cap_kw = dict(num_sets=1024, slots=32, n_partitions=4, round_cap=64)
+    b3c = {
+        "ms": event_ms(lambda: hash_ops.hash_reorder(
+            pr_idx, pr_vals, filter_op="add", **cap_kw)),
+        "plain_ms": plain_s["iru_reorder_round_cap"] * 1e3,
+        "library_ms": None,
+        "bytes": n * (4 + 4) + n * (4 + 4 + 4 + 1),
+    }
+    sort_ms = event_ms(lambda: torch.sort(pr_idx, stable=True))
+    variants = {
+        "tagged, 4 partitions": (dict(filter_op="tagged", tag_table=table,
+                                      **cap_kw),
+                                 plain_s["iru_reorder_round_cap tagged"]),
+        "add, flat": (dict(cap_kw, filter_op="add", n_partitions=1), None)}
+    parts = []
+    for label, (kw, plain) in variants.items():
+        ms = event_ms(lambda: hash_ops.hash_reorder(pr_idx, pr_vals, **kw))
+        parts.append(f"{label} {ms:.4f} ms" + (
+            "" if plain is None else f" (plain {plain * 1e3:.1f} ms)"))
+    print("time iru_reorder_round_cap variants at pagerank's shape: "
+          + ", ".join(parts) + f"; torch.sort(stable=True) of the same {n} "
+          f"int32 keys {sort_ms:.4f} ms")
     # B1 at a BFS level's shape: the gappy quarter-node expansion, D = 1
     ns = sparse.numel()
     sparse_bytes = ns * 4 * 2 + int(torch.unique(sparse).numel()) * 4
@@ -3311,7 +3710,7 @@ def phase_timings(g, dsts, contrib, sparse, plain_s):
           f"bytes)")
     rows = {"coalesced_gather": b1, "segment_merge": b2,
             "segment_merge_tagged": b2t, "iru_reorder": b3,
-            "iru_reorder_tagged": b3t}
+            "iru_reorder_tagged": b3t, "iru_reorder_round_cap": b3c}
     for name, row in rows.items():
         row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
         lib = ("none" if row["library_ms"] is None
@@ -3670,8 +4069,9 @@ def run_phases(dev, card: str, pool, started: list, t_start: float) -> int:
     dsts, contrib, sparse, plain_s, errors = timed(
         "kernels", phase_kernels, graphs["kron20"])
     oracles = work["oracles"]
-    win_launches, win_errors, win_rows = timed(
+    win_launches, win_errors, win_rows, win_plain = timed(
         "windowed", phase_windowed, graphs, oracles, work, pool)
+    plain_s.update(win_plain)
     del work
     # phase 13 (a) runs beside phases 4-12, once the pool's work is done
     sweep = start_dryrun_sweep(card)
@@ -3729,6 +4129,9 @@ def run_phases(dev, card: str, pool, started: list, t_start: float) -> int:
             "src/repro_torch/kernels/iru_reorder/iru_reorder.cu",
             "src/repro/kernels/iru_reorder/iru_reorder.py:168"),
         "iru_reorder_windowed": (  # B3's windowed body (the paper's geometry)
+            "src/repro_torch/kernels/iru_reorder/iru_reorder.cu",
+            "src/repro/kernels/iru_reorder/iru_reorder.py:168"),
+        "iru_reorder_round_cap": (  # B3's whole-stream round-cap fallback
             "src/repro_torch/kernels/iru_reorder/iru_reorder.cu",
             "src/repro/kernels/iru_reorder/iru_reorder.py:168"),
     }

@@ -19,8 +19,14 @@
 //      inactive.
 // A stream whose busiest partition holds more live lanes than
 // partition_capacity(n_live, P) bypasses the banks: it is laid out as one
-// partition (P = 1 is the flat layout).  The whole-stream body decides that
-// on the device from the set histogram the binning builds.
+// partition (P = 1 is the flat layout).  With a round cap and a merge, a
+// partition (after the bypass: the whole stream) one of whose sets holds
+// more than round_cap * slots live lanes takes the round-cap fallback
+// (ref.dense_merge_ref): its front holds one survivor an index, by (index,
+// arrival), with its run's payloads folded in stream order, and every
+// other lane of it is filtered, in its tail in reverse stream order.  The
+// whole-stream body decides both on the device from the set histogram the
+// binning builds.
 //
 // Replaces the TPU kernel repro/kernels/iru_reorder/iru_reorder.py
 // (hash_reorder_pallas, _kernel, _hash_set): there one core streamed the
@@ -76,6 +82,22 @@
 //           contiguous copy, 16-byte stores (and loads where the input's
 //           alignment allows); kept entries are placed one thread a live
 //           binned slot (untagged) or by the fold (tagged).
+//   round cap (a capped partition's lanes; the walk and the scatter leave
+//           its sets, and the scatter and emission stop at once when every
+//           partition is capped) a stable LSD sort by index, 8-bit digits
+//           of the sign-flipped index, each pass a counting sort of the
+//           binning's kind (count, single-pass scan, scatter by chunk) over
+//           256 buckets; pass 0 takes the capped lanes from the stream and
+//           gathers their keys' OR and AND, and a later pass whose digit
+//           every key shares is skipped on the device (kron-20's ids need
+//           three).  Then one single-pass dense scan over the sorted lanes
+//           (4096 a tile, decoupled look-back over up to eight partitions'
+//           counts) ranks each run's first lane in its partition's front
+//           and writes every lane's mark (kept or filtered, and its
+//           partition) to its stream position, so the mark scan gives the
+//           filtered lanes their tail slots as it does the walk's; last, a
+//           run's first lane folds the run (one thread, in sorted order,
+//           which is stream order) and writes the survivor.
 //
 // What bounds it on an H100: the walk.  It is sequential within a set, so
 // the busiest set's arrival count sets the time: one sub-step per batch of
@@ -85,7 +107,11 @@
 // warp; the tagged chain leaves the folds to a parallel pass.  On a padded
 // stream (a serving tick: 2.5e8 lanes, 3.1e7 live) the dead lanes' copy is
 // the floor.  The byte bound is 8 B read and 13 B written a lane.
-// Spreading a hot set over several warps is later work.
+// Spreading a hot set over several warps is later work.  Under a round cap
+// that every partition passes (kron-20's PageRank stream at 64 rounds) the
+// walk is gone and the sort's passes bound it, each a read and a write of
+// 12 B a lane (plus a read of the indices to count), then the longest
+// run's fold, one thread's chain of adds.
 //
 // The windowed body (win_reorder) reorders independent windows of w lanes
 // (the streaming lookahead of the paper's geometry: 8192 lanes, 1024 x 32
@@ -109,7 +135,10 @@
 //           its last arrival, so __match_any_sync on the index marks every
 //           first arrival kept and the rest filtered in one step, and each
 //           kept lane folds its duplicates in lane (stream) order.  A lane's
-//           16-bit aux word holds its set key and its mark;
+//           16-bit aux word holds its set key and its mark.  Tagged, every
+//           fold (small set, hot set, fallback) takes its survivor's
+//           family from the tag table in device memory when it folds: no
+//           shared memory goes to it;
 //   emit    one mark scan over the lanes in stream order for up to four
 //           partitions (packed 16-bit trigger and filtered counts, a
 //           thread's eight lanes one 16-byte load) gives each trigger its
@@ -157,8 +186,20 @@ constexpr int kMarkWords = 8;         // partitions one mark-scan pass counts
 constexpr int kMaxMarkParts = 64;     // a mark byte: kind (2 bits), partition (6 bits)
 constexpr int kTickHist = 0;          // ticket counters: the histogram scan's,
 constexpr int kTickScatter = 1;       // the scatter's,
-constexpr int kTickMark = 2;          // then one a mark-scan pass
+constexpr int kTickMark = 2;          // then one a mark-scan pass (then, with a
+                                      // round cap, two a sort pass and one a
+                                      // dense-scan pass)
 constexpr unsigned long long kValid = 1ull << 63;  // a published status word
+// the round-cap fallback's sort: LSD passes of 10-bit digits over the index
+// with its sign bit flipped (so unsigned order is the index's order)
+constexpr int kSortBits = 10;
+constexpr int kSortBuckets = 1 << kSortBits;
+constexpr int kSortPasses = (32 + kSortBits - 1) / kSortBits;
+constexpr unsigned kSignFlip = 0x80000000u;
+// meta words: flush groups, survivors, partitions of the layout, capped
+// partitions, capped live lanes, the OR and the AND of their sort keys
+enum Meta { kMetaFlush = 0, kMetaSurvivors, kMetaParts, kMetaCapped, kMetaDense, kMetaOr,
+            kMetaAnd, kMetaWords };
 
 enum Op { kNone = 0, kAdd = 1, kMin = 2, kMax = 3, kTagged = 4 };
 enum Mark : uint8_t { kKept = 0, kTrigger = 1, kFiltered = 2 };
@@ -206,7 +247,20 @@ struct Geo {
   int nparts;           // partitions: sets stripe as set % nparts
   const uint8_t* tags;  // op = tagged: the family of each index (1 = add)
   int ntags;
+  int round_cap;        // 0: none (always none without a merge)
 };
+
+// the family of index x under the tag table (1 = add)
+__device__ __forceinline__ bool add_family(const uint8_t* tags, int ntags, int x) {
+  return tags[x < 0 ? 0 : min(x, ntags - 1)] != 0;
+}
+
+// one filtered arrival folded into its survivor: the op, or the index's
+// family when tagged
+template <typename T, int OP>
+__device__ __forceinline__ T fold_one(T a, T b, bool add) {
+  return OP == kTagged ? tagged_fold(a, b, add) : combine<T, OP>(a, b);
+}
 
 // the partition field of a set's mark bytes (unused past kMaxMarkParts
 // partitions, where the mark scan hashes the lane's index again)
@@ -236,7 +290,7 @@ struct Work {
   int* ndrain;
   int* drain_off;
   int* gkey;                 // [num_sets + 1] the tagged fold's spans before each set key
-  int* meta;                 // {flush groups, survivors, partitions of the layout}
+  int* meta;                 // [kMetaWords], see Meta
   Part* part;
   int* pd;
   int* pf;
@@ -246,13 +300,22 @@ struct Work {
   int* rank;                 // by stream position: a trigger's flush rank in its partition
   uint8_t* code;             // tagged chain, by binned slot: the arrival's slot | kKeptCode
   int* gend;                 // tagged chain: each flush group's end, set s from set_start[s] / slots
+  // the round-cap fallback (all null without a cap)
+  int* capped;               // [nparts] 1: the layout's partition takes the fallback
+  int* dheads;               // [nparts] a capped partition's survivors
+  uint2* s_iv[2];            // the sort's (index, payload bits) words, two buffers
+  int* s_pos[2];             // and positions
+  int* srank;                // by sorted slot: a survivor's rank in its partition's front
+  unsigned long long* dstat; // the dense scan's status words, as mstat
+  int tick_sort;             // the sort passes' tickets, two a pass,
+  int tick_dense;            // then one a dense-scan pass
 };
 
 long long align(long long b) { return (b + 255) / 256 * 256; }
 
-long long carve(char* base, long long n, int num_sets, int nparts, Work* w) {
+long long carve(char* base, long long n, int num_sets, int nparts, bool cap, Work* w) {
   const long long nchunks = (n + kChunk - 1) / kChunk;
-  const long long h = nchunks * num_sets;
+  const long long h = nchunks * (cap ? std::max(num_sets, kSortBuckets) : num_sets);
   const long long htiles = (h + kTile - 1) / kTile, mtiles = (n + kTile - 1) / kTile;
   const int passes = (nparts + kMarkWords - 1) / kMarkWords;
   long long off = 0;
@@ -266,14 +329,16 @@ long long carve(char* base, long long n, int num_sets, int nparts, Work* w) {
   v.hstat = (unsigned long long*)take(std::max(htiles, 1LL) * 2 * 8);
   v.mstride = std::max(mtiles, 1LL) * 2 * kMarkWords;
   v.mstat = (unsigned long long*)take(2 * v.mstride * 8);
-  v.nticks = kTickMark + passes;
+  v.tick_sort = kTickMark + passes;
+  v.tick_dense = v.tick_sort + 2 * kSortPasses;
+  v.nticks = cap ? v.tick_dense + passes : v.tick_sort;
   v.tick = (int*)take(v.nticks * 4LL);
   v.set_start = (int*)take((num_sets + 1) * 4LL);
   v.nflush = (int*)take(num_sets * 4LL);
   v.ndrain = (int*)take(num_sets * 4LL);
   v.drain_off = (int*)take(num_sets * 4LL);
   v.gkey = (int*)take((num_sets + 1) * 4LL);
-  v.meta = (int*)take(16);
+  v.meta = (int*)take(kMetaWords * 4LL);
   v.part = (Part*)take(nparts * (long long)sizeof(Part));
   v.pd = (int*)take((nparts + 1) * 4LL);
   v.pf = (int*)take((nparts + 1) * 4LL);
@@ -283,6 +348,20 @@ long long carve(char* base, long long n, int num_sets, int nparts, Work* w) {
   v.rank = (int*)take(n * 4);
   v.code = (uint8_t*)take(n);
   v.gend = (int*)take((n / 2 + 1) * 4);  // slots >= 2; one slot needs none
+  v.capped = v.dheads = v.srank = nullptr;
+  v.s_iv[0] = v.s_iv[1] = nullptr;
+  v.s_pos[0] = v.s_pos[1] = nullptr;
+  v.dstat = nullptr;
+  if (cap) {
+    v.capped = (int*)take(nparts * 4LL);
+    v.dheads = (int*)take(nparts * 4LL);
+    for (int b = 0; b < 2; ++b) {
+      v.s_iv[b] = (uint2*)take(n * 8);
+      v.s_pos[b] = (int*)take(n * 4);
+    }
+    v.srank = (int*)take(n * 4);
+    v.dstat = (unsigned long long*)take(2 * v.mstride * 8);
+  }
   if (w) *w = v;
   return off;
 }
@@ -393,64 +472,103 @@ __device__ void tile_prefix(unsigned long long* st, long long t, unsigned long l
 }
 
 // ---------------------------------------------------------------- binning
-// One warp adds the lanes [p0, p1) of each set to cnt[set]; lanes of one set
-// within a 32-lane step are ranked with __match_any_sync.
-template <typename C>
-__device__ void count_sets(const int* idx, long long p0, long long p1, const Geo& g, C* cnt) {
+// A stable counting sort by a key, over the lanes [0, len) of a source, in
+// three kernels: bin_count (per-chunk histograms), hist_scan (their
+// exclusive scan) and bin_scatter (each chunk's lanes to their bucket's
+// offset).  A policy B names the source, the key and the destination:
+//   skip()          the launch has nothing to do (read on the device)
+//   len()           the lanes of the source
+//   buckets()       the key's range; bucket<PLACE>(x) of a lane's index x,
+//                   or buckets() for a lane that takes no part (PLACE: in
+//                   the scatter, else in the count)
+//   index(p), word(p, x), position(p)   lane p's index, (index, payload
+//                   bits) word and stream position
+//   store(at, iv, pos)   entry `at` of the sorted order
+//   hist(), hstat(), tickets, zero(lc, m)   the histogram, its scan's status
+//                   words and tickets, and what the count zeroes first;
+//   none_placed()   the scatter has nothing to place (read on the device).
+// The binning (SetBins) sorts the stream's live lanes by set; the round-cap
+// fallback's sort (DigitBins) takes its passes over the capped partitions'
+// lanes one 8-bit digit of the index at a time.
+
+// one more lane of bucket k, by a shared atomic (a 16-bit counter by its
+// 32-bit word; a chunk's counts stay below 2^16, so nothing carries)
+__device__ __forceinline__ void count_one(int* cnt, int k) { atomicAdd(cnt + k, 1); }
+__device__ __forceinline__ void count_one(uint16_t* cnt, int k) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(cnt + k);
+  atomicAdd(reinterpret_cast<unsigned*>(a & ~uintptr_t(3)), 1u << (8 * (a & 2)));
+}
+
+// One warp adds the lanes [p0, p1) of each bucket to cnt[bucket], by shared
+// atomics (a count needs no order).  With KEYS, kor and kand gather the OR
+// and the AND of the counted lanes' sort keys.
+template <bool PLACE, bool KEYS, class B, typename C>
+__device__ void count_keys(const B& b, long long p0, long long p1, C* cnt, unsigned& kor,
+                           unsigned& kand) {
   const int lane = threadIdx.x % kWarp;
+  const int none = b.buckets();
   for (long long base = p0; base < p1; base += kWarp) {
     const long long p = base + lane;
-    const bool live = p < p1;
-    const int s = live ? hash_set(idx[p], g.epb, g.num_sets) : g.num_sets;
-    const unsigned peers = __match_any_sync(kFull, s);
-    if (live && __popc(peers & ((1u << lane) - 1u)) == 0) cnt[s] += __popc(peers);
-    __syncwarp();
+    const int x = p < p1 ? b.index(p) : 0;
+    const int k = p < p1 ? b.template bucket<PLACE>(x) : none;
+    if (k < none) {
+      count_one(cnt, k);
+      if (KEYS) {
+        kor |= (unsigned)x ^ kSignFlip;
+        kand &= (unsigned)x ^ kSignFlip;
+      }
+    }
   }
+  __syncwarp();
 }
 
 // Count: warps stride over the live chunks; each counts its chunk's lanes
-// of every set into hist[s * live chunks + c].  The CTAs also zero the
-// scans' status words of the live tiles and the ticket counters.
+// of every bucket into hist[bucket * live chunks + c].  The CTAs first zero
+// what the policy's scans use (zero()).
+template <class B>
 __global__ void __launch_bounds__(kBinWarps * kWarp)
-bin_count(const int* idx, const int* n_live, Geo g, Work w) {
+bin_count(B b) {
   extern __shared__ int counters[];
-  const long long m = live_count(n_live, g.n);
+  b.prepare();
+  if (b.skip()) return;
+  const long long m = b.len();
   const int lc = live_chunks(m);
-  {
-    const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    const long long stride = (long long)gridDim.x * blockDim.x;
-    const long long hz = 2 * (((long long)g.num_sets * lc + kTile - 1) / kTile);
-    const long long mz = 2LL * kMarkWords * ((m + kTile - 1) / kTile);
-    for (long long i = tid; i < hz; i += stride) w.hstat[i] = 0;
-    for (long long i = tid; i < mz; i += stride) w.mstat[i] = w.mstat[w.mstride + i] = 0;
-    for (long long i = tid; i < w.nticks; i += stride) w.tick[i] = 0;
-  }
+  b.zero(lc, m);
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  int* cnt = counters + warp * g.num_sets;
+  const int nb = b.buckets();
+  int* cnt = counters + warp * nb;
+  int* hist = b.hist();
+  unsigned kor = 0u, kand = ~0u;
   for (int c = blockIdx.x * kBinWarps + warp; c < lc; c += gridDim.x * kBinWarps) {
-    for (int s = lane; s < g.num_sets; s += kWarp) cnt[s] = 0;
+    for (int s = lane; s < nb; s += kWarp) cnt[s] = 0;
     __syncwarp();
     const long long p0 = (long long)c * kChunk;
-    count_sets(idx, p0, min(p0 + kChunk, m), g, cnt);
+    count_keys<false, B::kKeys>(b, p0, min(p0 + kChunk, m), cnt, kor, kand);
     __syncwarp();
-    for (int s = lane; s < g.num_sets; s += kWarp) w.hist[(long long)s * lc + c] = cnt[s];
+    for (int s = lane; s < nb; s += kWarp) hist[(long long)s * lc + c] = cnt[s];
     __syncwarp();
   }
+  if (B::kKeys) b.keys(__reduce_or_sync(kFull, kor), __reduce_and_sync(kFull, kand));
 }
 
 // The live histogram's exclusive scan in place, one pass: persistent CTAs
 // take 4096-entry tiles by ticket, a thread's 16 entries four 16-byte loads.
+template <class B>
 __global__ void __launch_bounds__(kTileThreads)
-hist_scan(const int* n_live, Geo g, Work w) {
+hist_scan(B b) {
   __shared__ uint32_t warp_tot[kTileWarps];
   __shared__ unsigned long long excl[1];
   __shared__ long long tile_sh;
-  const long long m = live_count(n_live, g.n);
-  const long long h = (long long)g.num_sets * live_chunks(m);
+  b.prepare();
+  if (b.skip()) return;
+  const long long h = (long long)b.buckets() * live_chunks(b.len());
   const long long tiles = (h + kTile - 1) / kTile;
+  int* hist = b.hist();
+  int* tick = b.scan_ticket();
+  unsigned long long* hstat = b.hstat();
   const int tid = threadIdx.x, lane = tid % kWarp, wid = tid / kWarp;
   for (;;) {
-    if (tid == 0) tile_sh = atomicAdd(&w.tick[kTickHist], 1);
+    if (tid == 0) tile_sh = atomicAdd(tick, 1);
     __syncthreads();
     const long long t = tile_sh;
     if (t >= tiles) break;
@@ -459,7 +577,7 @@ hist_scan(const int* n_live, Geo g, Work w) {
     uint32_t sum = 0;
 #pragma unroll
     for (int i = 0; i < kTileItems / 4; ++i) {
-      x[i] = j0 < h ? reinterpret_cast<const int4*>(w.hist + j0)[i] : make_int4(0, 0, 0, 0);
+      x[i] = j0 < h ? reinterpret_cast<const int4*>(hist + j0)[i] : make_int4(0, 0, 0, 0);
       const long long j = j0 + 4 * i;  // entries past h are another column's garbage
       if (j >= h) x[i].x = 0;
       if (j + 1 >= h) x[i].y = 0;
@@ -479,7 +597,7 @@ hist_scan(const int* n_live, Geo g, Work w) {
       if (k < wid) before += warp_tot[k];
       total += warp_tot[k];
     }
-    if (wid == 0) tile_prefix<1>(w.hstat, t, total, excl);
+    if (wid == 0) tile_prefix<1>(hstat, t, total, excl);
     __syncthreads();
     if (j0 < h) {
       uint32_t run = (uint32_t)excl[0] + before;
@@ -492,10 +610,113 @@ hist_scan(const int* n_live, Geo g, Work w) {
         o.z = (int)(run += c.y);
         o.w = (int)(run += c.z);
         run += c.w;
-        reinterpret_cast<int4*>(w.hist + j0)[i] = o;
+        reinterpret_cast<int4*>(hist + j0)[i] = o;
       }
     }
     __syncthreads();  // tile_sh and warp_tot are read before the next tile
+  }
+}
+
+// shared memory of bin_scatter with `warps` warps and `buckets` buckets: the
+// chunk's lanes laid out by bucket (packed (index, payload) words and 16-bit
+// chunk positions), each bucket's global-minus-local offset, and each
+// warp's 16-bit counters
+long long scatter_smem(int buckets, int warps) {
+  return (long long)kChunk * (8 + 2) + buckets * 4LL + (long long)warps * buckets * 2;
+}
+
+// Scatter: persistent CTAs take the live chunks by ticket; a CTA ranks a
+// chunk's lanes by bucket in shared memory, stable by stream position, then
+// writes each bucket's run of the chunk to the bucket's scanned offset
+// hist[bucket * live chunks + c], so consecutive threads write consecutive
+// addresses.  Warp w takes the w-th stretch of the chunk: it counts its
+// lanes per bucket, a per-bucket scan over the warps and a block scan over
+// the buckets give each (warp, bucket) its local offset, and a second
+// ranking places the lanes.  Lanes that take no part are left out.
+template <class B>
+__global__ void __launch_bounds__(kScatterMaxWarps * kWarp)
+bin_scatter(B b) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int warp_sum[kScatterMaxWarps];
+  __shared__ int chunk_sh;
+  b.prepare();
+  if (b.skip() || b.none_placed()) return;
+  const int warps = blockDim.x / kWarp;
+  const int nb = b.buckets();
+  uint2* buf_iv = reinterpret_cast<uint2*>(smem);
+  int* delta = reinterpret_cast<int*>(buf_iv + kChunk);  // global slot - local slot, by bucket
+  uint16_t* buf_pos = reinterpret_cast<uint16_t*>(delta + nb);
+  uint16_t* wcnt = buf_pos + kChunk;  // [warps][buckets]
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const long long m = b.len();
+  const int lc = live_chunks(m);
+  const int per = kChunk / warps;
+  const int* hist = b.hist();
+  int* tick = b.scatter_ticket();
+  uint16_t* cnt = wcnt + warp * nb;
+  unsigned kor = 0u, kand = ~0u;  // unused: the count gathers the keys
+  for (;;) {
+    if (threadIdx.x == 0) chunk_sh = atomicAdd(tick, 1);
+    __syncthreads();
+    const int chunk = chunk_sh;
+    if (chunk >= lc) break;
+    const long long p0 = (long long)chunk * kChunk;
+    const int len = (int)min((long long)kChunk, m - p0);
+    const int w0 = warp * per, w1 = min(w0 + per, len);  // this warp's stretch
+    for (int s = lane; s < nb; s += kWarp) cnt[s] = 0;
+    __syncwarp();
+    count_keys<true, false>(b, p0 + w0, p0 + w1, cnt, kor, kand);
+    __syncthreads();
+    // local layout: by bucket, warps in order within a bucket
+    const int sper = (nb + blockDim.x - 1) / blockDim.x;
+    const int s0 = min((int)threadIdx.x * sper, nb), s1 = min(s0 + sper, nb);
+    int mine = 0;
+    for (int s = s0; s < s1; ++s)
+      for (int v = 0; v < warps; ++v) mine += wcnt[v * nb + s];
+    int inc = mine;
+    for (int off = 1; off < kWarp; off <<= 1) {
+      const int x = __shfl_up_sync(kFull, inc, off);
+      if (lane >= off) inc += x;
+    }
+    if (lane == kWarp - 1) warp_sum[warp] = inc;
+    __syncthreads();
+    int run = inc - mine, placed = 0;
+    for (int v = 0; v < warps; ++v) {
+      if (v < warp) run += warp_sum[v];
+      placed += warp_sum[v];
+    }
+    for (int s = s0; s < s1; ++s) {
+      delta[s] = hist[(long long)s * lc + chunk] - run;
+      for (int v = 0; v < warps; ++v) {
+        const int c = wcnt[v * nb + s];
+        wcnt[v * nb + s] = (uint16_t)run;
+        run += c;
+      }
+    }
+    __syncthreads();
+    for (int q0 = w0; q0 < w1; q0 += kWarp) {
+      const int q = q0 + lane;
+      const bool live = q < w1;
+      const int x = live ? b.index(p0 + q) : 0;
+      const int s = live ? b.template bucket<true>(x) : nb;
+      const unsigned peers = __match_any_sync(kFull, s);
+      const int before = __popc(peers & ((1u << lane) - 1u));
+      if (s < nb) {
+        const int at = cnt[s] + before;
+        buf_iv[at] = b.word(p0 + q, x);
+        buf_pos[at] = (uint16_t)q;
+      }
+      __syncwarp();
+      if (s < nb && before == 0) cnt[s] += __popc(peers);
+      __syncwarp();
+    }
+    __syncthreads();
+    for (int q = threadIdx.x; q < placed; q += blockDim.x) {
+      const uint2 iv = buf_iv[q];
+      const int at = q + delta[b.template bucket<true>((int)iv.x)];
+      b.store(at, iv, b.position(p0 + buf_pos[q]));
+    }
+    __syncthreads();  // the shared buffers and chunk_sh are read before the next chunk
   }
 }
 
@@ -508,97 +729,129 @@ __global__ void set_starts(const int* n_live, Geo g, Work w) {
   if (s == g.num_sets) w.set_start[s] = (int)m;
 }
 
-// shared memory of bin_scatter with `warps` warps: the chunk's lanes laid
-// out set-major (packed (index, payload) words and 16-bit chunk positions),
-// each set's global-minus-local offset, and each warp's 16-bit counters
-long long scatter_smem(int num_sets, int warps) {
-  return (long long)kChunk * (8 + 2) + num_sets * 4LL + (long long)warps * num_sets * 2;
-}
-
-// Scatter: persistent CTAs take the live chunks by ticket; a CTA ranks a
-// chunk's lanes by set in shared memory, stable by stream position, then
-// writes each set's run of the chunk to the set's scanned offset
-// hist[s * live chunks + c], so consecutive threads write consecutive
-// addresses.  Warp w takes the w-th stretch of the chunk: it counts its
-// lanes per set, a per-set scan over the warps and a block scan over the
-// sets give each (warp, set) its local offset, and a second ranking places
-// the lanes.
-__global__ void __launch_bounds__(kScatterMaxWarps * kWarp)
-bin_scatter(const int* idx, const uint32_t* val, const int* n_live, Geo g, Work w) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int warp_sum[kScatterMaxWarps];
-  __shared__ int chunk_sh;
-  const int warps = blockDim.x / kWarp;
-  uint2* buf_iv = reinterpret_cast<uint2*>(smem);
-  int* delta = reinterpret_cast<int*>(buf_iv + kChunk);  // global slot - local slot, by set
-  uint16_t* buf_pos = reinterpret_cast<uint16_t*>(delta + g.num_sets);
-  uint16_t* wcnt = buf_pos + kChunk;  // [warps][num_sets]
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const long long m = live_count(n_live, g.n);
-  const int lc = live_chunks(m);
-  const int per = kChunk / warps;
-  uint16_t* cnt = wcnt + warp * g.num_sets;
-  for (;;) {
-    if (threadIdx.x == 0) chunk_sh = atomicAdd(&w.tick[kTickScatter], 1);
-    __syncthreads();
-    const int chunk = chunk_sh;
-    if (chunk >= lc) break;
-    const long long p0 = (long long)chunk * kChunk;
-    const int len = (int)min((long long)kChunk, m - p0);
-    const int w0 = warp * per, w1 = min(w0 + per, len);  // this warp's stretch
-    for (int s = lane; s < g.num_sets; s += kWarp) cnt[s] = 0;
-    __syncwarp();
-    count_sets(idx, p0 + w0, p0 + w1, g, cnt);
-    __syncthreads();
-    // local layout: set-major, warps in order within a set
-    const int sper = (g.num_sets + blockDim.x - 1) / blockDim.x;
-    const int s0 = min((int)threadIdx.x * sper, g.num_sets), s1 = min(s0 + sper, g.num_sets);
-    int mine = 0;
-    for (int s = s0; s < s1; ++s)
-      for (int v = 0; v < warps; ++v) mine += wcnt[v * g.num_sets + s];
-    int inc = mine;
-    for (int off = 1; off < kWarp; off <<= 1) {
-      const int x = __shfl_up_sync(kFull, inc, off);
-      if (lane >= off) inc += x;
-    }
-    if (lane == kWarp - 1) warp_sum[warp] = inc;
-    __syncthreads();
-    int run = inc - mine;
-    for (int v = 0; v < warp; ++v) run += warp_sum[v];
-    for (int s = s0; s < s1; ++s) {
-      delta[s] = w.hist[(long long)s * lc + chunk] - run;
-      for (int v = 0; v < warps; ++v) {
-        const int c = wcnt[v * g.num_sets + s];
-        wcnt[v * g.num_sets + s] = (uint16_t)run;
-        run += c;
-      }
-    }
-    __syncthreads();
-    for (int q0 = w0; q0 < w1; q0 += kWarp) {
-      const int q = q0 + lane;
-      const bool live = q < w1;
-      const int x = live ? idx[p0 + q] : 0;
-      const int s = live ? hash_set(x, g.epb, g.num_sets) : g.num_sets;
-      const unsigned peers = __match_any_sync(kFull, s);
-      const int before = __popc(peers & ((1u << lane) - 1u));
-      if (live) {
-        const int at = cnt[s] + before;
-        buf_iv[at] = make_uint2((uint32_t)x, val[p0 + q]);
-        buf_pos[at] = (uint16_t)q;
-      }
-      __syncwarp();
-      if (live && before == 0) cnt[s] += __popc(peers);
-      __syncwarp();
-    }
-    __syncthreads();
-    for (int q = threadIdx.x; q < len; q += blockDim.x) {
-      const uint2 iv = buf_iv[q];
-      const int at = q + delta[hash_set((int)iv.x, g.epb, g.num_sets)];
-      w.b_iv[at] = iv;
-      w.b_pos[at] = (int)(p0 + buf_pos[q]);
-    }
-    __syncthreads();  // the shared buffers and chunk_sh are read before the next chunk
+// The binning: the stream's live lanes by set.  The count takes every live
+// lane (the bypass and the round cap are decided from it); the scatter
+// leaves out the lanes of capped partitions (the fallback sorts them).
+struct SetBins {
+  static constexpr bool kKeys = false;
+  const int* idx;
+  const uint32_t* val;
+  const int* n_live;
+  Geo g;
+  Work w;
+  int parts;  // the layout's partitions (read in prepare, with a cap)
+  __device__ void prepare() { parts = w.capped ? w.meta[kMetaParts] : 1; }
+  __device__ bool skip() const { return false; }
+  // every partition capped: the fallback's sort takes every live lane
+  __device__ bool none_placed() const {
+    return w.capped && w.meta[kMetaCapped] == parts;
   }
+  __device__ long long len() const { return live_count(n_live, g.n); }
+  __device__ int buckets() const { return g.num_sets; }
+  __device__ int index(long long p) const { return idx[p]; }
+  template <bool PLACE>
+  __device__ int bucket(int x) const {
+    const int s = hash_set(x, g.epb, g.num_sets);
+    return PLACE && w.capped && w.capped[s % parts] ? g.num_sets : s;
+  }
+  __device__ uint2 word(long long p, int x) const { return make_uint2((uint32_t)x, val[p]); }
+  __device__ int position(long long p) const { return (int)p; }
+  __device__ void store(long long at, uint2 iv, int pos) const {
+    w.b_iv[at] = iv;
+    w.b_pos[at] = pos;
+  }
+  __device__ int* hist() const { return w.hist; }
+  __device__ unsigned long long* hstat() const { return w.hstat; }
+  __device__ int* scan_ticket() const { return w.tick + kTickHist; }
+  __device__ int* scatter_ticket() const { return w.tick + kTickScatter; }
+  __device__ void keys(unsigned, unsigned) const {}
+  // the scans' status words of the live tiles (the histogram's, the mark
+  // scan's, the dense scan's) and every ticket counter
+  __device__ void zero(int lc, long long m) const {
+    const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    const long long hz = 2 * (((long long)g.num_sets * lc + kTile - 1) / kTile);
+    const long long mz = 2LL * kMarkWords * ((m + kTile - 1) / kTile);
+    for (long long i = tid; i < hz; i += stride) w.hstat[i] = 0;
+    for (long long i = tid; i < mz; i += stride) w.mstat[i] = w.mstat[w.mstride + i] = 0;
+    if (w.dstat)
+      for (long long i = tid; i < mz; i += stride) w.dstat[i] = w.dstat[w.mstride + i] = 0;
+    for (long long i = tid; i < w.nticks; i += stride) w.tick[i] = 0;
+  }
+};
+
+// Digit pass `pass` of the fallback's sort, by the index's `pass`-th 8-bit
+// digit (of its sign-flipped bits): pass 0 takes the capped partitions'
+// live lanes from the stream into buffer 0 and gathers the OR and the AND
+// of their keys; a later pass moves the sorted lanes from one buffer to the
+// other, and is skipped when every key has the same digit there (it would
+// move nothing).  Nothing runs when no partition is capped.
+struct DigitBins {
+  static constexpr bool kKeys = true;
+  const int* idx;
+  const uint32_t* val;
+  const int* n_live;
+  Geo g;
+  Work w;
+  int pass;
+  int parts, src, dst;  // read in prepare
+  __device__ bool trivial(int p) const {
+    const unsigned diff = (unsigned)w.meta[kMetaOr] ^ (unsigned)w.meta[kMetaAnd];
+    return p > 0 && ((diff >> (kSortBits * p)) & (kSortBuckets - 1)) == 0;
+  }
+  __device__ void prepare() {
+    parts = w.meta[kMetaParts];
+    src = 0;
+    for (int p = 1; p < pass; ++p)
+      if (!trivial(p)) src ^= 1;
+    dst = pass == 0 ? 0 : src ^ 1;
+  }
+  __device__ bool skip() const { return w.meta[kMetaDense] == 0 || trivial(pass); }
+  __device__ bool none_placed() const { return false; }
+  __device__ long long len() const {
+    return pass == 0 ? live_count(n_live, g.n) : (long long)w.meta[kMetaDense];
+  }
+  __device__ int buckets() const { return kSortBuckets; }
+  __device__ int index(long long p) const { return pass == 0 ? idx[p] : (int)w.s_iv[src][p].x; }
+  template <bool>
+  __device__ int bucket(int x) const {
+    if (pass == 0 && !w.capped[hash_set(x, g.epb, g.num_sets) % parts]) return kSortBuckets;
+    return (int)((((unsigned)x ^ kSignFlip) >> (kSortBits * pass)) & (kSortBuckets - 1));
+  }
+  __device__ uint2 word(long long p, int x) const {
+    return pass == 0 ? make_uint2((uint32_t)x, val[p]) : w.s_iv[src][p];
+  }
+  __device__ int position(long long p) const { return pass == 0 ? (int)p : w.s_pos[src][p]; }
+  __device__ void store(long long at, uint2 iv, int pos) const {
+    w.s_iv[dst][at] = iv;
+    w.s_pos[dst][at] = pos;
+  }
+  __device__ int* hist() const { return w.hist; }
+  __device__ unsigned long long* hstat() const { return w.hstat; }
+  __device__ int* scan_ticket() const { return w.tick + w.tick_sort + 2 * pass; }
+  __device__ int* scatter_ticket() const { return w.tick + w.tick_sort + 2 * pass + 1; }
+  __device__ void keys(unsigned kor, unsigned kand) const {
+    if (pass == 0 && threadIdx.x % kWarp == 0) {
+      atomicOr(reinterpret_cast<unsigned*>(w.meta + kMetaOr), kor);
+      atomicAnd(reinterpret_cast<unsigned*>(w.meta + kMetaAnd), kand);
+    }
+  }
+  // this pass's histogram scan's status words
+  __device__ void zero(int lc, long long) const {
+    const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    const long long hz = 2 * (((long long)kSortBuckets * lc + kTile - 1) / kTile);
+    for (long long i = tid; i < hz; i += stride) w.hstat[i] = 0;
+  }
+};
+
+// the buffer that holds the fallback's sorted lanes after its passes
+__device__ __forceinline__ int sorted_buffer(const Work& w) {
+  DigitBins d;
+  d.w = w;
+  d.pass = kSortPasses;
+  d.prepare();
+  return d.src;
 }
 
 // ------------------------------------------------------------------ walk
@@ -636,7 +889,8 @@ struct WalkScratch {
 // kept entries and the next sub-step starts after it with an empty set.
 // Each slot's owner folds the sub-step's filtered arrivals that name its
 // slot, in lane order (stream order), from the warp's shared copy of the
-// batch, so f32 sums add in the oracle's order.
+// batch, so f32 sums add in the oracle's order; tagged, under the family
+// of the slot's index (Src::family).
 //
 // Src gives arrival k of the set (load: packed (index, payload bits) and
 // position), takes kept entry q of
@@ -654,6 +908,7 @@ __device__ int walk_set(const Src& src, int len, int slots, const WalkScratch& s
   const unsigned below = (1u << lane) - 1u;
   int r_idx = 0, r_pos = 0;  // slot `lane` of this set
   T r_val = T(0);
+  bool r_add = false;  // tagged: the slot's family
   int cnt = 0, wc = 0, flushes = 0;  // warp-uniform
   uint2 nx_iv = make_uint2(0, 0);
   int nx_pos = 0;
@@ -718,6 +973,7 @@ __device__ int walk_set(const Src& src, int len, int slots, const WalkScratch& s
         r_idx = sh.resident[lane];
         r_val = from_bits<T>(sh.payload[t]);
         r_pos = sh.position[t];
+        if constexpr (OP == kTagged) r_add = src.family(r_idx);
       }
       if (OP != kNone && fm) {
         // each slot's owner folds the arrivals that name it, in lane order
@@ -725,10 +981,10 @@ __device__ int walk_set(const Src& src, int len, int slots, const WalkScratch& s
         for (int q = 0; q < kWarp / 4; ++q) {
           const int4 o = into4[q];
           const uint4 b = pay4[q];
-          if (o.x == lane) r_val = combine<T, OP>(r_val, from_bits<T>(b.x));
-          if (o.y == lane) r_val = combine<T, OP>(r_val, from_bits<T>(b.y));
-          if (o.z == lane) r_val = combine<T, OP>(r_val, from_bits<T>(b.z));
-          if (o.w == lane) r_val = combine<T, OP>(r_val, from_bits<T>(b.w));
+          if (o.x == lane) r_val = fold_one<T, OP>(r_val, from_bits<T>(b.x), r_add);
+          if (o.y == lane) r_val = fold_one<T, OP>(r_val, from_bits<T>(b.y), r_add);
+          if (o.z == lane) r_val = fold_one<T, OP>(r_val, from_bits<T>(b.z), r_add);
+          if (o.w == lane) r_val = fold_one<T, OP>(r_val, from_bits<T>(b.w), r_add);
         }
       }
       __syncwarp();  // the shared copies are read before they change
@@ -776,6 +1032,14 @@ struct BinnedSet {
   __device__ void mark(int pos, uint8_t kind) const { marks[pos] = kind | part; }
 };
 
+// A set of a capped partition is the fallback's: the walk leaves it (no
+// flush group, no drain group) and the fallback's sort takes its lanes.
+__device__ __forceinline__ bool fallback_set(int s, const Work& w) {
+  if (w.capped == nullptr || !w.capped[s % w.meta[kMetaParts]]) return false;
+  if (threadIdx.x % kWarp == 0) w.nflush[s] = w.ndrain[s] = 0;
+  return true;
+}
+
 // One warp per set (kWalkWarps a CTA).
 template <typename T, int OP>
 __global__ void __launch_bounds__(kWalkWarps * kWarp)
@@ -787,7 +1051,7 @@ walk(Geo g, Work w) {
   __shared__ __align__(16) int folds_into[kWalkWarps][kWarp];
   const int lane = threadIdx.x % kWarp, wid = threadIdx.x / kWarp;
   const int s = blockIdx.x * kWalkWarps + wid;
-  if (s >= g.num_sets) return;
+  if (s >= g.num_sets || fallback_set(s, w)) return;
   const WalkScratch sh{payload[wid], position[wid], resident[wid], taken_from[wid],
                        folds_into[wid]};
   const BinnedSet src{w.b_iv, w.b_pos, w.mark, w.set_start[s], mark_part(s, g)};
@@ -812,7 +1076,7 @@ chain(Geo g, Work w) {
   __shared__ __align__(16) int resident[kWalkWarps][kWarp];
   const int lane = threadIdx.x % kWarp, wid = threadIdx.x / kWarp;
   const int s = blockIdx.x * kWalkWarps + wid;
-  if (s >= g.num_sets) return;
+  if (s >= g.num_sets || fallback_set(s, w)) return;
   int* res = resident[wid];
   const int4* res4 = reinterpret_cast<const int4*>(res);
   const unsigned below = (1u << lane) - 1u;
@@ -957,34 +1221,74 @@ __device__ __forceinline__ long long partition_capacity(long long m, int parts) 
 // then set id), with q = num_sets / parts sets a partition
 __device__ __forceinline__ int set_of_key(int k, int q, int parts) { return (k % q) * parts + k / q; }
 
-// One CTA: the bank bypass (from the per-set live counts), then drain
-// offsets within each partition (a scan of the drain counts in
-// partition-major set order), the fold's spans before each set key (gkey:
-// 32 of a set's groups a span, its flush groups and one drain group) and
-// each partition's front and tail; meta = {flush groups, survivors,
-// partitions of the layout}.  pd and
-// pf (nparts+1 entries each) hold the drain and flush prefixes at each
-// partition's first set.
+// One CTA, from the per-set live counts, before the scatter: the bank
+// bypass (meta's partitions of the layout) and, with a round cap, each
+// partition's fallback.  A partition is capped when one of its sets holds
+// more than round_cap * slots live lanes (ref.max_round_bound past the
+// cap: each full round takes `slots` arrivals); after a bypass the whole
+// stream is the one partition.  Leaves the capped live lanes' count, zeroed
+// survivor counts and the sort keys' OR and AND identities in meta.
 __global__ void __launch_bounds__(kScanThreads)
-finalize(const int* n_live, Geo g, Work w) {
+decide(const int* n_live, Geo g, Work w) {
+  __shared__ unsigned long long worst_sh;
   __shared__ int parts_sh;
   const long long m = live_count(n_live, g.n);
   const int* set_start = w.set_start;
-  if (threadIdx.x == 0) {
-    int parts = g.nparts;
-    if (parts > 1) {
-      long long worst = 0;
-      for (int p = 0; p < parts; ++p) {
-        long long c = 0;
-        for (int s = p; s < g.num_sets; s += parts) c += set_start[s + 1] - set_start[s];
-        worst = max(worst, c);
-      }
-      if (worst > partition_capacity(m, parts)) parts = 1;  // bank bypass
+  if (threadIdx.x == 0) worst_sh = 0;
+  __syncthreads();
+  if (g.nparts > 1) {
+    unsigned long long worst = 0;
+    for (int p = threadIdx.x; p < g.nparts; p += blockDim.x) {
+      unsigned long long c = 0;
+      for (int s = p; s < g.num_sets; s += g.nparts) c += set_start[s + 1] - set_start[s];
+      worst = max(worst, c);
     }
-    parts_sh = parts;
+    atomicMax(&worst_sh, worst);
   }
   __syncthreads();
-  const int parts = parts_sh, q = g.num_sets / parts;
+  if (threadIdx.x == 0) {
+    int parts = g.nparts;
+    if (parts > 1 && (long long)worst_sh > partition_capacity(m, parts)) parts = 1;  // bank bypass
+    parts_sh = parts;
+    w.meta[kMetaParts] = parts;
+  }
+  __syncthreads();
+  if (w.capped == nullptr) return;
+  const int parts = parts_sh;
+  for (int p = threadIdx.x; p < parts; p += blockDim.x) w.capped[p] = w.dheads[p] = 0;
+  __syncthreads();
+  const long long most = (long long)g.round_cap * g.slots;
+  for (int s = threadIdx.x; s < g.num_sets; s += blockDim.x)
+    if (set_start[s + 1] - set_start[s] > most) w.capped[s % parts] = 1;
+  __syncthreads();
+  int2 mine = make_int2(0, 0);  // capped live lanes, capped partitions
+  for (int s = threadIdx.x; s < g.num_sets; s += blockDim.x)
+    if (w.capped[s % parts]) mine.x += set_start[s + 1] - set_start[s];
+  for (int p = threadIdx.x; p < parts; p += blockDim.x) mine.y += w.capped[p];
+  int2 total;
+  block_scan<kScanThreads>(mine, total);
+  if (threadIdx.x == 0) {
+    w.meta[kMetaDense] = total.x;
+    w.meta[kMetaCapped] = total.y;
+    w.meta[kMetaOr] = 0;
+    w.meta[kMetaAnd] = -1;
+  }
+}
+
+// One CTA, after the walk and the fallback's scan: drain offsets within
+// each partition (a scan of the drain counts in partition-major set
+// order), the fold's spans before each set key (gkey: 32 of a set's groups
+// a span, its flush groups and one drain group; none for a capped
+// partition's set) and each partition's front and tail (a capped
+// partition keeps its dheads survivors); meta's flush groups and
+// survivors.  pd and pf (nparts+1 entries each) hold the drain and flush
+// prefixes at each partition's first set.
+__global__ void __launch_bounds__(kScanThreads)
+finalize(const int* n_live, Geo g, Work w) {
+  const long long m = live_count(n_live, g.n);
+  const int* set_start = w.set_start;
+  const int parts = w.meta[kMetaParts], q = g.num_sets / parts;
+  auto capped = [&](int p) { return w.capped != nullptr && w.capped[p] != 0; };
   const int2 total = stretch_scan<kScanThreads>(
       g.num_sets,
       [&](int k) {
@@ -1000,7 +1304,10 @@ finalize(const int* n_live, Geo g, Work w) {
       });
   const int2 spans = stretch_scan<kScanThreads>(
       g.num_sets,
-      [&](int k) { return make_int2(w.nflush[set_of_key(k, q, parts)] / kWarp + 1, 0); },
+      [&](int k) {
+        const int s = set_of_key(k, q, parts);
+        return make_int2(capped(k / q) ? 0 : w.nflush[s] / kWarp + 1, 0);
+      },
       [&](int k, int2 before, int2) { w.gkey[k] = before.x; });
   if (threadIdx.x == 0) {
     w.pd[parts] = total.x;
@@ -1010,8 +1317,9 @@ finalize(const int* n_live, Geo g, Work w) {
   __syncthreads();
   for (int s = threadIdx.x; s < g.num_sets; s += blockDim.x) w.drain_off[s] -= w.pd[s % parts];
   if (threadIdx.x == 0) {
-    long long front = 0, tail = 0;
-    const long long survivors = (long long)total.y * g.slots + total.x;
+    long long front = 0, tail = 0, survivors = (long long)total.y * g.slots + total.x;
+    for (int p = 0; p < parts; ++p)
+      if (capped(p)) survivors += w.dheads[p];
     for (int p = 0; p < parts; ++p) {
       long long lanes = m;  // the partition's live lanes
       if (parts > 1) {
@@ -1019,15 +1327,15 @@ finalize(const int* n_live, Geo g, Work w) {
         for (int s = p; s < g.num_sets; s += parts) lanes += set_start[s + 1] - set_start[s];
       }
       const int flushes = w.pf[p + 1] - w.pf[p];
-      const long long kept = (long long)flushes * g.slots + (w.pd[p + 1] - w.pd[p]);
+      const long long kept = capped(p) ? (long long)w.dheads[p]
+                                       : (long long)flushes * g.slots + (w.pd[p + 1] - w.pd[p]);
       w.part[p] = Part{(int)front, flushes, (int)(g.n - (m - survivors) + tail),
                        (int)(lanes - kept)};
       front += kept;
       tail += lanes - kept;
     }
-    w.meta[0] = total.y;
-    w.meta[1] = (int)survivors;
-    w.meta[2] = parts;
+    w.meta[kMetaFlush] = total.y;
+    w.meta[kMetaSurvivors] = (int)survivors;
   }
 }
 
@@ -1058,7 +1366,7 @@ mark_scan(const int* idx, const T* val, const int* n_live, Geo g, Work w, Out<T>
   __shared__ uint32_t warp_tot[kTileWarps][W];
   __shared__ unsigned long long excl[W];
   __shared__ long long tile_sh;
-  const int parts = w.meta[2], p0 = pass * kMarkWords;
+  const int parts = w.meta[kMetaParts], p0 = pass * kMarkWords;
   if (p0 >= parts) return;
   const long long m = live_count(n_live, g.n);
   const long long tiles = (m + kTile - 1) / kTile;
@@ -1236,13 +1544,14 @@ copy_dead(const int* __restrict__ idx, const T* __restrict__ val, const int* n_l
 }
 
 // threads stride over the live set-major slots: kept entries go to their
-// partition's front
+// partition's front (a capped partition's sets hold none)
 template <typename T>
 __global__ void __launch_bounds__(kEmitThreads)
 emit_kept(const int* n_live, Geo g, Work w, Out<T> out) {
   const int* set_start = w.set_start;
   const long long m = live_count(n_live, g.n);
-  const int parts = w.meta[2];
+  const int parts = w.meta[kMetaParts];
+  if (w.capped && w.meta[kMetaCapped] == parts) return;  // all the fallback's
   for (long long q = (long long)blockIdx.x * kEmitThreads + threadIdx.x; q < m;
        q += (long long)gridDim.x * kEmitThreads) {
     int lo = 0, hi = g.num_sets;  // last s with set_start[s] <= q
@@ -1294,7 +1603,7 @@ fold_emit(Geo g, Work w, Out<T> out) {
   __shared__ int kept_pos[kFoldWarps][kWarp];
   __shared__ uint32_t kept_val[kFoldWarps][kWarp];
   const int lane = threadIdx.x % kWarp, wid = threadIdx.x / kWarp;
-  const int parts = w.meta[2], q = g.num_sets / parts, slots = g.slots;
+  const int parts = w.meta[kMetaParts], q = g.num_sets / parts, slots = g.slots;
   const int total = w.gkey[g.num_sets];
   for (int span = blockIdx.x * kFoldWarps + wid; span < total;
        span += gridDim.x * kFoldWarps) {
@@ -1389,6 +1698,199 @@ fold_emit(Geo g, Work w, Out<T> out) {
   }
 }
 
+// ------------------------------------------------------ round-cap fallback
+// A capped partition is reordered as ref.dense_merge_ref does: its
+// survivors are its runs' first lanes, at its front by (index, arrival),
+// each with its run's payloads folded in stream order, and the other lanes
+// are filtered, in the partition's tail in reverse stream order.  The
+// sort (DigitBins) leaves the capped partitions' live lanes by (index,
+// stream position); equal indices share a set, hence a partition, so a run
+// is contiguous there whatever the partitions.
+
+// One pass of the dense scan over the sorted lanes, for partitions [8 pass,
+// 8 pass + W) of the layout's: persistent CTAs take 4096-lane tiles by
+// ticket; warp v of a tile takes its 512 lanes as 16 rows of 32, lane l
+// lane l of each row, so every load is coalesced.  A lane is its run's
+// first when its index differs from the previous lane's (the lane to its
+// left, or the previous row's last); each partition's firsts are counted
+// (a decoupled look-back over W words), and one ballot a row and a
+// partition ranks each first in its partition's front (srank).  The first
+// pass also writes every sorted lane's mark (kept for a first, else
+// filtered, and its partition) to its stream position, where the mark scan
+// gives the filtered lanes their tail slots.  The last tile leaves each
+// partition's survivors in dheads.  A pass zeroes the next pass's status
+// words of its tiles (the buffers alternate).
+template <int W>
+__global__ void __launch_bounds__(kTileThreads)
+dense_scan(Geo g, Work w, int pass) {
+  __shared__ uint32_t warp_tot[kTileWarps][W];
+  __shared__ unsigned long long excl[W];
+  __shared__ long long tile_sh;
+  constexpr int kRows = kTileItems;  // a warp's 512 lanes: 16 rows of 32
+  const int parts = w.meta[kMetaParts], p0 = pass * kMarkWords;
+  const long long nc = w.meta[kMetaDense];
+  if (p0 >= parts || nc == 0) return;
+  const int buf = sorted_buffer(w);
+  const uint2* s_iv = w.s_iv[buf];
+  const int* s_pos = w.s_pos[buf];
+  const long long tiles = (nc + kTile - 1) / kTile;
+  unsigned long long* st = w.dstat + (pass & 1) * w.mstride;
+  unsigned long long* st_next = w.dstat + ((pass + 1) & 1) * w.mstride;
+  const int tid = threadIdx.x, lane = tid % kWarp, wid = tid / kWarp;
+  const unsigned below = (1u << lane) - 1u;
+  for (;;) {
+    if (tid == 0) tile_sh = atomicAdd(&w.tick[w.tick_dense + pass], 1);
+    __syncthreads();
+    const long long t = tile_sh;
+    if (t >= tiles) break;
+    if (tid < 2 * W) st_next[t * 2 * W + tid] = 0;
+    const long long base = t * kTile + (long long)wid * (kRows * kWarp);
+    int x[kRows];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const long long j = base + i * kWarp + lane;
+      x[i] = j < nc ? (int)s_iv[j].x : 0;
+    }
+    // the lane before the warp's first: the previous warp's (or tile's) last
+    int before_first = lane == 0 && base > 0 && base <= nc ? (int)s_iv[base - 1].x : 0;
+    unsigned first[kRows];  // per row, the ballot of its runs' first lanes
+    int part[kRows];        // relative to p0
+    uint32_t mine[W];
+#pragma unroll
+    for (int q = 0; q < W; ++q) mine[q] = 0;
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const long long j = base + i * kWarp + lane;
+      int prev = __shfl_up_sync(kFull, x[i], 1);
+      const int last = __shfl_sync(kFull, i ? x[i - 1] : before_first, kWarp - 1);
+      if (lane == 0) prev = i ? last : before_first;
+      const bool live = j < nc;
+      const bool head = live && (j == 0 || x[i] != prev);
+      first[i] = __ballot_sync(kFull, head);
+      const int s = hash_set(x[i], g.epb, g.num_sets);
+      part[i] = s % parts - p0;
+      if (pass == 0 && live) w.mark[s_pos[j]] = (head ? kKept : kFiltered) | mark_part(s, g);
+#pragma unroll
+      for (int q = 0; q < W; ++q) mine[q] += head && part[i] == q ? 1u : 0u;
+    }
+#pragma unroll
+    for (int q = 0; q < W; ++q) {
+      const uint32_t c = __reduce_add_sync(kFull, mine[q]);
+      if (lane == 0) warp_tot[wid][q] = c;
+    }
+    __syncthreads();
+    if (wid == 0) {
+      unsigned long long agg = 0;
+#pragma unroll
+      for (int q = 0; q < W; ++q) {
+        uint32_t c = 0;
+        for (int k = 0; k < kTileWarps; ++k) c += warp_tot[k][q];
+        if (lane == q) agg = c;
+      }
+      tile_prefix<W>(st, t, agg, excl);
+    }
+    __syncthreads();
+    int run[W];  // this warp's running counts, warp-uniform
+#pragma unroll
+    for (int q = 0; q < W; ++q) {
+      uint32_t c = 0;
+      for (int k = 0; k < wid; ++k) c += warp_tot[k][q];
+      run[q] = (int)excl[q] + (int)c;
+    }
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      int rank = 0;
+#pragma unroll
+      for (int q = 0; q < W; ++q) {
+        const unsigned m = __ballot_sync(kFull, (first[i] >> lane & 1u) && part[i] == q);
+        if (part[i] == q) rank = run[q] + __popc(m & below);
+        run[q] += __popc(m);
+      }
+      if (first[i] >> lane & 1u && part[i] >= 0 && part[i] < W)
+        w.srank[base + i * kWarp + lane] = rank;
+    }
+    if (t == tiles - 1 && tid < W && p0 + tid < parts) {
+      uint32_t c = 0;
+      for (int k = 0; k < kTileWarps; ++k) c += warp_tot[k][tid];
+      w.dheads[p0 + tid] = (int)(excl[tid] + c);
+    }
+    __syncthreads();  // warp_tot, excl and tile_sh are read before the next tile
+  }
+}
+
+// The capped partitions' survivors: warps stride over 32-lane steps of the
+// sorted lanes, a step's (index, payload) words one coalesced load.  Each
+// run that starts in the step (its first lane's index differs from the
+// lane before) is folded by the whole warp in lane order, each payload
+// shuffled to every lane, so every lane holds the same accumulator (the
+// op, or, tagged, its index's family); a run that reaches the step's end
+// goes on through the next steps, 32 lanes a load (the next load issued
+// before the fold), until its index changes.  Its first lane writes the
+// survivor at its rank in its partition's front.  The longest run
+// (kron-20's hub: tens of thousands of lanes) is one warp's chain of adds,
+// 32 of them a load.
+template <typename T, int OP>
+__global__ void __launch_bounds__(kEmitThreads)
+dense_emit(Geo g, Work w, Out<T> out) {
+  const long long nc = w.meta[kMetaDense];
+  if (nc == 0) return;
+  const int parts = w.meta[kMetaParts];
+  const int buf = sorted_buffer(w);
+  const uint2* s_iv = w.s_iv[buf];
+  const int lane = threadIdx.x % kWarp;
+  const long long steps = (nc + kWarp - 1) / kWarp;
+  const long long warps = (long long)gridDim.x * (kEmitThreads / kWarp);
+  auto load = [&](long long j) { return j < nc ? s_iv[j] : make_uint2(0u, 0u); };
+  for (long long step = (long long)blockIdx.x * (kEmitThreads / kWarp) + threadIdx.x / kWarp;
+       step < steps; step += warps) {
+    const long long j0 = step * kWarp;
+    const uint2 a = load(j0 + lane);
+    uint32_t prev = __shfl_up_sync(kFull, a.x, 1);
+    if (lane == 0) prev = j0 > 0 ? s_iv[j0 - 1].x : ~a.x;
+    const int valid = (int)min((long long)kWarp, nc - j0);  // lanes of the step
+    const unsigned heads = __ballot_sync(kFull, lane < valid && a.x != prev);
+    for (unsigned hm = heads; hm; hm &= hm - 1) {
+      const int h = __ffs(hm) - 1;
+      const uint32_t x = __shfl_sync(kFull, a.x, h);
+      const bool add = OP == kTagged && add_family(g.tags, g.ntags, (int)x);
+      T acc = from_bits<T>(__shfl_sync(kFull, a.y, h));
+      const unsigned later = hm & (hm - 1);
+      const int end = later ? __ffs(later) - 1 : valid;  // the run's lanes of this step: [h, end)
+      for (int u = h + 1; u < end; ++u)
+        acc = fold_one<T, OP>(acc, from_bits<T>(__shfl_sync(kFull, a.y, u)), add);
+      if (!later && valid == kWarp) {  // it may go on past the step
+        long long k = j0 + kWarp;
+        uint2 b = load(k + lane);
+        for (;;) {
+          const uint2 nb = load(k + kWarp + lane);  // in flight during the fold
+          const unsigned same = __ballot_sync(kFull, k + lane < nc && b.x == x);
+          const int len = ~same ? __ffs(~same) - 1 : kWarp;  // the run's leading lanes
+          if (len == kWarp) {
+#pragma unroll
+            for (int u = 0; u < kWarp; ++u)
+              acc = fold_one<T, OP>(acc, from_bits<T>(__shfl_sync(kFull, b.y, u)), add);
+          } else {
+            for (int u = 0; u < len; ++u)
+              acc = fold_one<T, OP>(acc, from_bits<T>(__shfl_sync(kFull, b.y, u)), add);
+            break;
+          }
+          k += kWarp;
+          b = nb;
+        }
+      }
+      if (lane == h) {
+        const long long j = j0 + h;
+        const long long o =
+            w.part[hash_set((int)x, g.epb, g.num_sets) % parts].front + (long long)w.srank[j];
+        out.idx[o] = (int)x;
+        out.val[o] = acc;
+        out.pos[o] = w.s_pos[buf][j];
+        out.act[o] = 1;
+      }
+    }
+  }
+}
+
 // ------------------------------------------------------------------ launch
 int sm_count() {
   static int cached[64];
@@ -1430,45 +1932,91 @@ int mark_passes(const int* idx, const T* val, const int* n_live, const Work& w, 
   return 0;
 }
 
+// One stable counting sort (count, scan, scatter) by the policy's key over
+// `buckets` buckets and at most `chunks` chunks; `between` launches what
+// runs between the scan and the scatter.
+template <class B, class Between>
+int bin(const B& b, int buckets, long long chunks, cudaStream_t st, const Between& between) {
+  const int count_smem = kBinWarps * buckets * 4;  // above 48 KB past 3072 buckets
+  int warps = kScatterMaxWarps;
+  while (warps > 1 && scatter_smem(buckets, warps) > kMaxSmem) warps /= 2;
+  const int smem = (int)scatter_smem(buckets, warps);
+  int e;
+  if ((e = (int)cudaFuncSetAttribute(bin_count<B>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     count_smem)) ||
+      (e = (int)cudaFuncSetAttribute(bin_scatter<B>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     smem)))
+    return e;
+  unsigned grid;
+  if ((e = persistent(bin_count<B>, kBinWarps * kWarp, count_smem,
+                      (chunks + kBinWarps - 1) / kBinWarps, grid)))
+    return e;
+  bin_count<B><<<grid, kBinWarps * kWarp, count_smem, st>>>(b);
+  if ((e = (int)cudaGetLastError())) return e;
+  if ((e = persistent(hist_scan<B>, kTileThreads, 0, (chunks * buckets + kTile - 1) / kTile,
+                      grid)))
+    return e;
+  hist_scan<B><<<grid, kTileThreads, 0, st>>>(b);
+  if ((e = (int)cudaGetLastError()) || (e = between())) return e;
+  if ((e = persistent(bin_scatter<B>, warps * kWarp, smem, chunks, grid))) return e;
+  bin_scatter<B><<<grid, warps * kWarp, smem, st>>>(b);
+  return (int)cudaGetLastError();
+}
+
+// the dense scan's passes, W partitions each (W: 1, 2, 4 or 8)
+template <int W>
+int dense_passes(const Work& w, Geo g, cudaStream_t st) {
+  unsigned grid;
+  int e;
+  if ((e = persistent(dense_scan<W>, kTileThreads, 0, (g.n + kTile - 1) / kTile, grid))) return e;
+  for (int pass = 0; pass * kMarkWords < g.nparts; ++pass) {
+    dense_scan<W><<<grid, kTileThreads, 0, st>>>(g, w, pass);
+    if ((e = (int)cudaGetLastError())) return e;
+  }
+  return 0;
+}
+
 template <typename T, int OP>
 int run(const int* idx, const T* val, const int* n_live, const Out<T>& out, const Work& w, Geo g,
         cudaStream_t st) {
   constexpr bool kSplit = OP == kTagged;  // the tagged walk: a chain, then the folds
-  const int count_smem = kBinWarps * g.num_sets * 4;  // above 48 KB past 3072 sets
-  int warps = kScatterMaxWarps;
-  while (warps > 1 && scatter_smem(g.num_sets, warps) > kMaxSmem) warps /= 2;
-  const int smem = (int)scatter_smem(g.num_sets, warps);
-  int e;
-  if ((e = (int)cudaFuncSetAttribute(bin_count, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     count_smem)) ||
-      (e = (int)cudaFuncSetAttribute(bin_scatter, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     smem)))
-    return e;
   const uint32_t* vbits = reinterpret_cast<const uint32_t*>(val);
   unsigned grid;
-  // binning
-  if ((e = persistent(bin_count, kBinWarps * kWarp, count_smem,
-                      (g.nchunks + kBinWarps - 1) / kBinWarps, grid)))
+  int e;
+  // binning; the bypass and the round cap are decided between its scan and
+  // its scatter, which leaves the capped partitions' lanes out
+  const SetBins sb{idx, vbits, n_live, g, w, 1};
+  if ((e = bin(sb, g.num_sets, g.nchunks, st, [&]() {
+         set_starts<<<(g.num_sets + 256) / 256, 256, 0, st>>>(n_live, g, w);
+         decide<<<1, kScanThreads, 0, st>>>(n_live, g, w);
+         return (int)cudaGetLastError();
+       })))
     return e;
-  bin_count<<<grid, kBinWarps * kWarp, count_smem, st>>>(idx, n_live, g, w);
-  if ((e = (int)cudaGetLastError())) return e;
-  if ((e = persistent(hist_scan, kTileThreads, 0,
-                      ((long long)g.nchunks * g.num_sets + kTile - 1) / kTile, grid)))
-    return e;
-  hist_scan<<<grid, kTileThreads, 0, st>>>(n_live, g, w);
-  set_starts<<<(g.num_sets + 256) / 256, 256, 0, st>>>(n_live, g, w);
-  if ((e = persistent(bin_scatter, warps * kWarp, smem, g.nchunks, grid))) return e;
-  bin_scatter<<<grid, warps * kWarp, smem, st>>>(idx, vbits, n_live, g, w);
-  if ((e = (int)cudaGetLastError())) return e;
   // walk
   const unsigned walk_blocks = (g.num_sets + kWalkWarps - 1) / kWalkWarps;
   if constexpr (kSplit)
     chain<<<walk_blocks, kWalkWarps * kWarp, 0, st>>>(g, w);
   else
     walk<T, OP><<<walk_blocks, kWalkWarps * kWarp, 0, st>>>(g, w);
+  if ((e = (int)cudaGetLastError())) return e;
+  // the round-cap fallback: the capped partitions' lanes sorted by (index,
+  // stream position), their runs' firsts ranked and every lane marked
+  if constexpr (OP != kNone) {
+    if (w.capped) {
+      for (int pass = 0; pass < kSortPasses; ++pass) {
+        const DigitBins db{idx, vbits, n_live, g, w, pass, 1, 0, 0};
+        if ((e = bin(db, kSortBuckets, g.nchunks, st, []() { return 0; }))) return e;
+      }
+      e = g.nparts == 1   ? dense_passes<1>(w, g, st)
+          : g.nparts == 2 ? dense_passes<2>(w, g, st)
+          : g.nparts <= 4 ? dense_passes<4>(w, g, st)
+                          : dense_passes<8>(w, g, st);
+      if (e) return e;
+    }
+  }
   finalize<<<1, kScanThreads, 0, st>>>(n_live, g, w);
   if ((e = (int)cudaGetLastError())) return e;
-  // emit: the mark scan, the dead lanes, the kept entries
+  // emit: the mark scan, the dead lanes, the kept entries, the fallback's survivors
   e = g.nparts == 1   ? mark_passes<T, 1>(idx, val, n_live, w, g, out, st)
       : g.nparts == 2 ? mark_passes<T, 2>(idx, val, n_live, w, g, out, st)
       : g.nparts <= 4 ? mark_passes<T, 4>(idx, val, n_live, w, g, out, st)
@@ -1490,6 +2038,15 @@ int run(const int* idx, const T* val, const int* n_live, const Out<T>& out, cons
                         grid)))
       return e;
     emit_kept<T><<<grid, kEmitThreads, 0, st>>>(n_live, g, w, out);
+  }
+  if constexpr (OP != kNone) {
+    if (w.capped) {
+      if ((e = (int)cudaGetLastError()) ||
+          (e = persistent(dense_emit<T, OP>, kEmitThreads, 0,
+                          (g.n + kEmitThreads - 1) / kEmitThreads, grid)))
+        return e;
+      dense_emit<T, OP><<<grid, kEmitThreads, 0, st>>>(g, w, out);
+    }
   }
   return (int)cudaGetLastError();
 }
@@ -1547,6 +2104,8 @@ struct WinGeo {
   int epb_shift;  // log2(epb) when epb is a power of two, else -1
   int sets_pow2;  // num_sets is a power of two
   Div per_group;  // slots
+  const uint8_t* tags;  // op = tagged: the family of each index (1 = add)
+  int ntags;
 };
 
 // hash_set with the window's shortcuts: a shift for a power-of-two epb
@@ -1687,6 +2246,9 @@ struct WindowSet {
   uint16_t* aux;
   int start;
   int key;
+  const uint8_t* tags;
+  int ntags;
+  __device__ bool family(int x) const { return add_family(tags, ntags, x); }
   __device__ void load(int k, uint2& iv, int& pos) const {
     pos = order[start + k];
     iv = make_uint2((uint32_t)s_idx[pos], s_val[pos]);
@@ -1759,11 +2321,12 @@ __device__ void walk_small_sets(const WinSmem& sm, const WinGeo& g, int k0, cons
     T acc = from_bits<T>(vb);
     if (OP != kNone) {  // the first arrival of an index folds the rest, in lane order
       unsigned rest = kept ? peers & ~(1u << lane) : 0u;
+      const bool add = OP == kTagged && rest && add_family(g.tags, g.ntags, x);
       while (__any_sync(kFull, rest != 0)) {
         const int d = rest ? __ffs(rest) - 1 : lane;
         const uint32_t b = __shfl_sync(kFull, vb, d);
         if (rest) {
-          acc = combine<T, OP>(acc, from_bits<T>(b));
+          acc = fold_one<T, OP>(acc, from_bits<T>(b), add);
           rest &= rest - 1u;
         }
       }
@@ -1994,7 +2557,7 @@ win_reorder(const int* __restrict__ idx, const uint32_t* __restrict__ val, const
       i = __shfl_sync(kFull, i, 0);
       if (i >= nhot) break;
       const int k = sm.hot[i];
-      const WindowSet src{sm.s_idx, sm.s_val, sm.order, sm.aux, sm.start[k], k};
+      const WindowSet src{sm.s_idx, sm.s_val, sm.order, sm.aux, sm.start[k], k, g.tags, g.ntags};
       int drained;
       const int flushes =
           walk_set<T, OP>(src, sm.start[k + 1] - sm.start[k], g.slots, sh, drained);
@@ -2033,11 +2596,12 @@ win_reorder(const int* __restrict__ idx, const uint32_t* __restrict__ val, const
         if (r > lo && sm.s_idx[sm.order[r - 1]] == x) continue;
         atomicAdd(&sm.heads[p], 1);
         T acc = from_bits<T>(sm.s_val[ln]);
+        const bool add = OP == kTagged && add_family(g.tags, g.ntags, x);
         for (int r2 = r + 1; r2 < hi; ++r2) {
           const int d = sm.order[r2];
           if (sm.s_idx[d] != x) break;
           sm.aux[d] |= kFiltered;
-          acc = combine<T, OP>(acc, from_bits<T>(sm.s_val[d]));
+          acc = fold_one<T, OP>(acc, from_bits<T>(sm.s_val[d]), add);
         }
         sm.s_val[ln] = to_bits(acc);
       }
@@ -2283,6 +2847,7 @@ int win_launch(int op, const int* idx, const uint32_t* val, const int* n_live, W
     WIN_CASE(kAdd)
     WIN_CASE(kMin)
     WIN_CASE(kMax)
+    WIN_CASE(kTagged)
 #undef WIN_CASE
     default: return (int)cudaErrorInvalidValue;
   }
@@ -2294,30 +2859,37 @@ extern "C" {
 
 int iru_hash_reorder_max_sets(void) { return kMaxSets; }
 
-// bytes of the workspace iru_hash_reorder needs for n lanes, num_sets sets
-// and nparts partitions
-long long iru_hash_reorder_workspace(long long n, int num_sets, int nparts) {
-  return carve(nullptr, n, num_sets, nparts, nullptr);
+// the revision of this interface: 2 gave iru_hash_reorder its round_cap and
+// the windowed entries their tag table
+int iru_reorder_abi(void) { return 2; }
+
+// bytes of the workspace iru_hash_reorder needs for n lanes, num_sets sets,
+// nparts partitions and a round cap (0: none; pass 0 without a merge)
+long long iru_hash_reorder_workspace(long long n, int num_sets, int nparts, int round_cap) {
+  return carve(nullptr, n, num_sets, nparts, round_cap > 0, nullptr);
 }
 
 // dtype: 0 = float32, 1 = int32; op: 0 = none, 1 = add, 2 = min, 3 = max,
 // 4 = tagged (tag_table: ntags bytes on the device, nonzero = the add family;
 // null for other ops).  nparts: partitions (num_sets % nparts == 0).
-// n_live: device pointer to one int32, or null for a padded stream.
-// Returns a cudaError_t code (0 on success).
+// round_cap: 0 for none (a cap takes effect with a merge only; the
+// workspace must be sized with the same cap).  n_live: device pointer to
+// one int32, or null for a padded stream.  Returns a cudaError_t code (0
+// on success).
 int iru_hash_reorder(const int* idx, const void* val, const int* n_live, const uint8_t* tag_table,
                      int ntags, int* out_idx, void* out_val, int* out_pos, uint8_t* out_act,
                      void* workspace, long long n, int num_sets, int slots, int epb, int nparts,
-                     int dtype, int op, void* stream) {
+                     int round_cap, int dtype, int op, void* stream) {
   if (n <= 0) return 0;
   if (n >= INT_MAX || num_sets < 1 || num_sets > kMaxSets || slots < 1 || slots > kWarp ||
-      epb < 1 || nparts < 1 || num_sets % nparts != 0 || op < kNone || op > kTagged ||
-      (op == kTagged) != (tag_table != nullptr && ntags > 0))
+      epb < 1 || nparts < 1 || num_sets % nparts != 0 || round_cap < 0 || op < kNone ||
+      op > kTagged || (op == kTagged) != (tag_table != nullptr && ntags > 0))
     return (int)cudaErrorInvalidValue;
+  if (op == kNone) round_cap = 0;
   Work w;
-  carve((char*)workspace, n, num_sets, nparts, &w);
-  Geo g{n, num_sets, slots, epb, (int)((n + kChunk - 1) / kChunk), nparts,
-        op == kTagged ? tag_table : nullptr, ntags};
+  carve((char*)workspace, n, num_sets, nparts, round_cap > 0, &w);
+  Geo g{n,     num_sets, slots, epb, (int)((n + kChunk - 1) / kChunk), nparts,
+        op == kTagged ? tag_table : nullptr, ntags, round_cap};
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
     return run_op<float>(op, idx, (const float*)val, n_live,
@@ -2343,20 +2915,23 @@ int iru_win_reorder_max_window(int num_sets, int nparts) {
   return w;
 }
 
-static int win_entry(const int* idx, const void* val, const int* n_live, int* out_idx,
-                     void* out_val, int* out_pos, uint8_t* out_act, long long n, int w,
-                     int num_sets, int slots, int epb, int nparts, int round_cap, int dtype,
-                     int op, long long* stamps, int* occupancy, void* stream) {
+static int win_entry(const int* idx, const void* val, const int* n_live, const uint8_t* tag_table,
+                     int ntags, int* out_idx, void* out_val, int* out_pos, uint8_t* out_act,
+                     long long n, int w, int num_sets, int slots, int epb, int nparts,
+                     int round_cap, int dtype, int op, long long* stamps, int* occupancy,
+                     void* stream) {
   if (n <= 0 && occupancy == nullptr) return 0;
   if (n >= INT_MAX || w < 1 || w > kMaxWindow || num_sets < 1 || slots < 1 || slots > kWarp ||
       epb < 1 || nparts < 1 || num_sets % nparts != 0 || round_cap < 0 || op < kNone ||
-      op > kMax || win_smem(w, num_sets, nparts) > kWinMaxSmem)
+      op > kTagged || win_smem(w, num_sets, nparts) > kWinMaxSmem ||
+      (occupancy == nullptr && (op == kTagged) != (tag_table != nullptr && ntags > 0)))
     return (int)cudaErrorInvalidValue;
   int shift = -1;
   for (int b = 0; b < 31; ++b)
     if (epb == 1 << b) shift = b;
   const WinGeo g{n,     w,     num_sets, slots, epb, nparts, round_cap, shift,
-                 (num_sets & (num_sets - 1)) == 0, Div::of(slots)};
+                 (num_sets & (num_sets - 1)) == 0, Div::of(slots),
+                 op == kTagged ? tag_table : nullptr, ntags};
   const uint32_t* v = (const uint32_t*)val;
   uint32_t* ov = (uint32_t*)out_val;
   cudaStream_t st = (cudaStream_t)stream;
@@ -2369,27 +2944,28 @@ static int win_entry(const int* idx, const void* val, const int* n_live, int* ou
   return (int)cudaErrorInvalidValue;
 }
 
-// The windowed body: independent windows of w lanes, one CTA each.  dtype
-// and n_live as above; op: 0-3; round_cap: 0 for none.  Payloads travel as
-// 32-bit words.
-int iru_win_reorder(const int* idx, const void* val, const int* n_live, int* out_idx,
-                    void* out_val, int* out_pos, uint8_t* out_act, long long n, int w,
-                    int num_sets, int slots, int epb, int nparts, int round_cap, int dtype, int op,
-                    void* stream) {
-  return win_entry(idx, val, n_live, out_idx, out_val, out_pos, out_act, n, w, num_sets, slots,
-                   epb, nparts, round_cap, dtype, op, nullptr, nullptr, stream);
+// The windowed body: independent windows of w lanes, one CTA each.  dtype,
+// op, tag_table and n_live as above; round_cap: 0 for none.  Payloads
+// travel as 32-bit words.
+int iru_win_reorder(const int* idx, const void* val, const int* n_live, const uint8_t* tag_table,
+                    int ntags, int* out_idx, void* out_val, int* out_pos, uint8_t* out_act,
+                    long long n, int w, int num_sets, int slots, int epb, int nparts,
+                    int round_cap, int dtype, int op, void* stream) {
+  return win_entry(idx, val, n_live, tag_table, ntags, out_idx, out_val, out_pos, out_act, n, w,
+                   num_sets, slots, epb, nparts, round_cap, dtype, op, nullptr, nullptr, stream);
 }
 
 // The same launch through the stamped build: stamps holds windows x
 // (kWinPhases + 1) int64 on the device, each CTA's clock64() at its phase
 // boundaries (a measurement of where a window's time goes).
-int iru_win_reorder_stamped(const int* idx, const void* val, const int* n_live, int* out_idx,
-                            void* out_val, int* out_pos, uint8_t* out_act, long long n, int w,
-                            int num_sets, int slots, int epb, int nparts, int round_cap,
-                            int dtype, int op, long long* stamps, void* stream) {
+int iru_win_reorder_stamped(const int* idx, const void* val, const int* n_live,
+                            const uint8_t* tag_table, int ntags, int* out_idx, void* out_val,
+                            int* out_pos, uint8_t* out_act, long long n, int w, int num_sets,
+                            int slots, int epb, int nparts, int round_cap, int dtype, int op,
+                            long long* stamps, void* stream) {
   if (stamps == nullptr) return (int)cudaErrorInvalidValue;
-  return win_entry(idx, val, n_live, out_idx, out_val, out_pos, out_act, n, w, num_sets, slots,
-                   epb, nparts, round_cap, dtype, op, stamps, nullptr, stream);
+  return win_entry(idx, val, n_live, tag_table, ntags, out_idx, out_val, out_pos, out_act, n, w,
+                   num_sets, slots, epb, nparts, round_cap, dtype, op, stamps, nullptr, stream);
 }
 
 // the phases of the stamped build
@@ -2399,8 +2975,8 @@ int iru_win_reorder_phases(void) { return kWinPhases; }
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor); a cudaError_t code
 int iru_win_reorder_occupancy(int w, int num_sets, int nparts, int dtype, int op, int* blocks) {
   if (blocks == nullptr) return (int)cudaErrorInvalidValue;
-  return win_entry(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0, w, num_sets,
-                   1, 1, nparts, 0, dtype, op, nullptr, blocks, nullptr);
+  return win_entry(nullptr, nullptr, nullptr, nullptr, 0, nullptr, nullptr, nullptr, nullptr, 0, w,
+                   num_sets, 1, 1, nparts, 0, dtype, op, nullptr, blocks, nullptr);
 }
 
 const char* iru_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

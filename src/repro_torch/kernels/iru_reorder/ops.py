@@ -7,15 +7,17 @@ has two bodies:
 
 * the whole-stream body: ``filter_op`` in {None, add, min, max, tagged}
   (tagged with a bool ``tag_table``, the fused min+add fold of the batched
-  engine), an f32 or int32 ``[n]`` payload, ``slots <= 32``, ``n_live``, and
+  engine), an f32 or int32 ``[n]`` payload, ``slots <= 32``, ``n_live``,
   ``n_partitions >= 1`` (the banked layout, its capacity bypass decided on
-  the device).  Launches count under ``iru_reorder_tagged`` when tagged,
-  else ``iru_reorder_banked`` with ``n_partitions > 1``, else
-  ``iru_reorder``;
+  the device) and ``round_cap`` (each capped partition takes the dense
+  fallback, decided on the device after the bypass: the body's own sort,
+  no host read).  Launches count under ``iru_reorder_round_cap`` with a
+  round cap and a merge, else ``iru_reorder_tagged`` when tagged, else
+  ``iru_reorder_banked`` with ``n_partitions > 1``, else ``iru_reorder``;
 * the windowed body (``window_elems=w``): every window of ``w`` lanes in one
   launch, one CTA a window, with ``n_partitions``, ``round_cap`` and
-  ``n_live``, for ``filter_op`` in {None, add, min, max}, f32 or int32
-  ``[n]`` payloads and ``slots <= 32``; ``w`` is bounded by the body's
+  ``n_live``, for ``filter_op`` in {None, add, min, max, tagged}, f32 or
+  int32 ``[n]`` payloads and ``slots <= 32``; ``w`` is bounded by the body's
   shared memory, half an SM's so that two windows reside on an SM
   (``_window_limit``).  Launches count under ``iru_reorder_windowed``.
   ``windowed_phase_stamps`` runs its stamped build (each window's clock
@@ -57,14 +59,14 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("iru_reorder")
     fn = lib.iru_hash_reorder
     fn.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _LL, _I, _I, _I,
-                   _I, _I, _I, _P]
+                   _I, _I, _I, _I, _P]
     fn.restype = _I
-    lib.iru_hash_reorder_workspace.argtypes = [_LL, _I, _I]
+    lib.iru_hash_reorder_workspace.argtypes = [_LL, _I, _I, _I]
     lib.iru_hash_reorder_workspace.restype = _LL
     lib.iru_hash_reorder_max_sets.restype = _I
     win = lib.iru_win_reorder
-    win.argtypes = [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I,
-                    _I, _I, _P]
+    win.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _P, _LL, _I, _I, _I, _I,
+                    _I, _I, _I, _I, _P]
     win.restype = _I
     lib.iru_win_reorder_smem.argtypes = [_I, _I, _I]
     lib.iru_win_reorder_smem.restype = _LL
@@ -89,8 +91,8 @@ def _window_limit(num_sets: int, n_partitions: int) -> tuple[int, int, int]:
             lib.iru_win_reorder_smem_limit())
 
 
-def _refuse(secondary, *, num_sets, slots, epb, round_cap, n_partitions,
-            window_elems, n_live, tag_table, device) -> None:
+def _refuse(secondary, *, num_sets, slots, epb, n_partitions, window_elems,
+            n_live, tag_table, device) -> None:
     """What kernel B3 does not carry yet raises on CUDA."""
     body = "B3's windowed body" if window_elems is not None else "kernel B3"
     if secondary.dim() != 1:
@@ -98,21 +100,11 @@ def _refuse(secondary, *, num_sets, slots, epb, round_cap, n_partitions,
             f"{body} carries [n] payloads only; [n, k] payloads come with a "
             f"later slice of the port (ROADMAP §B); pass kernels=False for "
             f"the plain version")
-    if window_elems is not None and tag_table is not None:
-        raise NotImplementedError(
-            "B3's windowed body has no tagged fold; tagged windows come with "
-            "a later slice of the port (ROADMAP §B); pass kernels=False for "
-            "the plain version")
-    if window_elems is None and round_cap is not None:
-        raise NotImplementedError(
-            "kernel B3 has no whole-stream round_cap fallback: a capped "
-            "partition of millions of lanes needs a sort plus B2, which "
-            "comes with a later slice of the port (ROADMAP §B); set "
-            "window_elems (the windowed body carries round_cap) or pass "
-            "kernels=False for the plain version")
     if slots > _WARP:
         raise NotImplementedError(
-            f"kernel B3 keeps one slot per warp lane: slots={slots} > 32")
+            f"kernel B3 keeps one slot per warp lane: slots={slots} > 32; "
+            f"more slots come with a later slice of the port (ROADMAP §B); "
+            f"pass kernels=False for the plain version")
     if epb < 1:
         raise ValueError(f"block_bytes // elem_bytes must be >= 1, got {epb}")
     if secondary.dtype not in _DTYPES:
@@ -134,8 +126,10 @@ def _refuse(secondary, *, num_sets, slots, epb, round_cap, n_partitions,
     else:
         max_sets = _lib().iru_hash_reorder_max_sets()
         if not 1 <= num_sets <= max_sets:
-            raise ValueError(f"kernel B3 takes 1 <= num_sets <= {max_sets}, "
-                             f"got {num_sets}")
+            raise ValueError(
+                f"kernel B3 takes 1 <= num_sets <= {max_sets}, got "
+                f"{num_sets}; more sets come with a later slice of the port "
+                f"(ROADMAP §B); pass kernels=False for the plain version")
     if tag_table is not None and (tag_table.dim() != 1
                                   or tag_table.dtype != torch.bool
                                   or not 1 <= tag_table.numel() < 2**31):
@@ -210,19 +204,19 @@ def hash_reorder(
         return IRUStream(*hash_reorder_batched(indices, secondary, **kw))
     epb = block_bytes // elem_bytes
     _refuse(secondary, num_sets=num_sets, slots=slots, epb=epb,
-            round_cap=round_cap, n_partitions=n_partitions,
-            window_elems=window_elems, n_live=n_live, tag_table=tag_table,
-            device=indices.device)
+            n_partitions=n_partitions, window_elems=window_elems,
+            n_live=n_live, tag_table=tag_table, device=indices.device)
     if window_elems is not None:
         return IRUStream(*_launch_windowed(
             indices, secondary, window_elems, num_sets, slots, epb,
-            n_partitions, round_cap, filter_op, n_live))
+            n_partitions, round_cap, filter_op, n_live, tag_table))
     if mesh is not None:
         return IRUStream(*_launch_rows(
             indices, secondary, num_sets, slots, epb, n_partitions,
-            filter_op, n_live, tag_table, mesh))
+            round_cap, filter_op, n_live, tag_table, mesh))
     return IRUStream(*_launch(indices, secondary, num_sets, slots, epb,
-                              n_partitions, filter_op, n_live, tag_table))
+                              n_partitions, round_cap, filter_op, n_live,
+                              tag_table))
 
 
 def _outputs(indices, sec):
@@ -240,8 +234,25 @@ def _live(n_live, dev):
     return torch.as_tensor(n_live, device=dev).to(torch.int32).reshape(())
 
 
+def _cap(round_cap, filter_op) -> int:
+    """The C interface's round cap: 0 for none (a cap without a merge is
+    none, as in ``ref.hash_reorder_ref_flat``)."""
+    if round_cap is None or filter_op is None:
+        return 0
+    return min(round_cap, 2**31 - 1)
+
+
+def _tags(tag_table):
+    """(the tag table, contiguous, or None; its length)."""
+    if tag_table is None:
+        return None, 0
+    tags = tag_table.contiguous()
+    return tags, tags.numel()
+
+
 def _launch_windowed(indices, secondary, w, num_sets, slots, epb,
-                     n_partitions, round_cap, filter_op, n_live, stamps=None):
+                     n_partitions, round_cap, filter_op, n_live, tag_table,
+                     stamps=None):
     """One launch of the windowed body; with ``stamps`` (int64 ``[windows,
     len(WINDOW_PHASES) + 1]`` on the device) its stamped build."""
     dev = indices.device
@@ -252,13 +263,14 @@ def _launch_windowed(indices, secondary, w, num_sets, slots, epb,
     if n == 0:
         return out
     live = _live(n_live, dev)
+    tags, ntags = _tags(tag_table)
     lib = _lib()
     args = [idx.data_ptr(), sec.data_ptr(),
             None if live is None else live.data_ptr(),
+            None if tags is None else tags.data_ptr(), ntags,
             *(o.data_ptr() for o in out), n, w, num_sets, slots, epb,
-            n_partitions,
-            0 if round_cap is None else min(round_cap, 2**31 - 1),
-            _DTYPES[sec.dtype], _OPS[filter_op]]
+            n_partitions, _cap(round_cap, filter_op), _DTYPES[sec.dtype],
+            _OPS[filter_op]]
     stream = torch.cuda.current_stream(dev).cuda_stream
     if stamps is None:
         code = lib.iru_win_reorder(*args, stream)
@@ -279,7 +291,7 @@ WINDOW_PHASES = ("load+histogram", "binning", "small-set walk",
 def windowed_phase_stamps(indices, secondary, *, window_elems, num_sets=1024,
                           slots=32, elem_bytes=4, block_bytes=128,
                           filter_op=None, round_cap=None, n_partitions=1,
-                          n_live=None):
+                          n_live=None, tag_table=None):
     """One launch of B3's windowed body in its stamped build (CUDA
     tensors only): the same result as ``hash_reorder(window_elems=...)``
     and, per window, each CTA's ``clock64()`` at the start and after each
@@ -289,10 +301,11 @@ def windowed_phase_stamps(indices, secondary, *, window_elems, num_sets=1024,
     if not indices.is_cuda:
         raise ValueError("the stamped build runs on a CUDA tensor only")
     epb = block_bytes // elem_bytes
+    if (filter_op == "tagged") != (tag_table is not None):
+        raise ValueError("filter_op='tagged' and tag_table go together")
     _refuse(secondary, num_sets=num_sets, slots=slots, epb=epb,
-            round_cap=round_cap, n_partitions=n_partitions,
-            window_elems=window_elems, n_live=n_live, tag_table=None,
-            device=indices.device)
+            n_partitions=n_partitions, window_elems=window_elems,
+            n_live=n_live, tag_table=tag_table, device=indices.device)
     if _lib().iru_win_reorder_phases() != len(WINDOW_PHASES):
         raise RuntimeError("the stamped build's phases differ from "
                            "WINDOW_PHASES: the library is stale")
@@ -301,25 +314,28 @@ def windowed_phase_stamps(indices, secondary, *, window_elems, num_sets=1024,
                          device=indices.device)
     out = _launch_windowed(indices.to(torch.int32), secondary, window_elems,
                            num_sets, slots, epb, n_partitions, round_cap,
-                           filter_op, n_live, stamps)
+                           filter_op, n_live, tag_table, stamps)
     return out, stamps
 
 
-def windowed_occupancy(window_elems, num_sets, n_partitions) -> int:
+def windowed_occupancy(window_elems, num_sets, n_partitions,
+                       filter_op="add") -> int:
     """CTAs (windows) of B3's windowed body resident on one SM at this
-    geometry (f32 add), as ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
-    gives them; needs a card."""
+    geometry (f32, ``filter_op``), as
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` gives them; needs a
+    card."""
     lib = _lib()
     blocks = ctypes.c_int(0)
     code = lib.iru_win_reorder_occupancy(window_elems, num_sets, n_partitions,
-                                         _DTYPES[torch.float32], _OPS["add"],
+                                         _DTYPES[torch.float32],
+                                         _OPS[filter_op],
                                          ctypes.addressof(blocks))
     _build.check(lib, code, "iru_reorder windowed occupancy")
     return blocks.value
 
 
 def _launch(indices, secondary, num_sets, slots, epb, n_partitions,
-            filter_op, n_live, tag_table):
+            round_cap, filter_op, n_live, tag_table):
     dev = indices.device
     n = indices.shape[0]
     idx = indices.contiguous()
@@ -328,34 +344,37 @@ def _launch(indices, secondary, num_sets, slots, epb, n_partitions,
     if n == 0:
         return out
     live = _live(n_live, dev)
-    tags = None if tag_table is None else tag_table.contiguous()
+    tags, ntags = _tags(tag_table)
+    cap = _cap(round_cap, filter_op)
     lib = _lib()
     work = torch.empty(lib.iru_hash_reorder_workspace(n, num_sets,
-                                                      n_partitions),
+                                                      n_partitions, cap),
                        dtype=torch.uint8, device=dev)
     code = lib.iru_hash_reorder(
         idx.data_ptr(), sec.data_ptr(), None if live is None else
-        live.data_ptr(), None if tags is None else tags.data_ptr(),
-        0 if tags is None else tags.numel(),
+        live.data_ptr(), None if tags is None else tags.data_ptr(), ntags,
         *(o.data_ptr() for o in out), work.data_ptr(), n, num_sets, slots,
-        epb, n_partitions, _DTYPES[sec.dtype], _OPS[filter_op],
+        epb, n_partitions, cap, _DTYPES[sec.dtype], _OPS[filter_op],
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, code, "iru_reorder")
-    launch_counts["iru_reorder_tagged" if filter_op == "tagged" else
+    launch_counts["iru_reorder_round_cap" if cap else
+                  "iru_reorder_tagged" if filter_op == "tagged" else
                   "iru_reorder_banked" if n_partitions > 1 else
                   "iru_reorder"] += 1
     return out
 
 
 def _launch_rows(indices, secondary, num_sets, slots, epb, n_partitions,
-                 filter_op, n_live, tag_table, mesh):
+                 round_cap, filter_op, n_live, tag_table, mesh):
     """The banked layout over a group mesh: the stream's partition counts
     (one host read) decide the bypass, as on one card; past the capacity
-    every rank reorders the whole stream flat.  Else each of this rank's
-    partitions goes through the whole-stream body on its sub-stream, its
-    local positions map back to stream positions, and its output lands in
-    a bank row (survivors at the front, the filtered tail at the back);
-    the rows of every rank are gathered and emitted partition-major."""
+    every rank reorders the whole stream flat (under the round cap).  Else
+    each of this rank's partitions goes through the whole-stream body on
+    its sub-stream, its own round cap decided there (as the reference's
+    banked engine caps each partition), its local positions map back to
+    stream positions, and its output lands in a bank row (survivors at the
+    front, the filtered tail at the back); the rows of every rank are
+    gathered and emitted partition-major."""
     shards, held = bank_rows(mesh, n_partitions)
     n, dev = indices.shape[0], indices.device
     if n == 0:
@@ -366,7 +385,7 @@ def _launch_rows(indices, secondary, num_sets, slots, epb, n_partitions,
     counts = cnt.tolist()
     if max(counts) > cap_eff:
         return _launch(indices, secondary, num_sets, slots, epb, 1,
-                       filter_op, n_live, tag_table)
+                       round_cap, filter_op, n_live, tag_table)
     C = partition_capacity(n, n_partitions)
     order = torch.argsort(part, stable=True)  # dead lanes (partition P) last
     rows = []
@@ -374,8 +393,8 @@ def _launch_rows(indices, secondary, num_sets, slots, epb, n_partitions,
         c, lo = counts[p], sum(counts[:p])
         sel = order[lo:lo + c]
         oi, osec, opos, oact = _launch(indices[sel], secondary[sel], num_sets,
-                                       slots, epb, 1, filter_op, None,
-                                       tag_table)
+                                       slots, epb, 1, round_cap, filter_op,
+                                       None, tag_table)
         m = oact.sum(dtype=torch.int32)
         col = torch.arange(c, device=dev)
         col = torch.where(col < m, col, col + (C - c))

@@ -22,6 +22,17 @@ works on the live prefix ``[0, n_live)`` only:
   ``[survivors, survivors + n - n_live)`` in one copy; each group goes to
   its partition's front.
 
+With a round cap (and a merge) the body first decides, from the set
+counts and after the bank bypass, which partitions are capped (one of
+their sets holds more than ``round_cap * slots`` live lanes); the walk
+leaves their sets, and the **fallback** takes their live lanes: a stable
+sort by index (LSD passes of 10-bit digits of the sign-flipped index, a
+pass skipped when every key shares its digit), a **dense scan** over the
+sorted lanes that ranks each run's first lane in its partition's front
+and marks every lane kept (a first) or filtered at its stream position
+(the mark scan then gives the filtered lanes their tail slots), and the
+runs' folds in sorted (stream) order.
+
 ``model_body`` follows those steps and is held exactly (payloads included:
 every fold adds in stream order) against ``ragged_oracle`` of
 ``hash_reorder_ref_banked`` of the port's ``repro_torch.kernels.iru_reorder.ref``
@@ -259,11 +270,47 @@ def mark_passes(kind, part, m, parts, tails, filtered):
 
 
 # ------------------------------------------------------------------- body
+SORT_BITS = 10  # the kernel's digit
+
+
+def digit_sort(x, pos, stats):
+    """The fallback's sort of the capped lanes (``x`` their indices and
+    ``pos`` their stream positions, in stream order): LSD passes over
+    10-bit digits of the sign-flipped index, stable; a later pass whose
+    digit every key shares is skipped (it would move nothing)."""
+    keys = (x.astype(np.int64) & 0xFFFFFFFF) ^ 0x80000000
+    diff = int(np.bitwise_or.reduce(keys)) ^ int(np.bitwise_and.reduce(keys))
+    mask = (1 << SORT_BITS) - 1
+    for p in range(-(-32 // SORT_BITS)):
+        if p > 0 and (diff >> (SORT_BITS * p)) & mask == 0:
+            stats["skipped"] = stats.get("skipped", 0) + 1
+            continue
+        order = np.argsort((keys >> (SORT_BITS * p)) & mask, kind="stable")
+        keys, x, pos = keys[order], x[order], pos[order]
+    return x, pos
+
+
+def dense_scan(x, pos, sets, parts):
+    """Over the sorted capped lanes: each run's first lane's rank in its
+    partition's front, every lane's mark (kept: a first; filtered) and
+    partition at its stream position, and each partition's survivors."""
+    first = np.ones(x.size, bool)
+    first[1:] = x[1:] != x[:-1]
+    part = sets % parts
+    rank = np.zeros(x.size, np.int64)
+    heads = np.zeros(parts, np.int64)
+    for j in np.flatnonzero(first):
+        rank[j] = heads[part[j]]
+        heads[part[j]] += 1
+    return first, rank, heads, part
+
+
 def model_body(idx, val, n_live, *, num_sets, slots, parts, op, table=None,
                rng=None, stats=None, threads=TILE_THREADS,
-               items=TILE_ITEMS):
+               items=TILE_ITEMS, round_cap=None):
     """The whole-stream body's layout, stage by stage (tagged: ``op`` is
-    "tagged" and ``table`` the families, True = add)."""
+    "tagged" and ``table`` the families, True = add; ``round_cap``: capped
+    partitions take the fallback)."""
     stats = {} if stats is None else stats
     rng = np.random.default_rng(0) if rng is None else rng
     idx = np.asarray(idx, np.int32)
@@ -275,23 +322,37 @@ def model_body(idx, val, n_live, *, num_sets, slots, parts, op, table=None,
     sets = tref.hash_set(idx[:m] // np.int32(EPB), num_sets)
     order = np.argsort(sets, kind="stable")           # bin
     start = np.searchsorted(sets[order], np.arange(num_sets + 1))
+    counts = np.bincount(sets % parts, minlength=parts)
+    if parts > 1 and m and counts.max() > tref.partition_capacity(m, parts):
+        parts = 1                                     # bank bypass
+        stats["bypass"] = stats.get("bypass", 0) + 1
+    capped = np.zeros(parts, bool)                    # the round cap
+    if round_cap is not None and op is not None:
+        hot = np.flatnonzero(np.bincount(sets, minlength=num_sets)
+                             > round_cap * slots)
+        capped[hot % parts] = True
+        stats["capped"] = stats.get("capped", 0) + int(capped.sum())
     kind = np.zeros(m, np.int64)
     part = np.zeros(m, np.int64)
     code = [None] * m
     gends, drains = {}, {}
     for s in range(num_sets):                         # chain
         arr = order[start[s]:start[s + 1]]
+        if capped[s % parts]:  # the fallback's
+            gends[s], drains[s] = [], 0
+            continue
         c, k, gend, drained = chain_set(list(idx[arr]), slots, merge)
         kind[arr] = k
         part[arr] = s % parts
         for a, cc in zip(range(start[s], start[s + 1]), c):
             code[a] = cc
         gends[s], drains[s] = gend, drained
-    counts = np.bincount(sets % parts, minlength=parts)
-    if parts > 1 and m and counts.max() > tref.partition_capacity(m, parts):
-        parts = 1                                     # bank bypass
-        part[:] = 0
-        stats["bypass"] = stats.get("bypass", 0) + 1
+    live_c = np.flatnonzero(capped[sets % parts])    # the fallback
+    sx, spos = digit_sort(idx[live_c], live_c, stats)
+    first, srank, heads, spart = dense_scan(
+        sx, spos, tref.hash_set(sx // np.int32(EPB), num_sets), parts)
+    kind[spos] = np.where(first, KEPT, FILTERED)
+    part[spos] = spart
     q = num_sets // parts
     keys = [(k % q) * parts + k // q for k in range(num_sets)]
     pf = np.zeros(parts + 1, np.int64)  # [p + 1]: partition p's flush groups
@@ -304,7 +365,7 @@ def model_body(idx, val, n_live, *, num_sets, slots, parts, op, table=None,
         pf[p + 1] += len(gends[s])
     lanes = (np.bincount(sets % parts, minlength=parts) if parts > 1
              else np.array([m]))
-    kept = pf[1:] * slots + pd[1:]
+    kept = np.where(capped, heads, pf[1:] * slots + pd[1:])
     front = np.concatenate([[0], np.cumsum(kept)[:-1]])
     survivors = int(kept.sum())
     filtered = lanes - kept
@@ -341,14 +402,26 @@ def model_body(idx, val, n_live, *, num_sets, slots, parts, op, table=None,
             lo = hi
         stats["groups"] = stats.get("groups", 0) + len(ends)
         stats["most_groups"] = max(stats.get("most_groups", 0), len(ends))
+    sval = val[spos]                                  # the runs' folds
+    for j in np.flatnonzero(first):
+        acc = sval[j]
+        r = j + 1
+        while r < sx.size and sx[r] == sx[j]:
+            acc = _fold(op, acc, sval[r], fam[spos[j]])
+            r += 1
+        o = front[spart[j]] + srank[j]
+        out_idx[o], out_val[o], out_pos[o], out_act[o] = sx[j], acc, \
+            spos[j], True
+        stats["longest_run"] = max(stats.get("longest_run", 0), r - j)
     return out_idx, out_val, out_pos, out_act
 
 
 def oracle(ref, idx, val, n_live, *, num_sets, slots, parts, op,
-           table=None):
+           table=None, round_cap=None):
     """``ragged_oracle(hash_reorder_ref_banked)``; tagged, its add result on
     add lanes and its min result on min lanes (the layout is the op's)."""
-    kw = dict(num_sets=num_sets, slots=slots, n_partitions=parts)
+    kw = dict(num_sets=num_sets, slots=slots, n_partitions=parts,
+              round_cap=round_cap)
     if op != "tagged":
         return ref.ragged_oracle(ref.hash_reorder_ref_banked, idx, val,
                                  n_live, filter_op=op, **kw)
@@ -381,6 +454,8 @@ def _stream(kind, n, rng, num_sets):
         idx[sel] = (one[rng.integers(0, one.size, int(sel.sum()))] * 32
                     + rng.integers(0, 32, int(sel.sum())))
         return idx.astype(np.int32)
+    if kind == "negative":  # indices of both signs: the sort's sign bit
+        return rng.integers(-3000, 3000, n).astype(np.int32)
     if kind == "one_partition":  # every lane's set in partition 0 of 4
         blocks = np.arange(1 << 12)
         pool = blocks[tref.hash_set(blocks, num_sets) % 4 == 0][:200]
@@ -395,7 +470,7 @@ def _family_blocks(num_sets):
 
 
 def _table(idx, rng, kind, num_sets):
-    table = rng.random(int(idx.max()) + 2) < 0.5
+    table = rng.random(int(np.abs(idx).max()) + 2) < 0.5
     if kind == "family_set":  # set 3's blocks all in the min family
         for b in _family_blocks(num_sets):
             table[b * 32:(b + 1) * 32] = False
@@ -475,3 +550,46 @@ def test_one_pass_mark_scan_equals_the_per_partition_passes(parts, bypass):
                         threads=32, items=4, conc=conc, stats=stats)
         assert got == mark_passes(kind, part, m, p_eff, tails, filtered)
     assert stats["waits"] > 0 and stats["windows"] > 0
+
+
+@pytest.mark.parametrize("op,dtype", [("tagged", "float32"),
+                                      ("tagged", "int32"),
+                                      ("add", "float32"), ("min", "int32"),
+                                      ("max", "float32")])
+@pytest.mark.parametrize("kind,parts,cap", [
+    ("hub", 1, 2), ("hub", 4, 2), ("wide", 4, 1), ("one_partition", 4, 2),
+    ("family_set", 2, 3), ("negative", 4, 1), ("wide", 8, 1000)])
+def test_round_cap_fallback_matches_both_oracles(op, dtype, kind, parts, cap):
+    """Under a round cap the capped partitions (decided after the bypass,
+    on live lanes) take the fallback (digit sort, dense scan, the mark
+    scan's tail slots, the runs' folds) and the others the chain; the body
+    equals both packages' oracles with ``round_cap`` bit for bit.  A hub set
+    caps its partition only (hub at 4 partitions: the others walk), the
+    bypass caps the one partition (one_partition), indices of both signs
+    sort by the flipped sign bit, and a cap no set reaches leaves the hash
+    branch alone."""
+    num_sets, slots = (64, 8) if kind != "hub" else (16, 4)
+    rng = np.random.default_rng(len(kind) * 10 + parts + cap)
+    n = 3000
+    idx = _stream(kind, n, rng, num_sets)
+    val = (rng.uniform(0.0, 1.0, n).astype(np.float32) if dtype == "float32"
+           else rng.integers(-1000, 1000, n).astype(np.int32))
+    table = _table(idx, rng, kind, num_sets) if op == "tagged" else None
+    live = n * 2 // 3 + 1
+    kw = dict(num_sets=num_sets, slots=slots, parts=parts, op=op,
+              table=table, round_cap=cap)
+    stats = {}
+    got = model_body(idx, val, live, stats=stats, threads=32, items=4,
+                     rng=np.random.default_rng(parts), **kw)
+    _assert_equal(got, oracle(tref, idx, val, live, **kw))
+    _assert_equal(got, oracle(jref, idx, val, live, **kw))
+    if cap < 1000:
+        assert stats["capped"] > 0 and stats["longest_run"] > 1
+        # non-negative indices below 2^20: the two high digits are skipped
+        assert stats.get("skipped", 0) == (0 if kind == "negative" else 2)
+    else:
+        assert stats["capped"] == 0
+    if kind == "hub" and parts == 4:
+        assert stats["capped"] < parts
+    if kind == "one_partition":
+        assert stats.get("bypass")

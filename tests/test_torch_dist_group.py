@@ -712,7 +712,9 @@ def test_banked_rows_on_the_card_equal_the_banked_layout(tmp_path):
     sub-stream, and equals B3's banked layout bit for bit: merged, ragged,
     tagged and unmerged.  A stream whose lanes all hash into one partition
     bypasses the rows (one launch of the whole-stream body on the whole
-    stream) and equals the banked layout too, whole and ragged."""
+    stream) and equals the banked layout too, whole and ragged.  Under a
+    round cap each partition's launch decides its own fallback, as the
+    banked layout does by partition."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: B3 has no CPU body")
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -739,10 +741,19 @@ def test_banked_rows_on_the_card_equal_the_banked_layout(tmp_path):
                  4),
                 (idx, dict(filter_op=None), 4),
                 (skewed, dict(filter_op="add"), 1),
-                (skewed, dict(filter_op="min", n_live=n - 1000), 1)):
+                (skewed, dict(filter_op="min", n_live=n - 1000), 1),
+                # capped at one round and at two, tagged and ragged, and
+                # the bypass under a cap
+                (idx, dict(filter_op="add", round_cap=1), 4),
+                (idx, dict(filter_op="min", round_cap=2), 4),
+                (idx, dict(filter_op="tagged", tag_table=tags, round_cap=2,
+                           n_live=n // 2), 4),
+                (skewed, dict(filter_op="add", round_cap=3,
+                              n_live=n - 1000), 1)):
             reset_launch_counts()
             got = hash_reorder(x, sec, n_partitions=4, mesh=mesh, **kw)
-            key = ("iru_reorder_tagged" if kw["filter_op"] == "tagged"
+            key = ("iru_reorder_round_cap" if "round_cap" in kw
+                   else "iru_reorder_tagged" if kw["filter_op"] == "tagged"
                    else "iru_reorder")
             assert dict(launch_counts) == {key: launches}, kw
             want = hash_reorder(x, sec, n_partitions=4, **kw)

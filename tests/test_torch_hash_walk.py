@@ -31,6 +31,16 @@ EPB = 32  # block_bytes // elem_bytes at the defaults (128 // 4)
 _FOLD = {"add": lambda a, b: a + b, "min": min, "max": max}
 
 
+def _fold(op, a, b, index):
+    """One filtered arrival ``b`` folded into the survivor ``a`` of
+    ``index``: by the op, or, when ``op`` is a bool tag table (the tagged
+    fold), by the index's family (True = add, else min)."""
+    if isinstance(op, str):
+        return _FOLD[op](a, b)
+    return _FOLD["add" if op[min(max(int(index), 0), op.size - 1)]
+                 else "min"](a, b)
+
+
 def _walk_set(idx, val, pos, slots, op, stats):
     """Walk one set's arrivals (stream order); returns (flush groups with
     their trigger positions, the drain group, filtered positions)."""
@@ -63,7 +73,7 @@ def _walk_set(idx, val, pos, slots, op, stats):
                     if j is None:  # an earlier arrival of this sub-step
                         j = base + next(i for i, u in enumerate(ins)
                                         if ei[u] == ei[t])
-                    res[j][1] = _FOLD[op](res[j][1], ev[t])
+                    res[j][1] = _fold(op, res[j][1], ev[t], res[j][0])
                     filtered.append(ep[t])
             if trig:
                 stats["trigger_lanes"].add(last)

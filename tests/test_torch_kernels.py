@@ -20,6 +20,8 @@ run on the card), while the exact check against the oracle holds either way.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -356,7 +358,6 @@ def test_hash_reorder_tagged_matches_plain_and_oracle(cuda, dtype, geometry,
 @pytest.mark.parametrize("kw,err", [
     (dict(filter_op="tagged", tag_table="int8"), ValueError),
     (dict(filter_op="tagged"), ValueError),
-    (dict(filter_op="add", round_cap=4), NotImplementedError),
     (dict(slots=64), NotImplementedError),
     (dict(payload="2d"), NotImplementedError),
     (dict(payload="float64"), ValueError),
@@ -690,13 +691,12 @@ def test_hash_reorder_on_padded_streams(cuda, geometry, kind, length,
 
 @pytest.mark.parametrize("kw,err", [
     (dict(window_elems=256, payload="2d"), NotImplementedError),
-    (dict(window_elems=256, filter_op="tagged", tag_table="bool"),
-     NotImplementedError),
     (dict(window_elems=8193), NotImplementedError),
     (dict(window_elems=8192, num_sets=8192, n_partitions=8),
      NotImplementedError),
-    (dict(n_partitions=4, filter_op="min", round_cap=64),
+    (dict(payload="2d", n_partitions=4, filter_op="min", round_cap=64),
      NotImplementedError),
+    (dict(slots=33, window_elems=256), NotImplementedError),
     (dict(num_sets=30, n_partitions=4), ValueError),
     (dict(window_elems=256, num_sets=30, n_partitions=4), ValueError),
 ])
@@ -712,5 +712,187 @@ def test_b3_bodies_refuse_what_they_lack(cuda, kw, err):
     with pytest.raises(err) as info:
         hash_ops.hash_reorder(idx, vals, **kw)
     if err is NotImplementedError:
-        assert "slice" in str(info.value)
+        assert "slice" in str(info.value) and "ROADMAP §B" in str(info.value)
     assert launch_counts == before
+
+
+def _mixed_cap_stream(length, rng, num_sets):
+    """A third of the lanes in four blocks of set 0 (partition 0 of 2 or 4:
+    past a small round cap), the rest spread thin over the other
+    partitions' sets (under it)."""
+    hot = _blocks_of(num_sets, lambda s: s == 0, 4)
+    cold = _blocks_of(num_sets, lambda s: s % 4 != 0, 4000)
+    sel = rng.random(length) < 1 / 3
+    blocks = np.where(sel, hot[rng.integers(0, hot.size, length)],
+                      cold[rng.integers(0, cold.size, length)])
+    return (blocks * 32 + rng.integers(0, 32, length)).astype(np.int32)
+
+
+def _cap_stream(kind, length, rng, num_sets):
+    if kind == "mixed":
+        return _mixed_cap_stream(length, rng, num_sets)
+    if kind == "arange":  # the stream the refusal tests used
+        return np.arange(length, dtype=np.int32)
+    if kind == "negative":  # indices of both signs: the sort's sign bit
+        return rng.integers(-3000, 3000, length).astype(np.int32)
+    return _geo_stream(kind, length, rng, num_sets)
+
+
+def _family_oracle(oracle_of, op, table):
+    """The oracle of ``op``; tagged: its layout with the add result on add
+    lanes and the min result on min lanes."""
+    if op != "tagged":
+        return oracle_of(op)
+    add, low = oracle_of("add"), oracle_of("min")
+    fam = table[np.clip(add[0], 0, table.size - 1)]
+    return (add[0], np.where(fam, add[1], low[1]), add[2], add[3])
+
+
+# (geometry, stream, length, round cap): caps that hot sets pass (kron's
+# hubs, a few indices, one set, negative indices), a cap one partition
+# passes and the others do not (mixed), a cap no set reaches, the bypass
+# under a cap (every lane in one partition), and the refusal tests' old
+# stream (64 lanes, round cap 64: no set reaches it)
+CAP_CASES = [((1024, 32), "kron", 65_536, 2), ((1024, 32), "hot", 3000, 1),
+             ((1024, 32), "one_set", 20_000, 4),
+             ((1024, 32), "mixed", 40_000, 4),
+             ((1024, 32), "wide", 20_000, 1_000_000),
+             ((1024, 32), "one_partition", 20_000, 1),
+             ((1024, 32), "negative", 30_000, 1),
+             ((16, 4), "hot", 3000, 3), ((16, 4), "mixed", 5000, 8),
+             ((8, 2), "lanes", 3000, 2), ((1024, 32), "arange", 64, 64)]
+
+
+@pytest.mark.parametrize("geometry,kind,length,round_cap", CAP_CASES)
+@pytest.mark.parametrize("n_partitions", [1, 4])
+@pytest.mark.parametrize("live", [None, "part", "padded"])
+@pytest.mark.parametrize("op,dtype", [("add", "float32"), ("min", "int32"),
+                                      ("max", "float32"),
+                                      ("add", "int32"),
+                                      ("tagged", "float32"),
+                                      ("tagged", "int32")])
+def test_hash_reorder_round_cap_matches_plain_and_oracle(
+        cuda, geometry, kind, length, round_cap, n_partitions, live, op,
+        dtype):
+    """B3's whole-stream body under a round cap: each partition past it
+    (decided on the device, after the bank bypass, on live lanes only)
+    takes the dense fallback, the others the hash; the result equals
+    ``ragged_oracle(hash_reorder_ref_banked, round_cap=)`` bit for bit
+    (tagged: per family) and the plain version, in one launch, under
+    ``set_sync_debug_mode("error")``, counted under
+    ``iru_reorder_round_cap``.  A cap no set reaches equals the uncapped
+    call."""
+    num_sets, slots = geometry
+    if num_sets % n_partitions:
+        pytest.skip("the geometry does not split over the partitions")
+    rng = np.random.default_rng(length + 11 * n_partitions + round_cap)
+    idx = _cap_stream(kind, length, rng, num_sets)
+    table = rng.random(int(np.abs(idx).max()) + 2) < 0.5
+    vals = (rng.uniform(0.0, 1.0, length).astype(np.float32)
+            if dtype == "float32"
+            else rng.integers(-1000, 1000, length).astype(np.int32))
+
+    def oracle_of(m, fold):
+        return hash_ref.ragged_oracle(
+            hash_ref.hash_reorder_ref_banked, idx, vals, m,
+            num_sets=num_sets, slots=slots, filter_op=fold,
+            n_partitions=n_partitions, round_cap=round_cap)
+
+    m = {None: length, "part": length * 3 // 5,
+         "padded": length // 7}[live]
+    kw = dict(num_sets=num_sets, slots=slots, filter_op=op,
+              n_partitions=n_partitions, round_cap=round_cap,
+              n_live=(None if live is None
+                      else torch.tensor(m, dtype=torch.int32, device=cuda)),
+              tag_table=t(table, cuda) if op == "tagged" else None)
+    key = "iru_reorder_round_cap"
+    idx_t, vals_t = t(idx, cuda), t(vals, cuda)
+    before = dict(launch_counts)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = hash_ops.hash_reorder(idx_t, vals_t, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert launch_counts[key] == before.get(key, 0) + 1
+    assert sum(launch_counts.values()) == sum(before.values()) + 1
+    plain = hash_ops.hash_reorder(idx_t, vals_t, kernels=False, **kw)
+    oracle = _family_oracle(lambda f: oracle_of(m, f), op, table)
+    _check_stream(got, plain, oracle, "add" if op == "tagged" else op, dtype)
+    capped = hash_ref.max_round_bound(
+        idx[:m], num_sets=num_sets, slots=slots) > round_cap
+    if not capped:  # no set reaches the cap: the uncapped call
+        uncapped = hash_ops.hash_reorder(idx_t, vals_t,
+                                         **dict(kw, round_cap=None))
+        for a, b in zip(got, uncapped):
+            assert torch.equal(a, b)
+
+
+# (geometry, stream, length, window, round cap); the refusal tests' old
+# tagged window (64 lanes of 256)
+TAGGED_WINDOW_CASES = [((1024, 32), "kron", 65_536, 8192, 64),
+                       ((1024, 32), "kron", 65_536, 8192, 2),
+                       ((1024, 32), "wide", 20_000, 8192, None),
+                       ((1024, 32), "hot", 5000, 1000, 2),
+                       ((1024, 32), "one_set", 20_000, 4096, None),
+                       ((1024, 32), "full_sets", 20_000, 8192, 64),
+                       ((1024, 32), "one_partition", 20_000, 8192, 1),
+                       ((16, 4), "hot", 3000, 333, 3),
+                       ((16, 4), "full_sets", 3000, 256, None),
+                       ((8, 2), "lanes", 3000, 1024, None),
+                       ((1024, 32), "arange", 64, 256, None)]
+
+
+@pytest.mark.parametrize("geometry,kind,length,w,round_cap",
+                         TAGGED_WINDOW_CASES)
+@pytest.mark.parametrize("n_partitions", [1, 4])
+@pytest.mark.parametrize("live", [None, "part", "mid_warp"])
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+def test_windowed_body_tagged_matches_oracle_and_plain(
+        cuda, geometry, kind, length, w, round_cap, n_partitions, live,
+        dtype):
+    """B3's windowed body tagged: every fold (small sets, hot sets, the
+    round-cap fallback) under its index's family.  Every window equals the
+    numpy oracle per family (its add result on add lanes, its min result
+    on min lanes) and the plain window loop, in one launch."""
+    from repro_torch.core import iru
+
+    num_sets, slots = geometry
+    if num_sets % n_partitions:
+        pytest.skip("the geometry does not split over the partitions")
+    rng = np.random.default_rng(length + w + 3 * n_partitions)
+    idx = _cap_stream(kind, length, rng, num_sets) if kind == "arange" \
+        else _geo_stream(kind, length, rng, num_sets, slots, w)
+    table = rng.random(int(idx.max()) + 2) < 0.5
+    vals = (rng.uniform(0.0, 1.0, length).astype(np.float32)
+            if dtype == "float32"
+            else rng.integers(-1000, 1000, length).astype(np.int32))
+    m = {None: length, "part": length * 3 // 5,
+         "mid_warp": min(length, w + 13)}[live]
+    cfg = iru.IRUConfig(mode="hash", num_sets=num_sets, slots=slots,
+                        n_partitions=n_partitions, n_banks=1,
+                        filter_op="tagged", round_cap=round_cap,
+                        window_elems=w)
+    n_live = (None if live is None
+              else torch.tensor(m, dtype=torch.int32, device=cuda))
+    tags = t(table, cuda)
+    before = dict(launch_counts)
+    got = iru.iru_reorder(t(idx, cuda), t(vals, cuda), config=cfg,
+                          n_live=n_live, tag_table=tags)
+    torch.cuda.synchronize()
+    assert launch_counts["iru_reorder_windowed"] == before.get(
+        "iru_reorder_windowed", 0) + 1
+    assert sum(launch_counts.values()) == sum(before.values()) + 1
+    plain = iru.iru_reorder(t(idx, cuda), t(vals, cuda), config=cfg,
+                            n_live=n_live, tag_table=tags, kernels=False)
+    oracle = _family_oracle(
+        lambda f: iru._hash_ref_host(idx, vals, dataclasses.replace(
+            cfg, filter_op=f), None if live is None else m), "tagged", table)
+    _check_stream(got, plain, oracle, "add", dtype)
+
+
+def test_windowed_tagged_keeps_two_windows_an_sm(cuda):
+    """The tagged variant of the windowed body at the paper's geometry keeps
+    two windows (CTAs) resident on an SM, as the untagged one does."""
+    for op in ("add", "tagged"):
+        assert hash_ops.windowed_occupancy(8192, 1024, 4, op) == 2, op

@@ -31,6 +31,10 @@ reorders each window of ``w`` lanes in one CTA, in shared memory:
   and each filtered lane to its tail slot; then one pass over the binned
   slots places the kept entries; the dead lanes between.
 
+Tagged (``op`` a bool tag table, True = add), every fold of a survivor
+(small set, hot set, fallback) is its index's family's, read when it
+folds.
+
 ``model_window`` follows those steps, and ``model_stream`` offsets each
 window's positions by its start.  It is held exactly (payloads too: both
 fold in stream order) against ``ragged_oracle(hash_reorder_ref_banked)`` of
@@ -48,13 +52,12 @@ import pytest
 from repro.kernels.iru_reorder import ref as jref
 from repro_torch.graphs.generators import kron_edges
 from repro_torch.kernels.iru_reorder import ref as tref
-from test_torch_hash_walk import _walk_set
+from test_torch_hash_walk import _fold, _walk_set
 
 EPB = 32
 WARP = 32
 KEPT, TRIGGER, FILTERED = 0, 1, 2
 WALK_SCRATCH = 8 * 5 * WARP * 4  # bytes of walk_set's copies, 8 warps
-_FOLD = {"add": lambda a, b: a + b, "min": min, "max": max}
 
 
 def rankers(num_sets, w):
@@ -82,7 +85,7 @@ def _walk_small_step(idx, val, pos, set_of, slots, op):
             kept[lane] = True
             continue
         assert set_of[first[i]] == s  # an index has one set
-        acc[first[i]] = _FOLD[op](acc[first[i]], val[lane])
+        acc[first[i]] = _fold(op, acc[first[i]], val[lane], i)
         filtered[s].append(pos[lane])
     out = {}
     for s in dict.fromkeys(set_of):
@@ -235,7 +238,7 @@ def model_window(idx, val, m, *, w, num_sets, slots, parts, op, round_cap,
             r2 = r + 1
             while r2 < hi and x[order[r2]] == x[ln]:
                 aux[order[r2]] |= FILTERED
-                s_val[ln] = _FOLD[op](s_val[ln], s_val[order[r2]])
+                s_val[ln] = _fold(op, s_val[ln], s_val[order[r2]], x[ln])
                 r2 += 1
     # scans: drain offsets by set key, the partitions' fronts and tails
     live_dense = dense[np.arange(S) // q]
@@ -565,3 +568,39 @@ def test_window_model_at_the_paper_geometry(kind):
     # the two full windows trip; the ragged third (300 live lanes) may not
     assert (stats["dense"] >= 2) == (kind == "cap_trip")
     assert (stats["bypass"] >= 2) == (kind == "bypass_trip")
+
+
+def _family_oracle(ref, idx, val, n_live, table, **kw):
+    """The tagged oracle: the windowed banked oracle's layout (it does not
+    depend on the op), its add payloads on add-family lanes and its min
+    payloads on min-family lanes."""
+    add = oracle_stream(ref, idx, val, n_live, op="add", **kw)
+    low = oracle_stream(ref, idx, val, n_live, op="min", **kw)
+    fam = table[np.clip(add[0], 0, table.size - 1)]
+    return add[0], np.where(fam, add[1], low[1]), add[2], add[3]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+@pytest.mark.parametrize("kind,parts,live", [
+    ("kron", 4, None), ("cap_trip", 4, 1900), ("bypass_trip", 4, None),
+    ("full_sets", 1, None), ("wide", 2, 1024 + 13)])
+def test_window_model_tagged_matches_both_oracles(dtype, kind, parts, live):
+    """The windowed body tagged: each fold under its survivor's family;
+    held against both packages' oracles per family, on hot sets, the
+    round-cap fallback, the bypass, full small sets and a ragged window."""
+    (num_sets, slots), w, cap = SMALL
+    rng = np.random.default_rng(parts * 7 + len(kind))
+    n = 2500
+    idx = _stream(kind, n, rng, num_sets, w, slots, cap)
+    val = _payload(dtype, n, rng)
+    table = rng.random(int(idx.max()) + 2) < 0.5
+    kw = dict(w=w, num_sets=num_sets, slots=slots, parts=parts,
+              round_cap=cap)
+    stats = _stats()
+    got = model_stream(idx, val, live, stats=stats, op=table, **kw)
+    _assert_equal(got, _family_oracle(tref, idx, val, live, table, **kw))
+    _assert_equal(got, _family_oracle(jref, idx, val, live, table, **kw))
+    if kind == "cap_trip":
+        assert stats["dense"] > 0
+    if kind == "bypass_trip":
+        assert stats["bypass"] > 0

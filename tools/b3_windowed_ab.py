@@ -14,14 +14,20 @@ windowed body at the paper's geometry (1024 x 32 sets, 4 partitions,
 8192-lane windows, round cap 64, f32 add), the sweep of chip_smoke's
 phase 3 (w = 1024, 2048, 4096; no merge; one partition) and the stream's
 first 6144 and 49152 lanes (one partial window, six windows: a
-high-diameter traversal's levels, where a window's latency counts); the whole-stream
-body (add), its tagged fold (families ``(idx >> 17) & 1``), its banked
-layout (4 partitions, add) and the tagged fold on a padded serving tick
-(the stream padded with dead lanes to 251,212,640 lanes, the top rung of
-the 12-query serving mix, ``n_live`` on the device).  A tree whose library
-has the stamped build also gives the windowed body's time by phase
-(clock64 cycles a window) and its CTAs resident per SM.  With
-``--profile`` each tree's whole-stream variants are also split by kernel
+high-diameter traversal's levels, where a window's latency counts) and,
+tagged (families ``(idx >> 17) & 1``), the paper's geometry; the
+whole-stream body (add), its tagged fold, its banked layout (4
+partitions, add) and the tagged fold on a padded serving tick (the stream
+padded with dead lanes to 251,212,640 lanes, the top rung of the 12-query
+serving mix, ``n_live`` on the device); and the whole-stream round-cap
+fallback (round cap 64, every partition of this stream past it: one
+partition add, four partitions add and tagged) beside ``torch.sort``
+(stable) of the same keys.  The tagged windows and the round cap need a
+library whose ``iru_reorder_abi`` is 2 or more; older trees sit those
+variants out.  A tree whose library has the stamped build also gives the
+windowed body's time by phase (clock64 cycles a window) and its CTAs
+resident per SM (add, and tagged where it has them).  With ``--profile``
+each tree's whole-stream variants are also split by kernel
 (``torch.profiler`` device time of one call, after a warm-up).
 
     python3 tools/b3_windowed_ab.py --tree parent=build/parent --tree change=.
@@ -52,6 +58,7 @@ GEO = dict(num_sets=1024, slots=32, epb=32, round_cap=64)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak (NVIDIA data sheet)
 WINDOWED = {  # label -> (window, partitions, op, lanes: None for all)
     "IRU_HASH add": (8192, 4, 1, None),
+    "IRU_HASH tagged": (8192, 4, 4, None),
     "w=1024": (1024, 4, 1, None),
     "w=2048": (2048, 4, 1, None),
     "w=4096": (4096, 4, 1, None),
@@ -61,12 +68,16 @@ WINDOWED = {  # label -> (window, partitions, op, lanes: None for all)
     "6144 lanes": (8192, 4, 1, 6144),
     "49152 lanes": (8192, 4, 1, 49152),
 }
-WHOLE = {  # label -> (partitions, op, padded)
-    "whole-stream add": (1, 1, False),
-    "tagged fold": (1, 4, False),
-    "banked layout": (4, 1, False),
-    "serving tick": (1, 4, True),
+WHOLE = {  # label -> (partitions, op, padded, round cap: 0 for none)
+    "whole-stream add": (1, 1, False, 0),
+    "tagged fold": (1, 4, False, 0),
+    "banked layout": (4, 1, False, 0),
+    "serving tick": (1, 4, True, 0),
+    "round-cap add": (1, 1, False, 64),
+    "round-cap banked": (4, 1, False, 64),
+    "round-cap tagged": (4, 4, False, 64),
 }
+NEW_ABI = 2  # a library that takes the round cap and tagged windows
 TICK_LANES = 251_212_640  # a top-rung tick of the serving mix (tile_csr(kron-20, 8))
 
 
@@ -123,19 +134,32 @@ def outputs(idx, val):
                                                device=idx.device))
 
 
-def windowed_call(lib, idx, val, w, parts, op, stamps=None):
+def abi(lib) -> int:
+    try:
+        fn = lib.iru_reorder_abi
+    except AttributeError:
+        return 1
+    fn.restype = _I
+    return fn()
+
+
+def windowed_call(lib, idx, val, w, parts, op, stamps=None, tags=None):
     out = outputs(idx, val)
     st = torch.cuda.current_stream().cuda_stream
-    args = [idx.data_ptr(), val.data_ptr(), None,
+    tagged = [tags.data_ptr() if op == 4 else None,
+              tags.numel() if op == 4 else 0] if abi(lib) >= NEW_ABI else []
+    head = [_P] * 3 + ([_P, _I] if tagged else []) + [_P] * 4 + [_LL] \
+        + [_I] * 8
+    args = [idx.data_ptr(), val.data_ptr(), None, *tagged,
             *(o.data_ptr() for o in out), idx.numel(), w, GEO["num_sets"],
             GEO["slots"], GEO["epb"], parts, GEO["round_cap"], 0, op]
     if stamps is None:
         fn = lib.iru_win_reorder
-        fn.argtypes = [_P] * 7 + [_LL] + [_I] * 8 + [_P]
+        fn.argtypes = head + [_P]
         code = fn(*args, st)
     else:
         fn = lib.iru_win_reorder_stamped
-        fn.argtypes = [_P] * 7 + [_LL] + [_I] * 8 + [_P, _P]
+        fn.argtypes = head + [_P, _P]
         code = fn(*args, stamps.data_ptr(), st)
     if code:
         raise RuntimeError(f"windowed launch failed: CUDA error {code}")
@@ -152,24 +176,29 @@ def padded(idx, val, lanes):
             torch.tensor(idx.numel(), dtype=torch.int32, device=idx.device))
 
 
-def whole_call(lib, idx, val, tags, parts, op, n_live=None):
-    lib.iru_hash_reorder_workspace.argtypes = [_LL, _I, _I]
+def whole_call(lib, idx, val, tags, parts, op, n_live=None, cap=0):
+    new = abi(lib) >= NEW_ABI
+    if cap and not new:
+        raise ValueError("this library has no whole-stream round cap")
+    lib.iru_hash_reorder_workspace.argtypes = [_LL, _I, _I] + (
+        [_I] if new else [])
     lib.iru_hash_reorder_workspace.restype = _LL
     n = idx.numel()
-    work = torch.empty(lib.iru_hash_reorder_workspace(n, GEO["num_sets"],
-                                                      parts),
-                       dtype=torch.uint8, device=idx.device)
+    work = torch.empty(lib.iru_hash_reorder_workspace(
+        n, GEO["num_sets"], parts, *([cap] if new else [])),
+        dtype=torch.uint8, device=idx.device)
     out = outputs(idx, val)
     fn = lib.iru_hash_reorder
-    fn.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _LL] + [_I] * 6 \
-        + [_P]
+    fn.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _LL] \
+        + [_I] * (7 if new else 6) + [_P]
     tagged = op == 4
     code = fn(idx.data_ptr(), val.data_ptr(),
               None if n_live is None else n_live.data_ptr(),
               tags.data_ptr() if tagged else None,
               tags.numel() if tagged else 0, *(o.data_ptr() for o in out),
               work.data_ptr(), n, GEO["num_sets"], GEO["slots"], GEO["epb"],
-              parts, 0, op, torch.cuda.current_stream().cuda_stream)
+              parts, *([cap] if new else []), 0, op,
+              torch.cuda.current_stream().cuda_stream)
     if code:
         raise RuntimeError(f"whole-stream launch failed: CUDA error {code}")
     return out
@@ -234,19 +263,25 @@ def phase_split(lib, idx, val):
 
 
 def occupancy(lib):
+    """(CTAs resident per SM, add; the same tagged or None; shared memory
+    a window), or None without the query."""
     try:
         fn = lib.iru_win_reorder_occupancy
     except AttributeError:
         return None
     fn.argtypes = [_I, _I, _I, _I, _I, _P]
-    blocks = ctypes.c_int(0)
-    code = fn(8192, GEO["num_sets"], 4, 0, 1, ctypes.addressof(blocks))
-    if code:
-        raise RuntimeError(f"occupancy query failed: CUDA error {code}")
+    got = []
+    for op in (1, 4) if abi(lib) >= NEW_ABI else (1,):
+        blocks = ctypes.c_int(0)
+        code = fn(8192, GEO["num_sets"], 4, 0, op, ctypes.addressof(blocks))
+        if code:
+            raise RuntimeError(f"occupancy query failed: CUDA error {code}")
+        got.append(blocks.value)
     smem = lib.iru_win_reorder_smem
     smem.argtypes = [_I, _I, _I]
     smem.restype = _LL
-    return blocks.value, smem(8192, GEO["num_sets"], 4)
+    return got[0], got[1] if len(got) > 1 else None, smem(8192,
+                                                          GEO["num_sets"], 4)
 
 
 def main() -> int:
@@ -276,22 +311,36 @@ def main() -> int:
     idx, val, tags = pagerank_stream(dev)
     print(f"kron-20 PageRank stream: {idx.numel()} lanes")
     calls = {label: (lambda lib, w=w, p=p, op=op, k=k:
-                     windowed_call(lib, idx[:k], val[:k], w, p, op))
+                     windowed_call(lib, idx[:k], val[:k], w, p, op,
+                                   tags=tags))
              for label, (w, p, op, k) in WINDOWED.items()}
     tick = padded(idx, val, TICK_LANES)
     print(f"serving tick: {TICK_LANES} lanes, {idx.numel()} live")
-    calls.update({label: (lambda lib, p=p, op=op, pad=pad:
+    calls.update({label: (lambda lib, p=p, op=op, pad=pad, cap=cap:
                           whole_call(lib, *(tick[:2] if pad else (idx, val)),
                                      tags, p, op,
-                                     tick[2] if pad else None))
-                  for label, (p, op, pad) in WHOLE.items()})
+                                     tick[2] if pad else None, cap))
+                  for label, (p, op, pad, cap) in WHOLE.items()})
+    needs_new = {label for label, v in WINDOWED.items() if v[2] == 4} | {
+        label for label, v in WHOLE.items() if v[3]}
     if args.only:
         calls = {k: v for k, v in calls.items()
                  if any(o in k for o in args.only)}
-    names = list(libs)
     record = {"card": card, "trees": trees, "ms": {}, "phases": {},
-              "occupancy": {}, "kernels": {}}
+              "occupancy": {}, "kernels": {}, "sort_ms": None}
+    if any(label.startswith("round-cap") for label in calls):
+        # the fallback's sort stage against the library's stable sort of the
+        # same keys (the index, its stream position the tie-break)
+        record["sort_ms"] = event_ms(
+            lambda: torch.sort(idx, stable=True))
+        print(f"torch.sort(stable=True) of the {idx.numel()} int32 keys: "
+              f"{record['sort_ms']:.4f} ms")
     for label, call in calls.items():
+        names = [name for name in libs
+                 if label not in needs_new or abi(libs[name]) >= NEW_ABI]
+        if not names:
+            print(f"{label}: no tree has it")
+            continue
         ref = call(libs[names[0]])
         if label in WHOLE:  # B3's bytes: 8 read and 13 written a lane
             lanes = ref[0].numel()
@@ -326,8 +375,9 @@ def main() -> int:
                   + ", ".join(f"{c} ({s})" for c, s in zip(*split)))
         if occ is not None:
             record["occupancy"][name] = occ
-            print(f"occupancy {name}: {occ[0]} CTAs per SM, {occ[1]} bytes "
-                  f"of shared memory a window")
+            tagged = "" if occ[1] is None else f" ({occ[1]} tagged)"
+            print(f"occupancy {name}: {occ[0]} CTAs per SM{tagged}, "
+                  f"{occ[2]} bytes of shared memory a window")
     print(f"card: {card}")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
